@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's Karto path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,13 @@ line):
    stream through the kernels' plain versions on the card must give the
    same poses bit for bit.  Over a longer circuit in the 36 x 28 m
    courtyard of ``tpuslam.io.simulate`` it must close a loop;
+   4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
+   1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
+   below 0.05 m, the correspondence kernel launched, and the same stream
+   through the kernel's plain version gives the same poses;
+   4e. frame-to-frame PL-ICP and ICP (the kernel's nearest mode) over the
+   first 50 scans, and ``plicp_batch`` / ``icp_batch`` of 256 pairs of
+   512 beams timed against the plain chain;
 5. the ``{"kernels": [...]}`` table and, last, the ``{"ok": true, ...}``
    line.
 
@@ -55,11 +62,17 @@ PATCH_SIZES = [(2431, 33), (2007, 9), (1151, 153), (2431, 5), (2007, 5),
 STRIDE2_SIZES = [(1151, 76), (641, 81)]
 # (scans, beams): sequential buffer, link chain, loop chain, outdoor buffer
 FVP_SIZES = [(20, 180), (8, 512), (128, 1081), (110, 1081)]
-# the main path's shapes (outdoor, 1081 beams) for the kernel table
+# (pairs, beams): the odometry's single pair at 512 and 1081 beams, a
+# batch of 16 at 1081, the batched benchmark's 256 x 512
+CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
+# each path's shapes (outdoor Karto and the odometry, 1081 beams) for the
+# kernel table
 MAIN_SHAPES = {
     "patch_sums": "G=2007 S=9 nA=21 B=1081",
     "patch_sums_stride2": "G=1151 s2=76 nA=21 B=1081",
     "fvp": "S=110 B=1081",
+    "plicp_corr": "N=1 B=1081 line doubles normal",
+    "plicp_nearest": "N=1 B=1081 nearest normal",
 }
 
 
@@ -160,6 +173,64 @@ def check_kernels(card: str) -> list[dict]:
         record("fvp", f"S={s} B={b}", got, want,
                lambda: ops_f.find_valid_points(pts, valid, vp),
                lambda: ops_f.find_valid_points_plain(pts, valid, vp))
+    rows += check_corr(card)
+    return rows
+
+
+def _corr_inputs(rng, n, b, lattice):
+    """verify_tpu.py's fixture: normal(0, 2) points, 10 % invalid; or a
+    coarse 1/64 lattice with duplicate points and exact ties (every
+    squared distance exact in f32)."""
+    if lattice:
+        cur = rng.integers(-128, 129, (n, b, 2)) / 64.0
+        ref = rng.integers(-16, 17, (n, b, 2)) / 8.0
+    else:
+        cur = rng.normal(0, 2.0, (n, b, 2))
+        ref = rng.normal(0, 2.0, (n, b, 2))
+    sv = rng.random((n, b)) > 0.1
+    rv = rng.random((n, b)) > 0.1
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
+    return (f32(cur), torch.tensor(sv, device="cuda"), f32(ref),
+            torch.tensor(rv, device="cuda"))
+
+
+def check_corr(card: str) -> list[dict]:
+    """Phase 3, the correspondence kernel: both modes, with and without
+    doubles, equal to the plain version bit for bit in q1, q2, d1 and ok
+    on every row."""
+    from tpuslam_torch.ops import plicp as ops_p
+
+    rows = []
+    rng = np.random.default_rng(29)
+    for n, b in CORR_SIZES:
+        for fixture in ("normal", "lattice"):
+            args = _corr_inputs(rng, n, b, fixture == "lattice")
+            for line in (True, False):
+                for rd in (True, False):
+                    name = "plicp_corr" if line else "plicp_nearest"
+                    shape = (f"N={n} B={b} {'line' if line else 'nearest'}"
+                             f"{' doubles' if rd else ''} {fixture}")
+
+                    def kern(line=line, rd=rd, args=args, name=name):
+                        return ops_p._launch(*args, 1.0, rd, line, name)
+
+                    def plain(line=line, rd=rd, args=args):
+                        return ops_p.correspondences_plain(*args, 1.0, rd,
+                                                           line)
+
+                    got, want = kern(), plain()
+                    err = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want))
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        raise RuntimeError(f"{name} {shape}: kernel != plain "
+                                           f"(max |err| {err})")
+                    row = {"kernel": name, "shape": shape, "max_abs_err": err,
+                           "ok_rows": int(got[3].sum()),
+                           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
+                    rows.append(row)
+                    print(f"  {name:19s} {shape:34s} equal  kernel "
+                          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+                          f"  ok rows {row['ok_rows']}  [{card}]", flush=True)
     return rows
 
 
@@ -244,9 +315,7 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
             range_max=lidar_range, num_beams=num_beams, device=device)))
     m = KartoMapper(cfg, max_scans=max_scans, device=device)
     on_card = torch.device(device).type == "cuda"
-    for d in (ops_c.LAUNCHES, ops_f.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
     truths = []
     if on_card:
         torch.cuda.synchronize()
@@ -290,18 +359,214 @@ def plain_path():
     from tpuslam_torch.match import correlative as match_c
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.ops import plicp as ops_p
 
     saved = (match_c.patch_sums, match_c.patch_sums_stride2,
-             ops_f.find_valid_points)
+             ops_f.find_valid_points, ops_p.correspondences, ops_p.nearest)
     match_c.patch_sums = ops_c.patch_sums_plain
     match_c.patch_sums_stride2 = functools.partial(
         ops_c.patch_sums_plain, stride=2)
     ops_f.find_valid_points = ops_f.find_valid_points_plain
+    ops_p.correspondences = ops_p.correspondences_plain
+    ops_p.nearest = ops_p.nearest_plain
     try:
         yield
     finally:
         (match_c.patch_sums, match_c.patch_sums_stride2,
-         ops_f.find_valid_points) = saved
+         ops_f.find_valid_points, ops_p.correspondences,
+         ops_p.nearest) = saved
+
+
+def odometry_stream(device, num_beams: int, n_scans: int = 320):
+    """benchmarks/suite.py's ate_rmse_plicp fixture: a 320-pose circle
+    (radius 1.2 m, 3.2 turns) in the boxes world, 1 cm range noise from
+    default_rng(3), ranges kept in [0.05, 19] m.  Returns the truth
+    relative to the first pose [T, 3] and the scans on ``device``."""
+    from tpuslam.io.simulate import (
+        circle_trajectory,
+        simulate_scan,
+        world_with_boxes,
+    )
+    from tpuslam_torch.core import se2
+    from tpuslam_torch.core.scan import make_scan
+
+    segs = world_with_boxes()
+    traj = circle_trajectory(radius=1.2, num_poses=n_scans,
+                             full_turns=n_scans / 100.0)
+    rng = np.random.default_rng(3)
+    scans = []
+    for pose in traj:
+        r, amin, ainc = simulate_scan(segs, pose, num_beams=num_beams,
+                                      max_range=20.0, noise_std=0.01, rng=rng)
+        scans.append(make_scan(r, amin, ainc, 0.05, 19.0,
+                               num_beams=num_beams, device=device))
+    t = torch.tensor(traj, dtype=torch.float64)
+    return se2.relative(t[0], t).numpy(), traj, scans
+
+
+def _reset(*counters):
+    for d in counters:
+        for k in d:
+            d[k] = 0
+
+
+def _timed(fn, on_card):
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_odometry(device, num_beams: int = 1081, n_scans: int = 320):
+    """Phase 4d: ``plicp_odometry.step`` over the stream; the launch
+    counters are set to 0 just before the stream and read just after."""
+    from tpuslam_torch.core.config import PlicpConfig
+    from tpuslam_torch.models import plicp_odometry
+    from tpuslam_torch.ops import plicp as ops_p
+
+    truth, _, scans = odometry_stream(device, num_beams, n_scans)
+    cfg = PlicpConfig(num_beams=num_beams, kf_scan_count=6)
+
+    def stream():
+        st = plicp_odometry.init_state(cfg, device=device)
+        poses, kfs, valid = [], [], []
+        for sc in scans:
+            st, info = plicp_odometry.step(cfg, st, sc, dt=0.1)
+            poses.append(info.pose)
+            kfs.append(info.new_keyframe)
+            valid.append(info.match_valid)
+        return (torch.stack(poses).cpu().numpy(),
+                int(torch.stack(kfs).sum()), int(torch.stack(valid).sum()))
+
+    _reset(ops_p.LAUNCHES)
+    (poses, n_kf, n_valid), wall = _timed(
+        stream, torch.device(device).type == "cuda")
+    launches = dict(ops_p.LAUNCHES)
+    err = np.hypot(*(poses[:, :2] - truth[:, :2]).T)
+    return {
+        "scans": len(scans),
+        "beams": num_beams,
+        "seconds": wall,
+        "scans_per_s": len(scans) / wall,
+        "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
+        "max_err_m": float(err.max()),
+        "keyframes": n_kf,
+        "valid_matches": n_valid,
+        "launches": launches,
+        "launches_per_scan": launches["plicp_corr"] / len(scans),
+    }, poses
+
+
+def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50):
+    """Phase 4e: scan_match_plicp and scan_match_icp (the nearest mode,
+    20 iterations as ``cli.py``) over the first scans of the stream; each
+    run resets the counters just before it and reads them just after.
+    Errors are against the true frame-to-frame motion."""
+    from tpuslam_torch.core import se2
+    from tpuslam_torch.core.config import IcpConfig, PlicpConfig
+    from tpuslam_torch.models import scan_match_icp, scan_match_plicp
+    from tpuslam_torch.ops import plicp as ops_p
+
+    _, traj, scans = odometry_stream(device, num_beams, 320)
+    scans = scans[:n_scans]
+    t = torch.tensor(traj[:n_scans], dtype=torch.float64)
+    prev_in_cur = se2.relative(t[1:], t[:-1]).numpy()  # ICP's direction
+    cur_in_prev = se2.relative(t[:-1], t[1:]).numpy()  # PL-ICP's
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    for tag, model, cfg, want in (
+        ("plicp", scan_match_plicp, PlicpConfig(num_beams=num_beams),
+         cur_in_prev),
+        ("icp", scan_match_icp,
+         IcpConfig(num_beams=num_beams, max_iterations=20,
+                   correspondence_method="kernel"), prev_in_cur),
+        ("icp_auto", scan_match_icp,
+         IcpConfig(num_beams=num_beams, max_iterations=20), prev_in_cur),
+    ):
+        def stream(model=model, cfg=cfg):
+            st = model.init_state(cfg, device=device)
+            poses = []
+            for sc in scans:
+                st, res = model.step(cfg, st, sc)
+                poses.append(res.pose)
+            return torch.stack(poses[1:]).cpu().numpy()
+
+        _reset(ops_p.LAUNCHES)
+        poses, wall = _timed(stream, on_card)
+        err = np.hypot(*(poses[:, :2] - want[:, :2]).T)
+        out[tag] = {"scans": len(scans), "seconds": wall,
+                    "scans_per_s": len(scans) / wall,
+                    "median_err_m": float(np.median(err)),
+                    "max_err_m": float(err.max()),
+                    "launches": dict(ops_p.LAUNCHES), "poses": poses}
+    return out
+
+
+def batch_fixture(n: int = 256, num_beams: int = 512):
+    """benchmarks/suite.py's scan_fixtures: n scans from poses uniform in
+    +-0.2 in an 8 x 6 m room, 512 beams; each scan is matched onto the
+    one before it (a roll by one)."""
+    from tpuslam.io.simulate import rect_room, simulate_scan
+    from tpuslam_torch.core.scan import make_scan, scan_to_points
+
+    segs = rect_room(8.0, 6.0)
+    rng = np.random.default_rng(0)
+    pts, valid = [], []
+    for pose in rng.uniform(-0.2, 0.2, size=(n, 3)):
+        r, amin, ainc = simulate_scan(segs, pose, num_beams=num_beams,
+                                      max_range=20.0)
+        p, v = scan_to_points(make_scan(r, amin, ainc, 0.1, 20.0,
+                                        num_beams=num_beams, device="cuda"))
+        pts.append(p)
+        valid.append(v)
+    pts, valid = torch.stack(pts), torch.stack(valid)
+    return (pts, valid, torch.roll(pts, 1, 0), torch.roll(valid, 1, 0),
+            torch.zeros((n, 3), device="cuda"))
+
+
+def time_batches(card: str, runs: int = 5) -> dict:
+    """Phase 4e: plicp_batch and icp_batch at N=256, B=512, kernel against
+    the plain chain, in turns (plain, kernel, kernel, plain)."""
+    from tpuslam_torch.core.config import IcpConfig, PlicpConfig
+    from tpuslam_torch.match.icp import icp_batch
+    from tpuslam_torch.match.plicp import plicp_batch
+
+    args = batch_fixture()
+    n = args[0].shape[0]
+    pcfg = PlicpConfig(num_beams=512)
+    icfg = IcpConfig(num_beams=512, max_iterations=10,
+                     correspondence_method="kernel")
+    icfg_auto = dataclasses.replace(icfg, correspondence_method="auto")
+
+    def plicp_plain():
+        with plain_path():
+            return plicp_batch(pcfg, *args)
+
+    fns = {
+        "plicp_batch": (lambda: plicp_batch(pcfg, *args), plicp_plain),
+        "icp_batch": (lambda: icp_batch(icfg, *args),
+                      lambda: icp_batch(icfg_auto, *args)),
+    }
+    out = {}
+    for name, (kern, plain) in fns.items():
+        k, p = kern(), plain()
+        same = bool(torch.equal(k.pose, p.pose))
+        t = [cuda_ms(f, runs) for f in (plain, kern, kern, plain)]
+        ms, plain_ms = statistics.mean(t[1:3]), statistics.mean([t[0], t[3]])
+        out[name] = {"pairs": n, "beams": 512, "ms": ms, "plain_ms": plain_ms,
+                     "matches_per_s": n / ms * 1e3,
+                     "plain_matches_per_s": n / plain_ms * 1e3,
+                     "same_poses": same}
+        print(f"  {name}: N={n} B=512 kernel {ms:.3f} ms "
+              f"({n / ms * 1e3:.0f} matches/s), plain {plain_ms:.3f} ms "
+              f"({n / plain_ms * 1e3:.0f} matches/s), same poses {same} "
+              f"[{card}]", flush=True)
+        if not same:
+            raise RuntimeError(f"{name}: kernel and plain poses differ")
+    return out
 
 
 def _report(tag, s, card):
@@ -386,6 +651,52 @@ def main() -> int:
     idle = [k for k, v in sl["launches"].items() if v <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched in the loop run: {idle}")
+
+    # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
+    # through the kernel's plain version: identical poses
+    od, od_poses = run_odometry("cuda")
+    print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans in "
+          f"{od['seconds']:.2f} s = {od['scans_per_s']:.2f} scans/s, ATE RMSE "
+          f"{od['ate_rmse_m']:.4f} m (max {od['max_err_m']:.4f}), keyframes "
+          f"{od['keyframes']}, valid {od['valid_matches']}, launches "
+          f"{od['launches']} ({od['launches_per_scan']:.2f} per scan) "
+          f"[{card}]", flush=True)
+    if not od["ate_rmse_m"] < 0.05:
+        raise RuntimeError(f"odometry ATE RMSE {od['ate_rmse_m']} >= 0.05 m")
+    if od["launches"]["plicp_corr"] <= 0:
+        raise RuntimeError("the correspondence kernel never launched in the "
+                           "odometry")
+    with plain_path():
+        odp, odp_poses = run_odometry("cuda")
+    dpose = float(np.abs(odp_poses - od_poses).max())
+    print(f"same stream, plain version: {odp['scans_per_s']:.2f} scans/s, "
+          f"max |pose diff| {dpose} [{card}]", flush=True)
+    if dpose != 0.0:
+        raise RuntimeError("the plain path's odometry poses differ")
+
+    # 4e. frame-to-frame PL-ICP and ICP (nearest mode) over 50 scans, and
+    # the batched matchers against the plain chain
+    ff = run_frame_to_frame("cuda")
+    for tag, r in ff.items():
+        print(f"frame to frame {tag}: {r['scans']} scans, "
+              f"{r['scans_per_s']:.2f} scans/s, median err "
+              f"{r['median_err_m']:.4f} m (max {r['max_err_m']:.4f}), "
+              f"launches {r['launches']} [{card}]", flush=True)
+    if ff["plicp"]["launches"]["plicp_corr"] <= 0:
+        raise RuntimeError("frame-to-frame PL-ICP never launched the kernel")
+    if ff["icp"]["launches"]["plicp_nearest"] <= 0:
+        raise RuntimeError("ICP never launched the kernel's nearest mode")
+    if sum(ff["icp_auto"]["launches"].values()):
+        raise RuntimeError("ICP's plain chain launched a kernel")
+    if not np.array_equal(ff["icp"]["poses"], ff["icp_auto"]["poses"]):
+        raise RuntimeError("ICP: nearest mode and plain chain differ")
+    # PL-ICP lands within millimetres; point-to-point ICP converges
+    # slower on 1 cm noise (8 mm median at 360 beams on the CPU)
+    for tag, bound in (("plicp", 0.01), ("icp", 0.02)):
+        if not ff[tag]["median_err_m"] < bound:
+            raise RuntimeError(f"frame-to-frame {tag}: median error "
+                               f"{ff[tag]['median_err_m']} m >= {bound}")
+    batches = time_batches(card)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
@@ -396,23 +707,33 @@ def main() -> int:
         "patch_sums_stride2": ("tpuslam_torch/csrc/patch_sums.cu",
                                "tpuslam/ops/pallas_correlative.py:294"),
         "fvp": ("tpuslam_torch/csrc/fvp.cu", "tpuslam/ops/pallas_fvp.py:96"),
+        "plicp_corr": ("tpuslam_torch/csrc/plicp_corr.cu",
+                       "tpuslam/ops/pallas_plicp.py:244"),
+        "plicp_nearest": ("tpuslam_torch/csrc/plicp_corr.cu",
+                          "tpuslam/ops/pallas_plicp.py:260"),
     }
+    # each kernel's count from the path that runs it
+    launches = {**s["launches"], **od["launches"],
+                "plicp_nearest": ff["icp"]["launches"]["plicp_nearest"]}
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
         main = next(r for r in mine if r["shape"] == MAIN_SHAPES[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": s["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
         })
+    for r in ff.values():
+        r["poses"] = r["poses"].tolist()
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"card": card, "build": {
         k: v for k, v in info.items() if k != "log"},
         "ptxas": info["log"], "kernels_vs_plain": rows, "slice": s,
-        "slice_plain_path": sp, "slice_courtyard": sl,
-        "kernels": kernels}, indent=1))
+        "slice_plain_path": sp, "slice_courtyard": sl, "odometry": od,
+        "odometry_plain_path": odp, "frame_to_frame": ff,
+        "batches": batches, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,7 +141,11 @@ def test_correlative_spec_rejects_unported_methods():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, tpuslam_torch.models.karto, tpuslam_torch.convert; "
+        "import sys, tpuslam_torch.models.karto, tpuslam_torch.convert, "
+        "tpuslam_torch.models.plicp_odometry, "
+        "tpuslam_torch.models.scan_match_plicp, "
+        "tpuslam_torch.models.scan_match_icp, tpuslam_torch.match.icp, "
+        "tpuslam_torch.match.plicp, tpuslam_torch.ops.plicp; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     subprocess.run([sys.executable, "-c", code], check=True,

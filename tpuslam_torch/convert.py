@@ -1,12 +1,18 @@
-"""Carry a Karto mapper's state across from the JAX package.
+"""Carry a running engine's state across from the JAX package.
 
-This system has no weights; what a running mapper has learned is its
-state: the device scan store, the corrected poses, the graph and the
-windows.  :func:`karto_state_from_numpy` takes that state as NumPy arrays
-and plain Python containers (a JAX mapper's attributes after
-``np.asarray``) and returns a checked, copied dict that
-``KartoMapper.from_state(cfg, state, device)`` continues from.  Nothing
-here sees jax: the caller does the JAX -> NumPy dump.
+This system has no weights; what a running engine has learned is its
+state.  Each function here takes that state as NumPy arrays and plain
+Python containers (the JAX state after ``np.asarray``) and returns the
+port's checked copy:
+
+- :func:`karto_state_from_numpy`: a Karto mapper's scan store, poses,
+  graph and windows, as a dict ``KartoMapper.from_state(cfg, state,
+  device)`` continues from;
+- :func:`odom_state_from_numpy`: a PL-ICP odometry ``OdomState``;
+- :func:`frame_state_from_numpy`: a frame-to-frame ``FrameState`` (ICP or
+  PL-ICP).
+
+Nothing here sees jax: the caller does the JAX -> NumPy dump.
 """
 
 from __future__ import annotations
@@ -14,6 +20,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from tpuslam_torch.models import plicp_odometry, scan_match_icp
 
 STATE_KEYS = (
     "_pts", "_valid", "poses", "mean_locals", "records", "edges",
@@ -94,3 +103,54 @@ def karto_state_from_numpy(d: dict) -> dict:
         },
         "stats": dict(d["stats"]),
     }
+
+
+def _fields(state, keys) -> dict:
+    d = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    if set(d) != set(keys):
+        raise ValueError(f"state keys {sorted(d)} != {sorted(keys)}")
+    return d
+
+
+def _points(pts, valid, what: str):
+    pts = np.asarray(pts, np.float32)
+    valid = np.asarray(valid, bool)
+    if pts.ndim != 2 or pts.shape[1] != 2 or valid.shape != pts.shape[:1]:
+        raise ValueError(f"{what} must be [B, 2] / [B], got {pts.shape} / "
+                         f"{valid.shape}")
+    return pts, valid
+
+
+def odom_state_from_numpy(state, device=None) -> plicp_odometry.OdomState:
+    """A JAX ``plicp_odometry.OdomState`` (as NumPy values) on ``device``."""
+    d = _fields(state, plicp_odometry.OdomState._fields)
+    pts, valid = _points(d["keyframe_pts"], d["keyframe_valid"], "keyframe")
+
+    def pose(k):
+        a = np.asarray(d[k], np.float32)
+        if a.shape != (3,):
+            raise ValueError(f"{k} must be [3], got {a.shape}")
+        return torch.tensor(a, device=device)
+
+    return plicp_odometry.OdomState(
+        keyframe_pts=torch.tensor(pts, device=device),
+        keyframe_valid=torch.tensor(valid, device=device),
+        keyframe_pose=pose("keyframe_pose"),
+        base_in_odom=pose("base_in_odom"),
+        velocity=pose("velocity"),
+        scans_since_keyframe=torch.tensor(
+            int(d["scans_since_keyframe"]), dtype=torch.int32, device=device),
+        initialized=bool(d["initialized"]),
+    )
+
+
+def frame_state_from_numpy(state, device=None) -> scan_match_icp.FrameState:
+    """A JAX ``FrameState`` of ``scan_match_icp`` or ``scan_match_plicp``
+    (as NumPy values) on ``device``; the port's two models share it."""
+    d = _fields(state, scan_match_icp.FrameState._fields)
+    pts, valid = _points(d["last_pts"], d["last_valid"], "last scan")
+    return scan_match_icp.FrameState(
+        last_pts=torch.tensor(pts, device=device),
+        last_valid=torch.tensor(valid, device=device),
+        initialized=bool(d["initialized"]),
+    )

@@ -1,14 +1,101 @@
-"""Karto config, copied field for field from ``tpuslam/core/config.py``.
+"""Configs copied field for field from ``tpuslam/core/config.py``.
 
 The port cannot import the original: ``tpuslam/core/__init__.py`` pulls in
-jax.  Names and defaults are the reference YAML's (lesson6
-mapper_params_outdoor.yaml + Mapper.cpp defaults 1448-1964); a CPU test
-holds ``dataclasses.asdict`` of both against each other.
+jax.  Names and defaults are the reference's (lesson2 PCL defaults, lesson3
+plicp_odometry.cc:58-186, lesson6 mapper_params_outdoor.yaml + Mapper.cpp
+defaults 1448-1964); a CPU test holds ``dataclasses.asdict`` of both
+against each other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+# correspondence search (not a reference knob): "auto" and "kernel" are
+# the port's two values; the JAX package's "xla" / "pallas" are not ported
+CORRESPONDENCE_METHODS = ("auto", "kernel")
+
+
+def _check_method(method: str) -> None:
+    if method not in CORRESPONDENCE_METHODS:
+        raise ValueError(
+            f"correspondence_method {method!r} is not ported; known: "
+            f"{CORRESPONDENCE_METHODS}"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class IcpConfig:
+    """Lesson2 point-to-point ICP (PCL defaults, scan_match_icp.cc:135-164)."""
+
+    max_iterations: int = 10  # PCL default
+    max_correspondence_dist: float = 1.0
+    transformation_epsilon: float = 1e-8
+    # nearest-neighbour search: "auto" = the plain PyTorch chain (as the
+    # JAX package chose for ICP); "kernel" = the nearest mode of the
+    # csrc/plicp_corr.cu kernel on a CUDA device (its plain version on CPU)
+    correspondence_method: str = "auto"
+    num_beams: int = 1500
+
+    def __post_init__(self):
+        _check_method(self.correspondence_method)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlicpConfig:
+    """Lesson3 CSM PL-ICP knobs (plicp_odometry.cc:58-186); names/defaults 1:1.
+
+    Fields that only steer CSM-internal heuristics we do not reproduce
+    (corr tricks verification) are kept for config compatibility but
+    ignored, as documented per field.
+    """
+
+    # keyframe gating (plicp_odometry.cc:63-67; yaml overrides 0.1 / 5)
+    kf_dist_linear: float = 0.1
+    kf_dist_angular: float = 5.0 * math.pi / 180.0
+    kf_scan_count: int = 10
+
+    # CSM core
+    max_angular_correction_deg: float = 45.0
+    max_linear_correction: float = 1.0
+    max_iterations: int = 10
+    epsilon_xy: float = 1e-6
+    epsilon_theta: float = 1e-6
+    max_correspondence_dist: float = 1.0
+    sigma: float = 0.010  # noise scale: covariance + sigma weights
+    use_corr_tricks: int = 1  # ignored (the search is dense anyway)
+    restart: int = 0  # re-run from displaced guess on high error
+    restart_threshold_mean_error: float = 0.01
+    restart_dt: float = 1.0
+    restart_dtheta: float = 0.1
+    # scan clustering + neighbourhood normal fit (scan_orientations):
+    # feed the alpha test and the ml incidence weights
+    clustering_threshold: float = 0.25
+    orientation_neighbourhood: int = 20
+    use_point_to_line_distance: int = 1
+    do_alpha_test: int = 0  # normal-compatibility gate
+    do_alpha_test_thresholdDeg: float = 20.0
+    outliers_maxPerc: float = 0.90
+    outliers_adaptive_order: float = 0.7
+    outliers_adaptive_mult: float = 2.0
+    do_visibility_test: int = 0  # viewpoint monotonicity cull
+    outliers_remove_doubles: int = 1
+    do_compute_covariance: int = 0
+    debug_verify_tricks: int = 0  # ignored
+    use_ml_weights: int = 0  # incidence cos^2 weighting
+    use_sigma_weights: int = 0  # uniform 1/sigma^2 scale
+    # correspondence search: "auto" and "kernel" both run the
+    # csrc/plicp_corr.cu kernel on a CUDA device and its plain version on
+    # the CPU; do_alpha_test=1 and use_ml_weights=1 pin the plain chain
+    # (the former reorders the gating, the latter needs the matched
+    # point's fitted normal)
+    correspondence_method: str = "auto"
+
+    num_beams: int = 1500
+
+    def __post_init__(self):
+        _check_method(self.correspondence_method)
 
 
 @dataclasses.dataclass(frozen=True)

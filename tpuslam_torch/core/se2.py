@@ -43,3 +43,30 @@ def transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     nx = c[..., None] * x - s[..., None] * y + pose[..., 0:1]
     ny = s[..., None] * x + c[..., None] * y + pose[..., 1:2]
     return torch.stack([nx, ny], dim=-1)
+
+
+def exp(twist: torch.Tensor) -> torch.Tensor:
+    """SE(2) exponential map from a twist (vx, vy, omega)."""
+    vx, vy, w = twist[..., 0], twist[..., 1], twist[..., 2]
+    small = torch.abs(w) < 1e-6
+    w_safe = torch.where(small, torch.ones_like(w), w)
+    sw, cw = torch.sin(w_safe), torch.cos(w_safe)
+    a = torch.where(small, 1.0 - w * w / 6.0, sw / w_safe)
+    b = torch.where(small, w / 2.0, (1.0 - cw) / w_safe)
+    x = a * vx - b * vy
+    y = b * vx + a * vy
+    return torch.stack([x, y, wrap_angle(w)], dim=-1)
+
+
+def log(pose: torch.Tensor) -> torch.Tensor:
+    """SE(2) logarithm map to a twist."""
+    x, y, th = pose[..., 0], pose[..., 1], wrap_angle(pose[..., 2])
+    small = torch.abs(th) < 1e-6
+    th_safe = torch.where(small, torch.ones_like(th), th)
+    half = th_safe / 2.0
+    cot = half / torch.tan(half)
+    a = torch.where(small, 1.0 - th * th / 12.0, cot)  # (th/2)cot(th/2)
+    b = torch.where(small, -th / 2.0, -half)
+    vx = a * x - b * y
+    vy = b * x + a * y
+    return torch.stack([vx, vy, th], dim=-1)

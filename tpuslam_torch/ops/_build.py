@@ -1,22 +1,25 @@
 """Build and load the hand-written Hopper kernels in ``tpuslam_torch/csrc``.
 
-On first use every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared
-library with a plain C interface::
+On first use every ``csrc/*.cu`` is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with
+a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \
-         -shared -Xcompiler -fPIC -o build/tpuslam_torch/libtpuslam_torch_<hash>.so \
-         csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj dir>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC \
+         -o build/tpuslam_torch/libtpuslam_torch_<hash>.so <obj dir>/*.o
 
 and loaded with ``ctypes``.  ``<hash>`` is a hash of the sources and the
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an FMA:
-the FindValidPoints walk must evaluate its f32 expressions in the
-reference's exact order.
+the FindValidPoints walk and the correspondence distances must evaluate
+their f32 expressions in the reference's exact order.
 
 Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` and its sizes as ``c_int``, and returns ``cudaGetLastError()``
-after its launch; :func:`check` raises when that is not 0.  With no
-``nvcc`` the loader raises: there is no fallback.
+``c_void_p``, its sizes as ``c_int`` and its f32 scalars as ``c_float``,
+and returns ``cudaGetLastError()`` after its launch; :func:`check` raises
+when that is not 0.  With no ``nvcc`` the loader raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -33,20 +36,27 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpuslam_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *_ARCH, "-std=c++17", "-O3", "--fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = (*_ARCH, "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (pointers and the stream c_void_p, ints c_int)
+_F = ctypes.c_float
+# C entry points: name -> argtypes (pointers and the stream c_void_p, ints
+# c_int, f32 scalars c_float)
 SIGNATURES = {
     # q, g, ay, ax, ok, n_a, b, s, stride, out, stream
     "tpuslam_patch_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # px, py, pv, vp, s, b, dec, keep, out, stream
     "tpuslam_fvp": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles,
+    # q1, q2, d1, ok, j1, best, stream
+    "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P),
 }
 _ERROR_STRING = "tpuslam_error_string"  # int code -> const char*
 
@@ -80,26 +90,42 @@ def _sources() -> list[Path]:
 
 
 def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _check_nvcc(cmd: list[str], rc: int, log: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+
+
 def _compile(nvcc: str, sources: list[Path], target: Path) -> str:
-    target.parent.mkdir(parents=True, exist_ok=True)
+    """One nvcc per source, all at once, then one link; returns the logs."""
+    work = target.parent / f"{target.stem}.{os.getpid()}.objs"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [str(work / f"{src.stem}.o") for src in sources]
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", o, str(src)]
+                for src, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = [p.communicate()[0] for p in procs]  # waits for every one
+        for cmd, proc, log in zip(cmds, procs, logs):
+            _check_nvcc(cmd, proc.returncode, log)
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *objs]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout)
+        os.replace(tmp, target)  # atomic: a loader sees all or none
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
-    return proc.stdout + proc.stderr
+        shutil.rmtree(work, ignore_errors=True)
+    return "\n".join(logs + [proc.stdout])
 
 
 def load() -> ctypes.CDLL:
