@@ -10,15 +10,26 @@ line):
 2. build the hand-written kernels (``tpuslam_torch/csrc/*.cu``) and print
    the build time;
 3. every kernel against its plain PyTorch version on the card at the
-   production sizes, with the median CUDA-event time of both: bit for bit,
-   except the Hector GN level (``hector_gn``), whose beam sums take
-   another order, held to ``HECTOR_BOUNDS`` with equal in-gate counts;
+   production sizes (and FindValidPoints' edge cases: one valid point a
+   scan, B=1, whole scans inside 0.1 m): bit for bit, except the Hector
+   GN level (``hector_gn``), whose beam sums take another order, held to
+   ``HECTOR_BOUNDS`` with equal in-gate counts.  Each row gets the
+   wrapper's and the plain version's CUDA-event time (one pair of events
+   around 20 calls), the kernel's own device time from ``torch.profiler``
+   (``kernel_us``, summed by kernel name over 20 calls), its roofline bound
+   computed from this run's inputs (``bound_us``: bytes in and out at
+   3.35 TB/s, the patch sums' grid counted as the cells their patches
+   cover, or f32 operations at 67 TFLOP/s, whichever is larger) and, for the
+   patch sums, the time of ``F.conv2d`` on the JAX "conv" method's point
+   indicator (``library_ms``, TF32 off, never called by the port);
 4. the slice end to end: a ``KartoMapper`` at the outdoor configuration
    with 1081 beams on the card, over a 24 x 18 m rectangular circuit; it
    must stay within the ATE bound and launch every kernel.  The same
    stream through the kernels' plain versions on the card must give the
-   same poses bit for bit.  Over a longer circuit in the 36 x 28 m
-   courtyard of ``tpuslam.io.simulate`` it must close a loop;
+   same poses bit for bit.  Both Karto streams run once more under
+   ``torch.profiler`` for the device busy share and device ms a scan.
+   Over a longer circuit in the 36 x 28 m
+   courtyard of ``tpuslam_torch.io.simulate`` it must close a loop;
    4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
    1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
    below 0.05 m, the correspondence kernel launched, and the same stream
@@ -40,8 +51,9 @@ line):
    line.
 
 Writes the full results to ``chiprun_out/chip_smoke.json``.  Imports
-nothing of JAX: the only ``tpuslam`` modules used are jax-free
-(``tpuslam.io.simulate``).
+nothing of JAX and nothing of the JAX package ``tpuslam``: the synthetic
+worlds come from the port's own copy, ``tpuslam_torch.io.simulate``; the
+run fails if ``jax``, ``tpuslam`` or a ``tpuslam.*`` module was imported.
 """
 
 from __future__ import annotations
@@ -72,8 +84,12 @@ PATCH_SIZES = [(2431, 33), (2007, 9), (1151, 153), (2431, 5), (2007, 5),
                (2007, 3)]
 # (G, s2): outdoor loop 15 m @ 0.1 / 50 m; default loop 8 m @ 0.05 / 12 m
 STRIDE2_SIZES = [(1151, 76), (641, 81)]
-# (scans, beams): sequential buffer, link chain, loop chain, outdoor buffer
-FVP_SIZES = [(20, 180), (8, 512), (128, 1081), (110, 1081)]
+# (scans, beams, kind): sequential buffer, link chain, loop chain, outdoor
+# buffer; then the edge cases (one valid point a scan, one beam, whole
+# scans inside 0.1 m)
+FVP_SIZES = [(20, 180, "normal"), (8, 512, "normal"), (128, 1081, "normal"),
+             (110, 1081, "normal"), (8, 1081, "single"), (4, 1, "normal"),
+             (8, 1081, "inside")]
 # (pairs, beams): the odometry's single pair at 512 and 1081 beams, a
 # batch of 16 at 1081, the batched benchmark's 256 x 512
 CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
@@ -111,6 +127,184 @@ MAIN_SHAPES = {
 }
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet): memory rate
+# and the f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations a unit of work, from each kernel's contract: the walk's
+# distance test (2 sub, 2 mul, add, compare) and side test (3 sub, 4 mul,
+# 2 add, compare) a valid point; one squared distance and compare a
+# (source, reference) pair; the GN level's per-beam terms (transform,
+# bf16 lerp and tent weights, J, J^T J, J^T r, score: ~60) a valid beam
+# an iteration
+FVP_OPS_PER_POINT = 16
+CORR_OPS_PER_PAIR = 6
+HECTOR_OPS_PER_BEAM = 60
+# kernel names in the profiler, by table row
+KERNEL_NAMES = {
+    "patch_sums": ("patch_sums_kernel",),
+    "patch_sums_stride2": ("patch_sums_kernel",),
+    "fvp": ("fvp_kernel",),
+    "plicp_corr": ("corr_rows_kernel", "doubles_kernel"),
+    "plicp_nearest": ("corr_rows_kernel", "doubles_kernel"),
+    "hector_gn": ("hector_gn_kernel",),
+}
+# the library yardstick's first call may take this long before it counts
+# as "not measured"
+LIBRARY_CAP_S = 5.0
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """Roofline bound in microseconds: the larger of the bytes over the
+    memory rate and the operations over the f32 rate, and which binds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = ops / F32_OPS_PER_S * 1e6
+    return {"bound_us": max(t_bytes, t_ops), "bytes": nbytes, "ops": ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cells_read(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
+    """Distinct cells of the G x G grid that some kept point's patch covers
+    (``s`` x ``s`` cells from its corner on the ``stride`` lattice; every
+    corner on the grid, as phase 3 draws them): the corners' indicator on
+    each parity class dilated by an s x s max pool."""
+    import torch.nn.functional as F
+
+    hit = torch.zeros(g * g, device=ay.device)
+    hit[(ay.long() * g + ax.long())[ok]] = 1.0
+    hit = hit.view(g, g)
+    n = 0
+    for py in range(stride):
+        for px in range(stride):
+            sub = F.pad(hit[py::stride, px::stride][None, None],
+                        (s - 1, 0, s - 1, 0))
+            n += int(F.max_pool2d(sub, s, stride=1).sum())
+    return n
+
+
+def patch_bound(q, ay, ax, ok, s, stride: int = 1) -> dict:
+    """The grid's cells inside the kept points' patches (u8), ay/ax
+    [nA, B] i32, ok [nA, B] in; [nA, s, s] f32 out; one add a kept point
+    and output cell."""
+    n_a, b = ay.shape
+    return bound(cells_read(q.shape[0], ay, ax, ok, s, stride)
+                 + n_a * b * 9 + n_a * s * s * 4, float(ok.sum()) * s * s)
+
+
+def fvp_bound(valid) -> dict:
+    """pts [S, B, 2] f32, valid [S, B], viewpoint [2] in; [S, B] out."""
+    n = valid.numel()
+    return bound(n * 8 + n + 8 + n, float(valid.sum()) * FVP_OPS_PER_POINT)
+
+
+def corr_bound(cur, ref) -> dict:
+    """cur [N, B, 2], ref [N, B', 2] f32 and their valid bytes in; q1, q2
+    [N, B, 2] f32, d1 [N, B] f32, ok [N, B] out; every pair compared."""
+    n, b = cur.shape[:2]
+    nr = ref.shape[1]
+    return bound(n * b * 9 + n * nr * 9 + n * b * (16 + 4 + 1),
+                 float(n * b * nr * CORR_OPS_PER_PAIR))
+
+
+def hector_bound(grid, valid, iters) -> dict:
+    """The bf16 grid, pts [S, B, 2] f32, valid [S, B], poses [S, 3] in;
+    pose [S, 3], H [S, 3, 3], score, in-gate count out."""
+    s, b = valid.shape
+    return bound(grid.numel() * 2 + s * b * 9 + s * 12 + s * (12 + 36 + 8),
+                 float(valid.sum()) * iters * HECTOR_OPS_PER_BEAM)
+
+
+def kernel_us(fn, names, runs: int = TIMED_RUNS,
+              tries: int = 3) -> float | None:
+    """Device microseconds a call of ``fn`` spends in the kernels named
+    ``names`` (substrings of the profiler's kernel names): ``runs`` calls
+    under ``torch.profiler`` (CUDA activity only), each kernel's device
+    time summed over its launches and divided by their count, the kernels
+    of one call added up.  CUPTI may drop records, now and then all of a
+    session's: a session that saw fewer than half the launches is run
+    again, up to ``tries`` sessions, and then the time is not measured
+    (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        per_name = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and any(n in e.key
+                                                        for n in names):
+                us = getattr(e, "self_device_time_total", None)
+                t, c = per_name.get(e.key, (0.0, 0))
+                per_name[e.key] = (t + (e.self_cuda_time_total if us is None
+                                        else us), c + e.count)
+        if per_name and min(c for _, c in per_name.values()) >= runs // 2:
+            return sum(t / c for t, c in per_name.values())
+    print(f"  the profiler saw {per_name} for {names} in {runs} calls, "
+          f"{tries} times: kernel_us not measured", file=sys.stderr)
+    return None
+
+
+def library_ms(q, ay, ax, ok, s, stride) -> dict:
+    """The yardstick for the patch sums: one ``F.conv2d`` of the byte grid
+    (zero-padded past its far edges) with each angle's point indicator as
+    a G x G filter, as the JAX package's "conv" response method computes
+    the surface.  TF32 off, so the integer sums are exact; the result is
+    checked against the plain version's.  "not measured" when the first
+    call exceeds ``LIBRARY_CAP_S``, the call fails, or its sums are not
+    exactly the plain version's (then it computes another function)."""
+    import torch.nn.functional as F
+
+    from tpuslam_torch.ops.correlative import patch_sums_plain
+
+    n_a = ay.shape[0]
+    g = q.shape[0]
+    span = stride * (s - 1)
+    flat = ay.long() * g + ax.long()
+    ind = torch.zeros((n_a, g * g), device=q.device)
+    ind.scatter_add_(1, flat, ok.float())
+    ind = ind.view(n_a, 1, g, g)
+    gpad = F.pad(q.float(), (0, span, 0, span))[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        def call():
+            return F.conv2d(gpad, ind, stride=stride)[0]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        if first > LIBRARY_CAP_S:
+            return {"library_ms": None, "library_note":
+                    f"not measured: first call {first:.1f} s > cap"}
+        want = patch_sums_plain(q, ay, ax, ok, s, stride)
+        err = float((out - want).abs().max())
+        if err != 0.0:
+            return {"library_ms": None, "library_max_abs_err": err,
+                    "library_note": f"not measured: F.conv2d's sums differ "
+                                    f"from the plain version's by {err}"}
+        runs = TIMED_RUNS if first < 0.05 else 3
+        return {"library_ms": cuda_ms(call, runs), "library_max_abs_err": err}
+    except RuntimeError as e:  # cuDNN refusal or out of memory
+        return {"library_ms": None,
+                "library_note": f"not measured: {str(e)[:120]}"}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def reference_modules() -> list[str]:
+    """Imported modules that the port must not use: ``jax`` and the JAX
+    package ``tpuslam`` (any ``jax.*`` or ``tpuslam.*`` too)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "tpuslam"))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -121,44 +315,71 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` CUDA-event-timed calls."""
+    """Milliseconds a call of ``fn``: one pair of CUDA events around
+    ``runs`` calls after a warm-up call, so that the host's enqueue of one
+    call overlaps the device's work on the one before."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / runs
 
 
 def _patch_inputs(gen, g, span, b, n_a=21):
-    grid = torch.randint(0, 101, (g, g), generator=gen).float() / 100.0
+    """A random byte grid (values <= 100), patch corners with the whole
+    patch on the grid, 10 % of the points dropped."""
+    q = torch.randint(0, 101, (g, g), generator=gen, dtype=torch.uint8)
     ay = torch.randint(0, g - span + 1, (n_a, b), generator=gen,
                        dtype=torch.int32)
     ax = torch.randint(0, g - span + 1, (n_a, b), generator=gen,
                        dtype=torch.int32)
     ok = torch.rand((n_a, b), generator=gen) >= 0.1  # 10% dropped
-    return [t.cuda() for t in (grid, ay, ax, ok)]
+    return [t.cuda() for t in (q, ay, ax, ok)]
 
 
-def _fvp_inputs(rng, s, b):
+def _fvp_inputs(rng, s, b, kind="normal"):
+    """Scans of ``b`` points around a sorted fan of beams, 20 % invalid;
+    ``normal`` makes its last scan a ring of sub-0.1 m clusters and its
+    second all invalid; ``single`` keeps one valid point a scan;
+    ``inside`` puts each whole scan within 0.1 m."""
     th = np.sort(rng.uniform(-np.pi, np.pi, b))
     rr = np.abs(rng.normal(8, 6, (s, b))).clip(0.11, 50)
-    rr[-1] = 0.12  # a scan of sub-0.1 m clusters
+    if kind == "normal":
+        rr[-1] = 0.12  # a scan of sub-0.1 m clusters
     pts = np.stack([rr * np.cos(th), rr * np.sin(th)], -1)
+    if kind == "inside":
+        pts = rng.uniform(-0.035, 0.035, (s, b, 2))
     pts += rng.normal(0, 0.5, (s, 1, 2))
     valid = rng.uniform(size=(s, b)) > 0.2
-    if s > 2:
+    if kind == "normal" and s > 2:
         valid[1] = False  # an all-invalid row
+    if kind == "single":
+        valid[:] = False
+        valid[np.arange(s), rng.integers(0, b, s)] = True
     vp = rng.normal(0, 1, 2)
     return (torch.tensor(pts, dtype=torch.float32, device="cuda"),
             torch.tensor(valid, device="cuda"),
             torch.tensor(vp, dtype=torch.float32, device="cuda"))
+
+
+def _row(kernel, shape, err, fn_k, fn_p, bnd, card, note=""):
+    """A phase-3 row: the wrapper's and the plain version's CUDA-event
+    times, the kernel's profiled device time and the bound."""
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
+           "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p),
+           "kernel_us": kernel_us(fn_k, KERNEL_NAMES[kernel]), **bnd}
+    ku = row["kernel_us"]
+    ku = "not measured" if ku is None else f"{ku:.2f} us"
+    print(f"  {kernel:19s} {shape:34s} {note or 'equal'}  kernel {ku} "
+          f"(wrapper {row['ms']:.4f} ms, bound "
+          f"{row['bound_us']:.3f} us by {row['bound_by']})  plain "
+          f"{row['plain_ms']:.4f} ms  [{card}]", flush=True)
+    return row
 
 
 def check_kernels(card: str) -> list[dict]:
@@ -168,46 +389,52 @@ def check_kernels(card: str) -> list[dict]:
 
     rows = []
 
-    def record(kernel, shape, got, want, fn_k, fn_p):
+    def record(kernel, shape, got, want, fn_k, fn_p, bnd):
         err = float((got.float() - want.float()).abs().max())
         if not torch.equal(got, want):
             raise RuntimeError(f"{kernel} {shape}: kernel != plain "
                                f"(max |err| {err})")
-        row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
-               "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p)}
-        rows.append(row)
-        print(f"  {kernel:19s} {shape:28s} equal  kernel {row['ms']:.4f} ms"
-              f"  plain {row['plain_ms']:.4f} ms  [{card}]", flush=True)
+        rows.append(_row(kernel, shape, err, fn_k, fn_p, bnd, card))
+        return rows[-1]
 
     gen = torch.Generator().manual_seed(0)
     for b in (512, 1081):
         for g, s in PATCH_SIZES:
-            grid, ay, ax, ok = _patch_inputs(gen, g, s, b)
-            got = ops_c.patch_sums(grid, ay, ax, ok, s)
-            want = ops_c.patch_sums_plain(grid, ay, ax, ok, s)
-            record("patch_sums", f"G={g} S={s} nA=21 B={b}", got, want,
-                   lambda: ops_c.patch_sums(grid, ay, ax, ok, s),
-                   lambda: ops_c.patch_sums_plain(grid, ay, ax, ok, s))
+            q, ay, ax, ok = _patch_inputs(gen, g, s, b)
+            got = ops_c.patch_sums(q, ay, ax, ok, s)
+            want = ops_c.patch_sums_plain(q, ay, ax, ok, s)
+            shape = f"G={g} S={s} nA=21 B={b}"
+            row = record("patch_sums", shape, got, want,
+                         lambda: ops_c.patch_sums(q, ay, ax, ok, s),
+                         lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s),
+                         patch_bound(q, ay, ax, ok, s))
+            if shape == MAIN_SHAPES["patch_sums"]:
+                row.update(library_ms(q, ay, ax, ok, s, 1))
     for g, s2 in STRIDE2_SIZES:
         span = 2 * (s2 - 1) + 1
-        grid, ay, ax, ok = _patch_inputs(gen, g, span, 1081)
-        got = ops_c.patch_sums_stride2(grid, ay, ax, ok, s2)
-        want = ops_c.patch_sums_plain(grid, ay, ax, ok, s2, stride=2)
-        full = ops_c.patch_sums(grid, ay, ax, ok, span)[:, ::2, ::2]
+        q, ay, ax, ok = _patch_inputs(gen, g, span, 1081)
+        got = ops_c.patch_sums_stride2(q, ay, ax, ok, s2)
+        want = ops_c.patch_sums_plain(q, ay, ax, ok, s2, stride=2)
+        full = ops_c.patch_sums(q, ay, ax, ok, span)[:, ::2, ::2]
         if not torch.equal(got, full):
             raise RuntimeError(f"stride-2 G={g} s2={s2} != full[::2, ::2]")
-        record("patch_sums_stride2", f"G={g} s2={s2} nA=21 B=1081", got,
-               want,
-               lambda: ops_c.patch_sums_stride2(grid, ay, ax, ok, s2),
-               lambda: ops_c.patch_sums_plain(grid, ay, ax, ok, s2, 2))
+        shape = f"G={g} s2={s2} nA=21 B=1081"
+        row = record("patch_sums_stride2", shape, got, want,
+                     lambda: ops_c.patch_sums_stride2(q, ay, ax, ok, s2),
+                     lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s2, 2),
+                     patch_bound(q, ay, ax, ok, s2, 2))
+        if shape == MAIN_SHAPES["patch_sums_stride2"]:
+            row.update(library_ms(q, ay, ax, ok, s2, 2))
     rng = np.random.default_rng(23)
-    for s, b in FVP_SIZES:
-        pts, valid, vp = _fvp_inputs(rng, s, b)
+    for s, b, kind in FVP_SIZES:
+        pts, valid, vp = _fvp_inputs(rng, s, b, kind)
         got = ops_f.find_valid_points(pts, valid, vp)
         want = ops_f.find_valid_points_plain(pts, valid, vp)
-        record("fvp", f"S={s} B={b}", got, want,
+        tag = "" if kind == "normal" else f" {kind}"
+        record("fvp", f"S={s} B={b}{tag}", got, want,
                lambda: ops_f.find_valid_points(pts, valid, vp),
-               lambda: ops_f.find_valid_points_plain(pts, valid, vp))
+               lambda: ops_f.find_valid_points_plain(pts, valid, vp),
+               fvp_bound(valid))
     rows += check_corr(card)
     rows += check_hector(card)
     return rows
@@ -260,13 +487,11 @@ def check_corr(card: str) -> list[dict]:
                     if not all(torch.equal(g, w) for g, w in zip(got, want)):
                         raise RuntimeError(f"{name} {shape}: kernel != plain "
                                            f"(max |err| {err})")
-                    row = {"kernel": name, "shape": shape, "max_abs_err": err,
-                           "ok_rows": int(got[3].sum()),
-                           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
-                    rows.append(row)
-                    print(f"  {name:19s} {shape:34s} equal  kernel "
-                          f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
-                          f"  ok rows {row['ok_rows']}  [{card}]", flush=True)
+                    ok_rows = int(got[3].sum())
+                    rows.append({**_row(name, shape, err, kern, plain,
+                                        corr_bound(args[0], args[2]), card,
+                                        f"equal, ok rows {ok_rows}"),
+                                 "ok_rows": ok_rows})
     return rows
 
 
@@ -317,15 +542,15 @@ def check_hector(card: str) -> list[dict]:
         shape = (f"map={spec.size_x} S={n} B={cfg.num_beams} "
                  f"window={window}")
         _within(f"hector_gn {shape}", diffs, HECTOR_BOUNDS)
-        row = {"kernel": "hector_gn", "shape": shape,
-               "max_abs_err": max(diffs["xy"], diffs["yaw"], diffs["score"]),
-               "diffs": diffs, "in_gate": int(got[3].sum()),
-               "ms": cuda_ms(lambda: ops_h._launch(*args)),
-               "plain_ms": cuda_ms(lambda: ops_h._plain(*args))}
-        rows.append(row)
-        print(f"  hector_gn           {shape:34s} within bounds {diffs}  "
-              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-              f"in gate {row['in_gate']}  [{card}]", flush=True)
+        in_gate = int(got[3].sum())
+        rows.append({
+            **_row("hector_gn", shape,
+                   max(diffs["xy"], diffs["yaw"], diffs["score"]),
+                   lambda args=args: ops_h._launch(*args),
+                   lambda args=args: ops_h._plain(*args),
+                   hector_bound(grids[0], valid[:n], 5), card,
+                   f"within bounds {diffs}, in gate {in_gate}"),
+            "diffs": diffs, "in_gate": in_gate})
     return rows
 
 
@@ -369,12 +594,12 @@ def world(name: str):
 
     ``room``: tests/test_karto.py's outdoor circuit, a 24 x 18 m world with
     four boxes and a 14 x 8 m rectangle (58 scans, 20 m lidar).
-    ``courtyard``: ``tpuslam.io.simulate.outdoor_world``, the 36 x 28 m
+    ``courtyard``: ``tpuslam_torch.io.simulate.outdoor_world``, the 36 x 28 m
     courtyard built for the outdoor operating point (trajectories separate
     by more than the 15 m loop search distance), with a 30 x 24 m
     rectangle (138 scans, longer than the 110-scan running window; 30 m
     lidar)."""
-    from tpuslam.io.simulate import outdoor_world, rect_room
+    from tpuslam_torch.io.simulate import outdoor_world, rect_room
 
     if name == "room":
         segs = np.concatenate(
@@ -389,12 +614,14 @@ def world(name: str):
 
 
 def run_slice(cfg, device, num_beams: int, where: str = "room",
-              max_scans: int = 256):
+              max_scans: int = 256, profile: bool = False):
     """Phase 4: the Karto path over the circuit of ``world(where)``.
 
     Returns (numbers, mapper); the launch counters are set to 0 just
-    before the stream and read just after it."""
-    from tpuslam.io.simulate import simulate_scan
+    before the stream and read just after it.  With ``profile`` (on the
+    card), the stream runs again through a fresh mapper under
+    ``torch.profiler``: the device busy share and device ms a scan."""
+    from tpuslam_torch.io.simulate import simulate_scan
     from tpuslam_torch.core.scan import make_scan
     from tpuslam_torch.models.karto import KartoMapper
     from tpuslam_torch.ops import correlative as ops_c
@@ -426,7 +653,7 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
     ate = float(np.hypot(*(m.poses[:n, :2] - np.stack(truths)[:n, :2]).T)
                 .mean())
     odo_err = float(np.hypot(*(odom - true)[:2]))
-    return {
+    out = {
         "scans": len(stream),
         "processed": n,
         "seconds": wall,
@@ -443,7 +670,20 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
         "world": where,
         "scan_buffer_size": cfg.scan_buffer_size,
         "launches": launches,
-    }, m
+        "launches_per_scan": {k: v / len(stream) for k, v in launches.items()},
+    }
+    if profile and on_card:
+        def again():
+            fresh = KartoMapper(cfg, max_scans=max_scans, device=device)
+            for _, odom, scan in stream:
+                fresh.process(scan, odom, time=0.0)
+
+        prof = busy_share(again, cpu=False)
+        out["profile"] = prof
+        out["device_ms_per_scan"] = prof["device_s"] * 1e3 / len(stream)
+        # the same device work over the unprofiled run's wall time
+        out["busy_share"] = prof["device_s"] / wall
+    return out, m
 
 
 @contextlib.contextmanager
@@ -480,7 +720,7 @@ def odometry_stream(device, num_beams: int, n_scans: int = 320):
     (radius 1.2 m, 3.2 turns) in the boxes world, 1 cm range noise from
     default_rng(3), ranges kept in [0.05, 19] m.  Returns the truth
     relative to the first pose [T, 3] and the scans on ``device``."""
-    from tpuslam.io.simulate import (
+    from tpuslam_torch.io.simulate import (
         circle_trajectory,
         simulate_scan,
         world_with_boxes,
@@ -607,7 +847,7 @@ def batch_fixture(n: int = 256, num_beams: int = 512):
     """benchmarks/suite.py's scan_fixtures: n scans from poses uniform in
     +-0.2 in an 8 x 6 m room, 512 beams; each scan is matched onto the
     one before it (a roll by one)."""
-    from tpuslam.io.simulate import rect_room, simulate_scan
+    from tpuslam_torch.io.simulate import rect_room, simulate_scan
     from tpuslam_torch.core.scan import make_scan, scan_to_points
 
     segs = rect_room(8.0, 6.0)
@@ -724,7 +964,7 @@ def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
     reference's defaults with 1081 beams, map updates every 0.1 m /
     0.15 rad.  With ``profile_scans``, the first scans run again under
     ``torch.profiler`` for the device busy share."""
-    from tpuslam.io.simulate import world_with_boxes
+    from tpuslam_torch.io.simulate import world_with_boxes
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.models import hector_slam
     from tpuslam_torch.models.karto import _np_compose
@@ -763,16 +1003,21 @@ def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
     return out
 
 
-def busy_share(fn) -> dict:
+def busy_share(fn, cpu: bool = True) -> dict:
     """Wall time of ``fn`` (ending in a synchronize) under torch.profiler,
-    the device time and count of its kernels, and the largest items."""
+    the device time and count of its kernels, and the largest items.
+    ``cpu=False`` records the CUDA activity alone: the same device time,
+    and ``key_averages`` takes seconds instead of minutes on a stream of
+    ~10^5 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -797,7 +1042,7 @@ def busy_share(fn) -> dict:
 
 def _sim_scan(segs, pose, num_beams, device, max_range=20.0):
     """A noise-free scan at ``pose``, ranges kept in [0.1, max_range]."""
-    from tpuslam.io.simulate import simulate_scan
+    from tpuslam_torch.io.simulate import simulate_scan
     from tpuslam_torch.core.scan import make_scan
 
     r, amin, ainc = simulate_scan(segs, np.asarray(pose), num_beams=num_beams,
@@ -827,7 +1072,7 @@ def hector_fixture(device, n: int, where: str = "bench"):
     3 levels) in the boxes world, three scans mapped at their poses and
     the batch drawn the same way.  Returns (cfg, specs, prob grids, pts,
     valid, truths [S, 3] numpy, guesses [S, 3])."""
-    from tpuslam.io.simulate import rect_room, world_with_boxes
+    from tpuslam_torch.io.simulate import rect_room, world_with_boxes
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.models import hector_slam
     from tpuslam_torch.ops.bilinear import prob_from_log_odds
@@ -869,6 +1114,12 @@ def _report(tag, s, card):
           f"{s['loop_grid']}, {s['world']}, scan buffer "
           f"{s['scan_buffer_size']} "
           f"[{card}]", flush=True)
+    if "profile" in s:
+        pr = s["profile"]
+        print(f"  profiled rerun: {s['device_ms_per_scan']:.3f} device ms a "
+              f"scan, device busy {s['busy_share']:.4f} of the run above "
+              f"({pr['busy_share']:.4f} of the profiled {pr['wall_s']:.2f} "
+              f"s), {pr['device_ops']} device ops [{card}]", flush=True)
     if (s["seq_grid"], s["loop_grid"]) != (2007, 1151):
         raise RuntimeError(f"{tag}: grids {s['seq_grid']}/{s['loop_grid']} "
                            "are not the outdoor 2007/1151")
@@ -881,6 +1132,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase}", flush=True)
+
     # ---- 1. the card
     card = card_line()
     print(card, flush=True)
@@ -897,22 +1153,23 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     # ---- 3. kernels == plain at production sizes
-    print(f"kernels vs plain, median of {TIMED_RUNS} CUDA-event runs:",
-          flush=True)
+    mark(f"3. kernels vs plain, {TIMED_RUNS} calls a timing")
     rows = check_kernels(card)
 
     # ---- 4. the slice end to end
     from tpuslam_torch.core.config import outdoor_karto_config
 
     # 4a. the main path: the outdoor configuration at full width
+    mark("4a. Karto, room")
     cfg = dataclasses.replace(outdoor_karto_config(), num_beams=1081)
-    s, m = run_slice(cfg, "cuda", 1081)
+    s, m = run_slice(cfg, "cuda", 1081, profile=True)
     _report("slice (outdoor, 1081 beams)", s, card)
     idle = [k for k, v in s["launches"].items() if v <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")
     # 4b. the same stream through the plain versions on the card: the
     # kernels are bit-identical to them, so every pose must be too
+    mark("4b. Karto, room, plain versions")
     with plain_path():
         sp, mp = run_slice(cfg, "cuda", 1081)
     _report("same stream, plain versions", sp, card)
@@ -934,7 +1191,8 @@ def main() -> int:
     # the response gates lies beyond link_scan_maximum_distance.  The
     # courtyard built for this operating point separates the trajectory by
     # more than 15 m, and its circuit is longer than the running window
-    sl, _ = run_slice(cfg, "cuda", 1081, where="courtyard")
+    mark("4c. Karto, courtyard")
+    sl, _ = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True)
     _report("slice (outdoor, courtyard)", sl, card)
     if sl["loop_closures"] < 1:
         raise RuntimeError("no loop closure on the courtyard circuit")
@@ -944,6 +1202,7 @@ def main() -> int:
 
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
+    mark("4d. PL-ICP odometry")
     od, od_poses = run_odometry("cuda")
     print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans in "
           f"{od['seconds']:.2f} s = {od['scans_per_s']:.2f} scans/s, ATE RMSE "
@@ -966,6 +1225,7 @@ def main() -> int:
 
     # 4e. frame-to-frame PL-ICP and ICP (nearest mode) over 50 scans, and
     # the batched matchers against the plain chain
+    mark("4e. frame to frame, batches")
     ff = run_frame_to_frame("cuda")
     for tag, r in ff.items():
         print(f"frame to frame {tag}: {r['scans']} scans, "
@@ -990,6 +1250,7 @@ def main() -> int:
 
     # 4f. batched Hector matching at bench.py's operating point: the path
     # that runs the GN kernel
+    mark("4f. batched Hector")
     hb = run_hector_batch("cuda")
     for impl in ("kernel", "mxu", "plain"):
         r = hb[impl]
@@ -1009,6 +1270,7 @@ def main() -> int:
             HECTOR_PATH_BOUNDS)
 
     # 4g. the Hector engine at the reference's defaults, 1081 beams
+    mark("4g. Hector engine")
     he = run_hector_engine("cuda", profile_scans=PROFILE_SCANS)
     prof = he.get("profile", {})
     print(f"hector engine (map {he['map']}, {he['levels']} levels, "
@@ -1021,8 +1283,10 @@ def main() -> int:
     if not he["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"hector engine ATE RMSE {he['ate_rmse_m']} >= "
                            "0.05 m")
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported")
+    foreign = reference_modules()
+    if foreign:
+        raise RuntimeError(f"modules of JAX or the JAX package were "
+                           f"imported: {foreign}")
 
     # ---- 5. results
     sources = {
@@ -1038,10 +1302,21 @@ def main() -> int:
         "hector_gn": ("tpuslam_torch/csrc/hector_gn.cu",
                       "tpuslam/ops/pallas_hector.py:220"),
     }
-    # each kernel's count from the path that runs it
+    # each kernel's count from the path that runs it, and a scan's share:
+    # Karto's over the room and courtyard streams, the odometry's, the
+    # frame-to-frame ICP's, and the batched Hector call's (1024 scans)
     launches = {**s["launches"], **od["launches"],
                 "plicp_nearest": ff["icp"]["launches"]["plicp_nearest"],
                 "hector_gn": hb["launches"]["hector_gn"]}
+    karto_scans = s["scans"] + sl["scans"]
+    per_scan = {
+        **{k: (s["launches"][k] + sl["launches"][k]) / karto_scans
+           for k in s["launches"]},
+        "plicp_corr": od["launches"]["plicp_corr"] / od["scans"],
+        "plicp_nearest": (ff["icp"]["launches"]["plicp_nearest"]
+                          / ff["icp"]["scans"]),
+        "hector_gn": hb["launches"]["hector_gn"] / (hb["calls"] * hb["scans"]),
+    }
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1051,6 +1326,10 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
+            "library_ms": main.get("library_ms"),
+            "kernel_us": main["kernel_us"], "shape": main["shape"],
+            "launches_per_scan": per_scan[name],
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()

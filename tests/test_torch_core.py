@@ -74,7 +74,7 @@ def test_make_scan_matches_jax(num_beams):
     kw = dict(angle_min=-1.0, angle_increment=0.1, range_min=0.1,
               range_max=30.0, time_increment=0.01, num_beams=num_beams)
     sj = jscan.make_scan(ranges, **kw)
-    st = tscan.make_scan(ranges, **kw)
+    st = tscan.make_scan(ranges, **kw, device="cpu")
     for f in ("ranges", "angles", "valid", "stamps"):
         got, want = getattr(st, f).numpy(), np.asarray(getattr(sj, f))
         assert got.dtype == want.dtype, f
@@ -87,7 +87,7 @@ def test_scan_to_points_matches_jax():
     kw = dict(angle_min=-math.pi, angle_increment=2 * math.pi / 180,
               range_min=0.1, range_max=6.0)
     pj, vj = jscan.scan_to_points(jscan.make_scan(r, **kw))
-    pt, vt = tscan.scan_to_points(tscan.make_scan(r, **kw))
+    pt, vt = tscan.scan_to_points(tscan.make_scan(r, **kw, device="cpu"))
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=1e-6, rtol=0)
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 

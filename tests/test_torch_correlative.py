@@ -27,6 +27,7 @@ from tpuslam.io.simulate import rect_room, simulate_scan, world_with_boxes
 from tpuslam.match import correlative as jc
 from tpuslam_torch.core.config import KartoConfig as TKartoConfig
 from tpuslam_torch.match import correlative as tc
+from tpuslam_torch.ops.correlative import byte_grid
 
 # tiny tensors: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores
@@ -106,8 +107,8 @@ def test_correlate_response_surface_bit_exact(kw, base, start, which):
         lambda g, c, p, v: jc._correlate(js, g, c[:2], c, p, v, xy, angs,
                                          False)
     )(gj, jnp.asarray(center), jnp.asarray(lp), jnp.asarray(lv))
-    rt, bt, mt = tc._correlate(ts, gt, _t(center[:2]), _t(center), _t(lp),
-                               _t(lv), xy, angs, False)
+    rt, bt, mt = tc._correlate(ts, byte_grid(gt), _t(center[:2]),
+                               _t(center), _t(lp), _t(lv), xy, angs, False)
     rj, rt = np.asarray(rj), rt.numpy()
     denom = np.float64(lp.shape[0])
     # the x100 integer response surface: bit-exact
@@ -261,7 +262,8 @@ def test_match_scan_matches_f64_oracle(case):
 
     def staged(ranges, amin, ainc):
         sc = tmake_scan(ranges, angle_min=amin, angle_increment=ainc,
-                        range_min=0.1, range_max=30.0, num_beams=ORACLE_NB)
+                        range_min=0.1, range_max=30.0, num_beams=ORACLE_NB,
+                        device="cpu")
         pts, valid = tscan_to_points(sc)
         return pts, valid & (sc.ranges > 0.0)
 

@@ -340,7 +340,8 @@ def _jscan(pose, num_beams, **kw):
 def _tscan(pose, num_beams, **kw):
     r, amin, ainc = _sim(pose, num_beams, **kw)
     return tmake_scan(r, angle_min=amin, angle_increment=ainc,
-                      range_min=0.1, range_max=20.0, num_beams=num_beams)
+                      range_min=0.1, range_max=20.0, num_beams=num_beams,
+                      device="cpu")
 
 
 def _points(poses, num_beams, **kw):
@@ -561,7 +562,7 @@ def test_engine_step_for_step_from_shared_state(impl, dtype, num_beams):
         jsc = _jscan(p, num_beams, segs=segs)
         tsc = _tscan(p, num_beams, segs=segs)
         tst = convert.hector_state_from_numpy(
-            jax.tree.map(np.asarray, st), tcfg)
+            jax.tree.map(np.asarray, st), tcfg, device="cpu")
         st_next, jres = jslam.step(jcfg, st, jsc, map_without_matching=seed)
         tst_next, tres = tslam.step(tcfg, tst, tsc, map_without_matching=seed)
         np.testing.assert_allclose(tres.pose.numpy(), _np(jres.pose),
@@ -581,7 +582,7 @@ def test_engine_tracks_trajectory():
     _, cfg = _engine_cfgs("mxu", "bfloat16", 361)
     segs = world_with_boxes()
     traj = circle_trajectory(radius=1.5, num_poses=120)[:60]
-    st = tslam.init_state(cfg)._replace(
+    st = tslam.init_state(cfg, device="cpu")._replace(
         pose=torch.tensor(traj[0], dtype=torch.float32))
     st, _ = tslam.step(cfg, st, _tscan(traj[0], 361, segs=segs),
                        map_without_matching=True)
@@ -602,7 +603,7 @@ def test_run_trajectory_and_occupancy_image():
     poses = circle_trajectory(radius=1.0, num_poses=6)
     scans = [_tscan(p, 181) for p in poses]
     stacked = type(scans[0])(*(torch.stack(f) for f in zip(*scans)))
-    st0 = tslam.init_state(cfg)._replace(
+    st0 = tslam.init_state(cfg, device="cpu")._replace(
         pose=torch.tensor(poses[0], dtype=torch.float32))
     final, fold = tslam.run_trajectory(cfg, st0, stacked)
     st, loop = st0, []
@@ -627,12 +628,13 @@ def test_hector_state_from_numpy_checks_shapes():
     cfg = tconfig.HectorConfig(**CFG_KW)
     st = jax.tree.map(np.asarray, jslam.init_state(jconfig.HectorConfig(
         **CFG_KW)))
-    tst = convert.hector_state_from_numpy(st, cfg)
+    tst = convert.hector_state_from_numpy(st, cfg, device="cpu")
     assert [tuple(lo.shape) for lo in tst.log_odds] == [(256, 256),
                                                         (128, 128), (64, 64)]
     with pytest.raises(ValueError, match="log_odds levels"):
         convert.hector_state_from_numpy(
-            st, dataclasses.replace(cfg, map_size=512))
+            st, dataclasses.replace(cfg, map_size=512), device="cpu")
     with pytest.raises(ValueError, match="must be \\[3\\]"):
-        convert.hector_state_from_numpy(st._replace(pose=np.zeros(2)), cfg)
+        convert.hector_state_from_numpy(st._replace(pose=np.zeros(2)), cfg,
+                                        device="cpu")
 

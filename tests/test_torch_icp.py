@@ -148,14 +148,15 @@ def test_scan_match_icp_direction_and_parity():
     sa, sb = _scan(pa, 1, nb, 0.0), _scan(pb, 2, nb, 0.0)
     kw = dict(range_min=0.1, range_max=19.0, num_beams=nb)
     jst, jr0 = jsmi.step(jcfg, jsmi.init_state(jcfg), jmake_scan(*sa, **kw))
-    tst, tr0 = tsmi.step(tcfg, tsmi.init_state(tcfg), tmake_scan(*sa, **kw))
+    tst, tr0 = tsmi.step(tcfg, tsmi.init_state(tcfg, device="cpu"),
+                         tmake_scan(*sa, **kw, device="cpu"))
     assert not bool(tr0.converged) and not bool(jr0.converged)
     from_jax = convert.frame_state_from_numpy(
-        {k: np.asarray(v) for k, v in jst._asdict().items()})
+        {k: np.asarray(v) for k, v in jst._asdict().items()}, device="cpu")
     np.testing.assert_allclose(from_jax.last_pts.numpy(), tst.last_pts.numpy(),
                                atol=1e-6, rtol=0)
     _, jr = jsmi.step(jcfg, jst, jmake_scan(*sb, **kw))
-    _, tr = tsmi.step(tcfg, from_jax, tmake_scan(*sb, **kw))
+    _, tr = tsmi.step(tcfg, from_jax, tmake_scan(*sb, **kw, device="cpu"))
     _close(tr, jr)
     assert bool(tr.converged)
     want = tse2.relative(torch.tensor(pb, dtype=torch.float32),
@@ -167,4 +168,4 @@ def test_frame_state_converter_checks_shapes():
     st = {"last_pts": np.zeros((5, 3), np.float32),
           "last_valid": np.zeros(5, bool), "initialized": np.asarray(True)}
     with pytest.raises(ValueError, match=r"\[B, 2\]"):
-        convert.frame_state_from_numpy(st)
+        convert.frame_state_from_numpy(st, device="cpu")

@@ -31,8 +31,14 @@ from tpuslam.models.karto import _np_compose
 from tpuslam.utils.events import EventBus
 from tpuslam_torch.convert import STATE_KEYS, karto_state_from_numpy
 from tpuslam_torch.core.config import KartoConfig
-from tpuslam_torch.core.scan import make_scan as tmake_scan
+from tpuslam_torch.core.scan import make_scan as _tmake_scan
 from tpuslam_torch.models.karto import KartoMapper
+
+
+def tmake_scan(*args, **kw):
+    """The port's make_scan on the CPU (its default device is the card)."""
+    return _tmake_scan(*args, **kw, device="cpu")
+
 
 # tiny tensors: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores
@@ -135,7 +141,7 @@ def test_circle_loop_lockstep_matches_jax(jax_run):
     for k, ((true, odom), state, rj) in enumerate(
         zip(stream, states, results)
     ):
-        mt = KartoMapper.from_state(tcfg, state)
+        mt = KartoMapper.from_state(tcfg, state, device="cpu")
         n_edges = len(state["edges"])
         rt = mt.process(_scan(tmake_scan, true), odom, time=0.0)
         after = states[k + 1] if k + 1 < len(states) else _dump(mj)
@@ -166,7 +172,7 @@ def test_circle_loop_free_run_matches_jax(jax_run):
     mj, _, results, jevents = jax_run
     _, tcfg = _cfgs()
     tevents = []
-    mt = KartoMapper(tcfg, max_scans=64, events=_events(tevents))
+    mt = KartoMapper(tcfg, max_scans=64, events=_events(tevents), device="cpu")
     truths = []
     for (true, odom), rj in zip(_circle_stream(), results):
         rt = mt.process(_scan(tmake_scan, true), odom, time=0.0)
@@ -188,7 +194,7 @@ def test_carry_over_from_jax_state(jax_run):
     """20 scans in JAX, then the port continues from that state."""
     mj, states, results, _ = jax_run
     _, tcfg = _cfgs()
-    mt = KartoMapper.from_state(tcfg, states[20])
+    mt = KartoMapper.from_state(tcfg, states[20], device="cpu")
     stream = _circle_stream()
     for (true, odom), rj in zip(stream[20:40], results[20:40]):
         rt = mt.process(_scan(tmake_scan, true), odom, time=0.0)
@@ -207,7 +213,7 @@ def test_multi_sensor_matches_jax():
     first-scan cross-sensor link (Mapper.cpp:923-953)."""
     jcfg, tcfg = _cfgs()
     mj = JaxMapper(jcfg, max_scans=32)
-    mt = KartoMapper(tcfg, max_scans=32)
+    mt = KartoMapper(tcfg, max_scans=32, device="cpu")
     for i in range(4):
         for sensor, q in (("front", [0.25 * i, 0.0, 0.0]),
                           ("rear", [0.25 * i, 0.3, 0.1])):
@@ -229,7 +235,7 @@ def test_gating_and_capacity_match_jax():
     """HasMovedEnough gating and the max_scans overflow, step for step."""
     jcfg, tcfg = _cfgs()
     mj = JaxMapper(jcfg, max_scans=3)
-    mt = KartoMapper(tcfg, max_scans=3)
+    mt = KartoMapper(tcfg, max_scans=3, device="cpu")
     for i, p in enumerate([[0, 0, 0], [0.05, 0, 0], [0.25, 0, 0],
                            [0.25, 0, 0.2], [0.5, 0, 0.2]]):
         p = np.asarray(p, float)
@@ -250,7 +256,8 @@ def test_state_conversion_checks_its_input(jax_run):
     bad = dict(good, _valid=good["_valid"][:, :10])
     with pytest.raises(ValueError, match="_valid"):
         karto_state_from_numpy(bad)
-    m = KartoMapper.from_state(_cfgs()[1], karto_state_from_numpy(good))
+    m = KartoMapper.from_state(_cfgs()[1], karto_state_from_numpy(good),
+                               device="cpu")
     assert len(m.records) == len(good["records"])
     assert m._pts.dtype == torch.float32
     assert torch.equal(m._valid, torch.from_numpy(good["_valid"]))

@@ -2,11 +2,17 @@
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; the
 Pallas kernels run in interpret mode.  Both sides sum exact x100
-integers, so the patch sums are held bit-exact, and the FindValidPoints
-walk evaluates the same f32 expressions in the same order, so its masks
-are bit-exact too.  The CUDA kernels themselves are checked against these
-plain versions on the card by ``chip_smoke.py``.
+integers (the port's from the byte grid ``byte_grid(grid)``, the Pallas
+kernels' from the f32 grid), so the patch sums are held bit-exact, and
+the FindValidPoints walk and its parallel form (the CUDA kernel's,
+written out in PyTorch as ``find_valid_points_chain``) evaluate the same
+f32 expressions on the same operands, so their masks are bit-exact too.
+The CUDA kernels themselves are checked against these plain versions on
+the card by ``chip_smoke.py``.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +40,8 @@ def _t(a):
 
 
 def _port_patch_sums(grid, ay, ax, ok, s):
-    return tops.patch_sums(_t(grid), _t(ay), _t(ax), _t(ok), s).numpy()
+    q = tops.byte_grid(_t(grid))
+    return tops.patch_sums(q, _t(ay), _t(ax), _t(ok), s).numpy()
 
 
 def _jax_patch_sums(grid, ay, ax, ok, s):
@@ -94,7 +101,7 @@ def test_patch_sums_plain_reads_zero_off_grid():
     ay = torch.tensor([[-2, 6]], dtype=torch.int32)
     ax = torch.tensor([[0, 6]], dtype=torch.int32)
     ok = torch.ones((1, 2), dtype=torch.bool)
-    out = tops.patch_sums(grid, ay, ax, ok, 3)[0]
+    out = tops.patch_sums(tops.byte_grid(grid), ay, ax, ok, 3)[0]
     want = torch.zeros(3, 3)
     want[2, :] += 50.0  # point 0: rows -2, -1 off the grid
     want[:2, :2] += 50.0  # point 1: rows/cols 8 off the grid
@@ -112,38 +119,48 @@ def test_patch_sums_stride2_plain_bit_exact_vs_pallas():
     want = np.asarray(
         patch_sums_stride2(jnp.asarray(grid), ay, ax, jnp.asarray(ok), s2)
     )
-    got = tops.patch_sums_stride2(_t(grid), _t(ay), _t(ax), _t(ok), s2)
+    got = tops.patch_sums_stride2(tops.byte_grid(_t(grid)), _t(ay), _t(ax),
+                                  _t(ok), s2)
     np.testing.assert_array_equal(got.numpy(), want)
     # and it is the full patch read on the even sublattice
     full = _port_patch_sums(grid, ay, ax, ok, span)[:, ::2, ::2]
     np.testing.assert_array_equal(got.numpy(), full)
 
 
-def _fvp_fixture(seed, s, b, *, all_invalid_row=False, clusters=False):
+def _fvp_fixture(seed, s, b, *, all_invalid_row=False, clusters=False,
+                 single_valid=False, inside=False):
     rng = np.random.default_rng(seed)
     th = np.sort(rng.uniform(-np.pi, np.pi, b))
     r = np.abs(rng.normal(3, 2, (s, b))).clip(0.11, 30)
     if clusters:
         r[:] = 0.12  # everything inside the 0.1 m min-distance regime
     pts = np.stack([r * np.cos(th), r * np.sin(th)], -1)
+    if inside:  # each whole scan within 0.1 m: nothing ever decides
+        pts = rng.uniform(-0.035, 0.035, (s, b, 2))
     pts += rng.normal(0, 0.5, (s, 1, 2))
     valid = rng.uniform(size=(s, b)) > 0.3
     if all_invalid_row:
         valid[min(1, s - 1)] = False
+    if single_valid:  # one valid point a scan, somewhere
+        valid[:] = False
+        valid[np.arange(s), rng.integers(0, b, s)] = True
     vp = rng.normal(0, 1, 2)
     return (pts.astype(np.float32), valid, vp.astype(np.float32))
 
 
-@pytest.mark.parametrize(
-    "s,b,kw",
-    [
-        (1, 64, {}),
-        (1, 180, {"all_invalid_row": True}),
-        (3, 180, {"clusters": True}),
-        (5, 1081, {"all_invalid_row": True}),
-        (20, 120, {}),
-    ],
-)
+FVP_CASES = [
+    (1, 64, {}),
+    (1, 180, {"all_invalid_row": True}),
+    (3, 180, {"clusters": True}),
+    (5, 1081, {"all_invalid_row": True}),
+    (20, 120, {}),
+    (4, 90, {"single_valid": True}),
+    (3, 1, {}),
+    (3, 200, {"inside": True}),
+]
+
+
+@pytest.mark.parametrize("s,b,kw", FVP_CASES)
 def test_find_valid_points_plain_bit_exact_vs_jax(s, b, kw):
     pts, valid, vp = _fvp_fixture(s * 1000 + b, s, b, **kw)
     jp, jv, jvp = jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(vp)
@@ -154,6 +171,22 @@ def test_find_valid_points_plain_bit_exact_vs_jax(s, b, kw):
     got = tfvp.find_valid_points(_t(pts), _t(valid), _t(vp)).numpy()
     np.testing.assert_array_equal(got, want_kernel)
     np.testing.assert_array_equal(got, want_serial)
+
+
+@pytest.mark.parametrize("s,b,kw", FVP_CASES)
+def test_find_valid_points_chain_bit_exact(s, b, kw):
+    """The CUDA kernel's formulation (next, pointer doubling, reverse
+    min-scan) in PyTorch against the walk and both JAX formulations."""
+    pts, valid, vp = _fvp_fixture(s * 1000 + b, s, b, **kw)
+    got = tfvp.find_valid_points_chain(_t(pts), _t(valid), _t(vp)).numpy()
+    walk = tfvp.find_valid_points_plain(_t(pts), _t(valid), _t(vp)).numpy()
+    np.testing.assert_array_equal(got, walk)
+    jvp = jnp.asarray(vp)
+    for parallel in (False, True):
+        want = np.asarray(jax.vmap(
+            lambda p, v, par=parallel: jfvp(p, v, jvp, parallel=par)
+        )(jnp.asarray(pts), jnp.asarray(valid)))
+        np.testing.assert_array_equal(got, want)
 
 
 def test_kernel_loader_raises_without_nvcc(monkeypatch):
@@ -168,7 +201,7 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch):
 
 
 def test_wrappers_reject_unsupported_devices():
-    grid = torch.zeros((8, 8), device="meta")
+    grid = torch.zeros((8, 8), dtype=torch.uint8, device="meta")
     ay = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     ok = torch.ones((1, 2), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -184,10 +217,35 @@ def test_launch_counters_stay_zero_on_cpu():
             d[k] = 0
     pts, valid, vp = _fvp_fixture(3, 4, 50)
     tfvp.find_valid_points(_t(pts), _t(valid), _t(vp))
-    grid = torch.rand(40, 40)
+    grid = tops.byte_grid(torch.rand(40, 40))
     ay = torch.randint(0, 30, (2, 10), dtype=torch.int32)
     ok = torch.ones((2, 10), dtype=torch.bool)
     tops.patch_sums(grid, ay, ay, ok, 5)
     tops.patch_sums_stride2(grid, ay, ay, ok, 3)
     assert tops.LAUNCHES == {"patch_sums": 0, "patch_sums_stride2": 0}
     assert tfvp.LAUNCHES == {"fvp": 0}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_patch_bound_counts_each_covered_cell_once(stride):
+    """chip_smoke.py's bound for the patch sums reads the grid cells that
+    some kept point's patch covers, each once: its max-pool count against
+    the set of those cells."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(5)
+    g, s, n_a, b = 48, 5, 3, 40
+    span = stride * (s - 1) + 1
+    ay = rng.integers(0, g - span + 1, (n_a, b)).astype(np.int32)
+    ax = rng.integers(0, g - span + 1, (n_a, b)).astype(np.int32)
+    ok = rng.random((n_a, b)) >= 0.3
+    want = {(y + stride * i, x + stride * j)
+            for y, x in zip(ay[ok], ax[ok]) for i in range(s)
+            for j in range(s)}
+    got = smoke.cells_read(g, _t(ay), _t(ax), _t(ok), s, stride)
+    assert got == len(want)
+    bnd = smoke.patch_bound(torch.zeros((g, g), dtype=torch.uint8), _t(ay),
+                            _t(ax), _t(ok), s, stride)
+    assert bnd["bytes"] == len(want) + n_a * b * 9 + n_a * s * s * 4

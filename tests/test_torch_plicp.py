@@ -426,9 +426,9 @@ def test_plicp_matches_f64_oracle():
                       OracleLdp.from_scan(r1, amin, ainc, RANGE_MIN, RANGE_MAX),
                       np.zeros(3))
     p0, v0 = tscan_to_points(tmake_scan(r0, amin, ainc, RANGE_MIN, RANGE_MAX,
-                                        num_beams=NB))
+                                        num_beams=NB, device="cpu"))
     p1, v1 = tscan_to_points(tmake_scan(r1, amin, ainc, RANGE_MIN, RANGE_MAX,
-                                        num_beams=NB))
+                                        num_beams=NB, device="cpu"))
     tr = tplicp.plicp(tconfig.PlicpConfig(num_beams=NB), p1, v1, p0, v0)
     truth = np.asarray(jse2.relative(jnp.asarray(PAIR_POSES[0]),
                                      jnp.asarray(PAIR_POSES[1])))
@@ -454,7 +454,8 @@ def _stream(n, nb, noise=0.01, seed=3):
 
 
 def _tscan(r, amin, ainc, nb):
-    return tmake_scan(r, amin, ainc, RANGE_MIN, RANGE_MAX, num_beams=nb)
+    return tmake_scan(r, amin, ainc, RANGE_MIN, RANGE_MAX, num_beams=nb,
+                      device="cpu")
 
 
 def _jscan(r, amin, ainc, nb):
@@ -477,7 +478,7 @@ def test_odometry_step_for_step_from_jax_state():
     jst = jodom.init_state(jcfg)
     n_kf = 0
     for i, (r, amin, ainc) in enumerate(scans):
-        tst = convert.odom_state_from_numpy(_np_state(jst))
+        tst = convert.odom_state_from_numpy(_np_state(jst), device="cpu")
         tst2, tinfo = todom.step(tcfg, tst, _tscan(r, amin, ainc, nb), 0.1)
         jst, jinfo = jodom.step(jcfg, jst, _jscan(r, amin, ainc, nb), 0.1)
         assert bool(tinfo.new_keyframe) == bool(jinfo.new_keyframe), i
@@ -498,12 +499,12 @@ def test_odometry_free_run_tracks_circle():
     nb = 360
     cfg = tconfig.PlicpConfig(num_beams=nb)
     traj = circle_trajectory(radius=1.2, num_poses=100)[:50]
-    st = todom.init_state(cfg)
+    st = todom.init_state(cfg, device="cpu")
     t0 = torch.tensor(traj[0], dtype=torch.float32)
     errs = []
     for p in traj:
         r, amin, ainc = simulate_scan(SEGS, p, num_beams=nb, max_range=30.0)
-        sc = tmake_scan(r, amin, ainc, 0.1, 30.0, num_beams=nb)
+        sc = tmake_scan(r, amin, ainc, 0.1, 30.0, num_beams=nb, device="cpu")
         st, info = todom.step(cfg, st, sc, dt=0.1)
         e = info.pose.numpy() - tse2.relative(
             t0, torch.tensor(p, dtype=torch.float32)).numpy()
@@ -517,7 +518,7 @@ def test_odometry_free_run_tracks_circle():
 
 def test_odometry_keyframe_machinery():
     cfg = tconfig.PlicpConfig(num_beams=NB)
-    st = todom.init_state(cfg)
+    st = todom.init_state(cfg, device="cpu")
     r, amin, ainc = _scan_np(np.zeros(3), noise=0.0)
     sc = _tscan(r, amin, ainc, NB)
     st, info = todom.step(cfg, st, sc)
@@ -536,7 +537,7 @@ def test_odometry_base_to_laser_matches_jax():
     b2l = np.array([0.2, -0.05, 0.1], np.float32)
     cfg_kw = dict(num_beams=NB)
     jcfg, tcfg = jconfig.PlicpConfig(**cfg_kw), tconfig.PlicpConfig(**cfg_kw)
-    jst, tst = jodom.init_state(jcfg), todom.init_state(tcfg)
+    jst, tst = jodom.init_state(jcfg), todom.init_state(tcfg, device="cpu")
     jst = jst._replace(velocity=jnp.asarray([0.4, 0.0, 0.2], jnp.float32))
     tst = tst._replace(velocity=torch.tensor([0.4, 0.0, 0.2]))
     for pose, seed in ((PAIR_POSES[0], 1), (PAIR_POSES[1], 2)):
@@ -555,9 +556,11 @@ def test_run_trajectory_equals_steps():
     _, scans = _stream(8, NB)
     ts = [_tscan(*s, NB) for s in scans]
     batched = type(ts[0])(*(torch.stack(f) for f in zip(*ts)))
-    final, poses = todom.run_trajectory(cfg, todom.init_state(cfg), batched,
+    final, poses = todom.run_trajectory(cfg,
+                                        todom.init_state(cfg, device="cpu"),
+                                        batched,
                                         torch.full((8,), 0.1))
-    st = todom.init_state(cfg)
+    st = todom.init_state(cfg, device="cpu")
     for i, sc in enumerate(ts):
         st, info = todom.step(cfg, st, sc, 0.1)
         assert torch.equal(poses[i], info.pose)
@@ -566,11 +569,11 @@ def test_run_trajectory_equals_steps():
 
 def test_odom_state_converter_checks_keys():
     st = _np_state(jodom.init_state(jconfig.PlicpConfig(num_beams=8)))
-    port = convert.odom_state_from_numpy(st)
+    port = convert.odom_state_from_numpy(st, device="cpu")
     assert port.initialized is False and port.keyframe_pts.shape == (8, 2)
     del st["velocity"]
     with pytest.raises(ValueError, match="state keys"):
-        convert.odom_state_from_numpy(st)
+        convert.odom_state_from_numpy(st, device="cpu")
 
 
 # ----------------------------------------------------- frame to frame PL-ICP
@@ -585,9 +588,10 @@ def test_scan_match_plicp_direction_and_parity():
     pa, pb = np.zeros(3), np.array([0.07, -0.04, 0.05])
     sa, sb = _scan_np(pa, seed=1), _scan_np(pb, seed=2)
     jst, jr0 = jsmp.step(jcfg, jsmp.init_state(jcfg), _jscan(*sa, NB))
-    tst, tr0 = tsmp.step(tcfg, tsmp.init_state(tcfg), _tscan(*sa, NB))
+    tst, tr0 = tsmp.step(tcfg, tsmp.init_state(tcfg, device="cpu"),
+                         _tscan(*sa, NB))
     assert not bool(tr0.valid) and not bool(jr0.valid)  # nothing to match
-    from_jax = convert.frame_state_from_numpy(_np_state(jst))
+    from_jax = convert.frame_state_from_numpy(_np_state(jst), device="cpu")
     assert from_jax.initialized and tst.initialized
     np.testing.assert_allclose(from_jax.last_pts.numpy(), tst.last_pts.numpy(),
                                atol=1e-6, rtol=0)

@@ -71,7 +71,7 @@ def bad_init_problem(n=24, L=8.0, ang_noise=1.4, conflict=3.0, seed=1):
 def test_residuals_cost_and_system_match_jax():
     init, edges = noisy_loop_graph()
     gj = jb.graph_from_edges(init, edges)
-    gt = tb.graph_from_edges(init, edges)
+    gt = tb.graph_from_edges(init, edges, device="cpu")
     n, e = len(init), len(edges)
     pj = gj.poses
     pt = gt.poses
@@ -98,7 +98,7 @@ def test_residuals_cost_and_system_match_jax():
 def test_optimize_matches_jax_on_noisy_graph():
     init, edges = noisy_loop_graph()
     pj, sj = js.optimize(jb.graph_from_edges(init, edges))
-    pt, st = ts.optimize(tb.graph_from_edges(init, edges))
+    pt, st = ts.optimize(tb.graph_from_edges(init, edges, device="cpu"))
     n = len(init)
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj)[:n], atol=1e-4,
                                rtol=0)
@@ -107,14 +107,16 @@ def test_optimize_matches_jax_on_noisy_graph():
     np.testing.assert_allclose(float(st.initial_cost),
                                float(sj.initial_cost), rtol=1e-5)
     assert float(st.final_cost) < 0.1 * float(st.initial_cost)
-    assert torch.equal(pt[0], tb.graph_from_edges(init, edges).poses[0])
+    assert torch.equal(
+        pt[0], tb.graph_from_edges(init, edges, device="cpu").poses[0])
 
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_presets_match_jax(name):
     init, edges = noisy_loop_graph(n=20, seed=5)
     pj, sj = jb.make_solver(name).compute(jb.graph_from_edges(init, edges))
-    pt, st = tb.make_solver(name).compute(tb.graph_from_edges(init, edges))
+    pt, st = tb.make_solver(name).compute(
+        tb.graph_from_edges(init, edges, device="cpu"))
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj)[: len(init)],
                                atol=1e-4, rtol=0)
     np.testing.assert_allclose(float(st.final_cost), float(sj.final_cost),
@@ -131,7 +133,8 @@ def test_backends_differ_as_the_reference_adapters_would():
     init, edges = bad_init_problem()
     finals = {}
     for name in PRESETS:
-        _, st = tb.make_solver(name).compute(tb.graph_from_edges(init, edges))
+        _, st = tb.make_solver(name).compute(
+            tb.graph_from_edges(init, edges, device="cpu"))
         finals[name] = float(st.final_cost)
         if name == "g2o_solver":
             assert int(st.good_iters) == 40, int(st.good_iters)
@@ -155,7 +158,8 @@ def test_registry_and_empty_graph():
 
     tb.register_solver("torch_dummy", Dummy)
     init, edges = noisy_loop_graph(n=4)
-    tb.make_solver("torch_dummy").compute(tb.graph_from_edges(init, edges))
+    tb.make_solver("torch_dummy").compute(
+        tb.graph_from_edges(init, edges, device="cpu"))
     assert calls == [1]
-    g0 = tb.graph_from_edges(np.zeros((0, 3)), [])
+    g0 = tb.graph_from_edges(np.zeros((0, 3)), [], device="cpu")
     assert g0.poses.shape == (0, 3) and g0.edge_i.shape == (0,)

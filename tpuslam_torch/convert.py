@@ -130,7 +130,7 @@ def _pose(d: dict, k: str, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
-def odom_state_from_numpy(state, device=None) -> plicp_odometry.OdomState:
+def odom_state_from_numpy(state, device="cuda") -> plicp_odometry.OdomState:
     """A JAX ``plicp_odometry.OdomState`` (as NumPy values) on ``device``."""
     d = _fields(state, plicp_odometry.OdomState._fields)
     pts, valid = _points(d["keyframe_pts"], d["keyframe_valid"], "keyframe")
@@ -147,7 +147,7 @@ def odom_state_from_numpy(state, device=None) -> plicp_odometry.OdomState:
     )
 
 
-def hector_state_from_numpy(state, cfg, device=None
+def hector_state_from_numpy(state, cfg, device="cuda"
                             ) -> hector_slam.HectorState:
     """A JAX ``HectorState`` (as NumPy values) on ``device``; the log-odds
     levels are checked against ``make_specs(cfg)``."""
@@ -168,7 +168,7 @@ def hector_state_from_numpy(state, cfg, device=None
     )
 
 
-def frame_state_from_numpy(state, device=None) -> scan_match_icp.FrameState:
+def frame_state_from_numpy(state, device="cuda") -> scan_match_icp.FrameState:
     """A JAX ``FrameState`` of ``scan_match_icp`` or ``scan_match_plicp``
     (as NumPy values) on ``device``; the port's two models share it."""
     d = _fields(state, scan_match_icp.FrameState._fields)

@@ -42,7 +42,7 @@ def make_scan(
     range_max: float = np.inf,
     time_increment: float = 0.0,
     num_beams: int | None = None,
-    device=None,
+    device="cuda",
 ) -> Scan:
     """Build a Scan from raw ranges + laser intrinsics, with validity gating.
 

@@ -8,33 +8,36 @@
 // Contract, for every angle a and output cell (k, l) < (s, s):
 //   out[a, k, l] = sum over points p with ok[a, p] of
 //                  q[ay[a, p] + stride*k, ax[a, p] + stride*l]
-// where q = round(grid * 100) is a uint8 [G, G] grid (values <= 100) and a
-// cell outside [0, G)^2 reads zero.  Every addend is an integer <= 100 and
-// every total is below 2^24, so the f32 result is exact in any summation
-// order: the output is bit-identical to the TPU kernels and deterministic
-// even though blocks meet through atomics.
+// where q = round(grid * 100) is the uint8 [G, G] byte grid (values <= 100)
+// that the caller quantizes once per correlation grid, and a cell outside
+// [0, G)^2 reads zero.  Every addend is an integer <= 100 and every total
+// is below 2^24, so the f32 result is exact in any summation order: the
+// output is bit-identical to the TPU kernels and deterministic even though
+// blocks meet through atomics.
 //
-// What bounds it on this card: at the sequential sizes (S = 3, 5, 9, 33)
-// the work is a few million byte loads, so launch latency and the serial
-// walk over B points dominate; at loop scale (S = 153, or s2 = 76 at
-// stride 2) it is L2-to-SM traffic, about one 32-byte sector per point
-// per 8x32 output tile.  The grid is read from L2: at G = 2431 the uint8
-// grid is 5.9 MB and stays resident in the 50 MB L2 (the TPU held a bf16
-// copy in VMEM; no on-chip store that large exists here).
+// What bounds it on this card: one byte load and one add per (point, cell),
+// 1.8 M of each at the sequential coarse pass (G = 2007, S = 9, 21 angles,
+// 1081 points) and 131 M at the stride-2 loop pass (s2 = 76).  The bytes
+// that must move are few (the points and the output; the grid, 1.3-4 MB,
+// stays in the 50 MB L2), so the roofline bound is the adds, ~2 us at the
+// f32 rate; in practice the load instructions and their latency bound it,
+// so the design keeps many independent loads in flight and enough blocks
+// to fill the card.
 //
-// Design: a block owns (angle, output tile of up to 8x32 cells) and loops
-// over that angle's points, staging (ay, ax, ok) through shared memory in
-// chunks of 256.  Each thread owns one output cell and keeps an int32
-// sum; the 32 threads of a warp own 32 consecutive cells of one output row,
-// so for each point they read consecutive bytes of one grid row.  When the
-// tile is small (S = 3, 5, 9) the spare threads of the block form extra
-// point lanes, reduced in shared memory, and a third grid dimension splits
-// the points into chunks so the card has enough blocks; chunks meet in the
-// output through atomicAdd of exact integer-valued floats.  No padding of
-// the grid, no landing strip: dropped points are masked by `ok`.
+// Design: a block owns (angle, a run of output cells, a chunk of at most
+// kChunk points).  The chunk's kept points are staged in shared memory as
+// flat grid offsets, split into those whose whole patch lies on the grid
+// (the main path's only kind: its callers drop the others) and those
+// that need per-cell bounds checks.  A thread owns R cells (R = 4 once the
+// patch has enough cells, 1 below) and walks its point lane's points
+// kUnroll at a time, so R x kUnroll independent loads are in flight; the 32
+// threads of a warp own 32 consecutive cells, so one load instruction reads
+// neighbouring bytes of a grid row, and consecutive beams land in
+// neighbouring cells, so L1 serves most of them.  Small patches (S = 3, 5,
+// 9) give the spare threads of a block their own point lanes.  Chunks and
+// lanes meet in the output through atomicAdd of exact integer-valued
+// floats.
 
-#include <algorithm>
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -42,72 +45,108 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStage = 256;      // points staged in shared memory at a time
-constexpr int kMinChunk = 64;    // fewest points a chunk of the point split holds
-constexpr int kTargetBlocks = 4 * 132;  // about four blocks per H100 SM
-constexpr int kDropped = INT_MIN / 2;   // row of a dropped point: off-grid
+constexpr int kChunk = 128;  // most points one block walks
+constexpr int kUnroll = 8;   // points walked together by a thread
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 patch_sums_kernel(const uint8_t* __restrict__ q, int g,
                   const int* __restrict__ ay, const int* __restrict__ ax,
                   const uint8_t* __restrict__ ok, int b, int s, int stride,
-                  int tw, int th, int tiles_x, int groups, int chunk,
+                  int cells_blk, int per_lane, int lanes, int chunk,
                   float* __restrict__ out) {
-  __shared__ int s_y[kStage];
-  __shared__ int s_x[kStage];
-  __shared__ int s_acc[kThreads];
+  __shared__ int s_in[kChunk];     // flat offsets of whole-patch points
+  __shared__ int s_ey[kChunk];     // rows / cols of points off the edge
+  __shared__ int s_ex[kChunk];
+  __shared__ int s_n_in;
+  __shared__ int s_n_edge;
 
   const int a = blockIdx.y;
   const int t = threadIdx.x;
-  const int cells = tw * th;
-  const int grp = t / cells;  // point lane of this thread
-  const int cell = t - grp * cells;
-  const int k = (blockIdx.x / tiles_x) * th + cell / tw;  // output row
-  const int l = (blockIdx.x % tiles_x) * tw + cell % tw;  // output col
-  const bool active = grp < groups && k < s && l < s;
-  const int dy = stride * k;
-  const int dx = stride * l;
-
-  const int* ay_a = ay + static_cast<size_t>(a) * b;
-  const int* ax_a = ax + static_cast<size_t>(a) * b;
-  const uint8_t* ok_a = ok + static_cast<size_t>(a) * b;
-  const int p_begin = blockIdx.z * chunk;
-  const int p_end = min(b, p_begin + chunk);
-
-  int acc = 0;
-  for (int p0 = p_begin; p0 < p_end; p0 += kStage) {
-    const int n = min(kStage, p_end - p0);
-    __syncthreads();  // the previous stage is consumed
-    if (t < n) {
-      const int p = p0 + t;
-      const bool keep = ok_a[p] != 0;
-      s_y[t] = keep ? ay_a[p] : kDropped;
-      s_x[t] = keep ? ax_a[p] : 0;
+  const int p0 = blockIdx.z * chunk;
+  const int n = min(chunk, b - p0);
+  const int span = stride * (s - 1);  // a patch covers [y, y + span]
+  if (t == 0) {
+    s_n_in = 0;
+    s_n_edge = 0;
+  }
+  __syncthreads();
+  if (t < n) {
+    const size_t p = static_cast<size_t>(a) * b + p0 + t;
+    if (ok[p]) {
+      const int y = ay[p];
+      const int x = ax[p];
+      if (y >= 0 && x >= 0 && y < g - span && x < g - span) {
+        s_in[atomicAdd(&s_n_in, 1)] = y * g + x;
+      } else {
+        const int e = atomicAdd(&s_n_edge, 1);
+        s_ey[e] = y;
+        s_ex[e] = x;
+      }
     }
-    __syncthreads();
-    if (active) {
-      for (int i = grp; i < n; i += groups) {
-        const int y = s_y[i] + dy;
-        const int x = s_x[i] + dx;
-        if (static_cast<unsigned>(y) < static_cast<unsigned>(g) &&
-            static_cast<unsigned>(x) < static_cast<unsigned>(g)) {
-          acc += q[static_cast<size_t>(y) * g + x];
-        }
+  }
+  __syncthreads();
+  const int n_in = s_n_in;
+  const int n_edge = s_n_edge;
+
+  const int lane = t / per_lane;  // point lane of this thread
+  const int u = t - lane * per_lane;
+  const int cell0 = blockIdx.x * cells_blk;
+  const int cell_end = min(s * s, cell0 + cells_blk);
+  if (lane >= lanes) return;  // no barrier follows
+  int off[R];
+  int ky[R];
+  int kx[R];
+  bool live[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = cell0 + u + r * per_lane;
+    live[r] = c < cell_end;
+    const int k = live[r] ? c / s : 0;
+    const int l = live[r] ? c - k * s : 0;
+    ky[r] = stride * k;
+    kx[r] = stride * l;
+    off[r] = ky[r] * g + kx[r];
+  }
+
+  int acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0;
+  int i = lane;
+  for (; i + (kUnroll - 1) * lanes < n_in; i += kUnroll * lanes) {
+    int base[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) base[j] = s_in[i + j * lanes];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] += q[base[j] + off[r]];
+    }
+  }
+  for (; i < n_in; i += lanes) {
+    const int base = s_in[i];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] += q[base + off[r]];
+  }
+  for (int e = lane; e < n_edge; e += lanes) {  // per-cell bounds checks
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int y = s_ey[e] + ky[r];
+      const int x = s_ex[e] + kx[r];
+      if (static_cast<unsigned>(y) < static_cast<unsigned>(g) &&
+          static_cast<unsigned>(x) < static_cast<unsigned>(g)) {
+        acc[r] += q[static_cast<size_t>(y) * g + x];
       }
     }
   }
 
-  if (groups > 1) {  // fold the point lanes onto lane 0
-    s_acc[t] = active ? acc : 0;
-    __syncthreads();
-    if (grp == 0 && active) {
-      for (int r = 1; r < groups; ++r) acc += s_acc[r * cells + cell];
-    }
-  }
-  if (grp == 0 && active && acc != 0) {
+  float* out_a = out + static_cast<size_t>(a) * s * s;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
     // integer-valued partial sums below 2^24: exact in any order
-    atomicAdd(out + (static_cast<size_t>(a) * s + k) * s + l,
-              static_cast<float>(acc));
+    if (live[r] && acc[r] != 0) {
+      atomicAdd(out_a + cell0 + u + r * per_lane, static_cast<float>(acc[r]));
+    }
   }
 }
 
@@ -129,19 +168,29 @@ int tpuslam_patch_sums(const void* q, int g, const void* ay, const void* ax,
   cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(n_a) * s * s,
                   st);
   if (b <= 0) return static_cast<int>(cudaGetLastError());
-  const int tw = std::min(s, 32);
-  const int th = std::min(s, kThreads / tw);
-  const int groups = kThreads / (tw * th);
-  const int tiles_x = ceil_div(s, tw);
-  const int tiles = tiles_x * ceil_div(s, th);
-  const int chunks = std::max(1, std::min(ceil_div(b, kMinChunk),
-                                          ceil_div(kTargetBlocks, tiles * n_a)));
-  const int chunk = ceil_div(b, chunks);
-  const dim3 grid(tiles, n_a, ceil_div(b, chunk));
-  patch_sums_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(q), g, static_cast<const int*>(ay),
-      static_cast<const int*>(ax), static_cast<const uint8_t*>(ok), b, s,
-      stride, tw, th, tiles_x, groups, chunk, static_cast<float*>(out));
+  const int cells = s * s;
+  // R = 4 cells a thread once a block's threads are all busy at R = 1
+  const bool wide = cells > kThreads;
+  const int r = wide ? 4 : 1;
+  const int cells_blk = wide ? kThreads * r : cells;
+  const int per_lane = wide ? kThreads : cells;  // threads of a point lane
+  const int lanes = kThreads / per_lane;
+  const int chunk = ceil_div(b, ceil_div(b, kChunk));
+  const dim3 grid(ceil_div(cells, cells_blk), n_a, ceil_div(b, chunk));
+  const uint8_t* q8 = static_cast<const uint8_t*>(q);
+  const int* ay32 = static_cast<const int*>(ay);
+  const int* ax32 = static_cast<const int*>(ax);
+  const uint8_t* ok8 = static_cast<const uint8_t*>(ok);
+  float* o = static_cast<float*>(out);
+  if (wide) {
+    patch_sums_kernel<4><<<grid, kThreads, 0, st>>>(
+        q8, g, ay32, ax32, ok8, b, s, stride, cells_blk, per_lane, lanes,
+        chunk, o);
+  } else {
+    patch_sums_kernel<1><<<grid, kThreads, 0, st>>>(
+        q8, g, ay32, ax32, ok8, b, s, stride, cells_blk, per_lane, lanes,
+        chunk, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -87,7 +87,7 @@ def make_solver(name: str) -> ScanSolver:
 def graph_from_edges(
     poses: np.ndarray,
     edges: list[tuple[int, int, np.ndarray, np.ndarray]],
-    device=None,
+    device="cuda",
 ) -> PoseGraph:
     """A float32 PoseGraph on ``device`` from host-side pose/edge lists.
 

@@ -1,0 +1,128 @@
+"""Synthetic 2D laser worlds for the port's end-to-end runs.
+
+A NumPy-only copy of the functions of ``tpuslam/io/simulate.py`` that
+``chip_smoke.py`` drives the port with: segment worlds and exact ray
+casting on the host in float64, so that a run on the card can be held
+against its ground-truth trajectory.  The port keeps its own copy so that
+neither it nor ``chip_smoke.py`` imports anything of the JAX package;
+``tests/test_torch_io.py`` holds each function bit for bit against the
+original.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def rect_room(width: float = 10.0, height: float = 8.0) -> np.ndarray:
+    """Axis-aligned rectangular room centered at the origin.
+
+    Returns segments [N, 2, 2] as (start_xy, end_xy)."""
+    w, h = width / 2.0, height / 2.0
+    corners = np.array([[-w, -h], [w, -h], [w, h], [-w, h]])
+    return np.stack([corners, np.roll(corners, -1, axis=0)], axis=1)
+
+
+def world_with_boxes(width: float = 12.0, height: float = 10.0) -> np.ndarray:
+    """A room with two box obstacles — enough structure for loop closure."""
+    segs = [rect_room(width, height)]
+    for cx, cy, s in [(-2.5, -1.5, 1.0), (2.0, 1.5, 1.4)]:
+        c = np.array(
+            [
+                [cx - s / 2, cy - s / 2],
+                [cx + s / 2, cy - s / 2],
+                [cx + s / 2, cy + s / 2],
+                [cx - s / 2, cy + s / 2],
+            ]
+        )
+        segs.append(np.stack([c, np.roll(c, -1, axis=0)], axis=1))
+    return np.concatenate(segs, axis=0)
+
+
+def outdoor_world(width: float = 36.0, height: float = 28.0) -> np.ndarray:
+    """A large outdoor-scale courtyard: the operating point of the lesson6
+    outdoor dataset (50 m range, 15 m loop windows) needs a world where
+    trajectories legitimately separate by >15 m before re-entering."""
+    segs = [rect_room(width, height)]
+    boxes = [
+        (-11.0, -8.0, 3.0), (-10.5, 6.5, 2.2), (0.0, 0.0, 4.0),
+        (9.0, -7.5, 2.6), (11.0, 7.0, 3.4), (4.5, 9.0, 1.8),
+        (-4.0, -10.5, 2.0), (13.0, -1.0, 1.6),
+    ]
+    for cx, cy, s in boxes:
+        c = np.array(
+            [
+                [cx - s / 2, cy - s / 2],
+                [cx + s / 2, cy - s / 2],
+                [cx + s / 2, cy + s / 2],
+                [cx - s / 2, cy + s / 2],
+            ]
+        )
+        segs.append(np.stack([c, np.roll(c, -1, axis=0)], axis=1))
+    return np.concatenate(segs, axis=0)
+
+
+def cast_rays(
+    segments: np.ndarray,
+    origin: np.ndarray,
+    angles: np.ndarray,
+    max_range: float = 30.0,
+) -> np.ndarray:
+    """Exact ray-segment intersection; returns range per angle (inf = miss).
+
+    origin: [2]; angles: [B] absolute world angles."""
+    o = np.asarray(origin, dtype=np.float64)
+    d = np.stack([np.cos(angles), np.sin(angles)], axis=-1)  # [B, 2]
+    a = segments[:, 0]  # [N, 2]
+    b = segments[:, 1]
+    e = b - a  # [N, 2]
+
+    # Solve o + t*d = a + u*e  for t >= 0, 0 <= u <= 1.
+    # cross(d, e) t-denominator per (beam, segment)
+    denom = d[:, None, 0] * e[None, :, 1] - d[:, None, 1] * e[None, :, 0]
+    ao = a[None, :, :] - o[None, None, :]
+    t_num = ao[..., 0] * e[None, :, 1] - ao[..., 1] * e[None, :, 0]
+    u_num = ao[..., 0] * d[:, None, 1] - ao[..., 1] * d[:, None, 0]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = t_num / denom
+        u = u_num / denom
+    hit = (np.abs(denom) > 1e-12) & (t > 1e-9) & (u >= 0.0) & (u <= 1.0)
+    t = np.where(hit, t, np.inf)
+    r = t.min(axis=1)
+    return np.where(r <= max_range, r, np.inf)
+
+
+def simulate_scan(
+    segments: np.ndarray,
+    pose: np.ndarray,
+    *,
+    num_beams: int = 360,
+    fov: float = 2.0 * np.pi,
+    max_range: float = 30.0,
+    noise_std: float = 0.0,
+    rng: np.random.Generator | None = None,
+) -> tuple[np.ndarray, float, float]:
+    """Simulate one scan from a world pose (x, y, theta).
+
+    Returns (ranges [num_beams], angle_min, angle_increment) in the SENSOR
+    frame (beam angles relative to pose heading)."""
+    pose = np.asarray(pose, dtype=np.float64)
+    angle_min = -fov / 2.0
+    inc = fov / max(num_beams - 1, 1)
+    beam_angles = angle_min + inc * np.arange(num_beams)
+    r = cast_rays(segments, pose[:2], pose[2] + beam_angles, max_range)
+    if noise_std > 0.0:
+        rng = rng or np.random.default_rng(0)
+        r = np.where(np.isfinite(r), r + rng.normal(0, noise_std, r.shape), r)
+    return r, angle_min, inc
+
+
+def circle_trajectory(
+    radius: float = 2.0, num_poses: int = 64, full_turns: float = 1.0
+) -> np.ndarray:
+    """Poses [T, 3] driving a circle, heading tangent to the path."""
+    s = np.linspace(0.0, full_turns * 2.0 * np.pi, num_poses, endpoint=False)
+    x = radius * np.cos(s)
+    y = radius * np.sin(s)
+    th = np.arctan2(np.cos(s), -np.sin(s))
+    return np.stack([x, y, th], axis=-1)

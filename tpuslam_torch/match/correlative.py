@@ -20,9 +20,10 @@ as in the JAX package:
 PyTorch shape: plain functions on tensors, float32 on the device.  The
 response surfaces are summed patches of the x100 integer grid
 (``ops/correlative.py``): the CUDA kernel on a CUDA tensor, its plain
-version on the CPU.  Data-dependent branches the JAX code runs under
-``lax.cond`` (the stride-2 uniformity guard, response expansion) read one
-scalar back to the host here.
+version on the CPU.  ``match_scan`` quantizes the correlation grid to that
+byte grid once and hands it to every response pass.  Data-dependent
+branches the JAX code runs under ``lax.cond`` (the stride-2 uniformity
+guard, response expansion) read one scalar back to the host here.
 """
 
 from __future__ import annotations
@@ -37,7 +38,11 @@ import torch
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.grid import recip
 from tpuslam_torch.ops import fvp
-from tpuslam_torch.ops.correlative import patch_sums, patch_sums_stride2
+from tpuslam_torch.ops.correlative import (
+    byte_grid,
+    patch_sums,
+    patch_sums_stride2,
+)
 
 MAX_VARIANCE = 500.0  # Mapper.cpp MAX_VARIANCE
 DISTANCE_PENALTY_GAIN = 0.2
@@ -242,7 +247,7 @@ def build_correlation_grid(
 
 def _correlate(
     spec: CorrelativeSpec,
-    grid: torch.Tensor,  # [G, G]
+    q: torch.Tensor,  # [G, G] uint8 byte grid (ops.correlative.byte_grid)
     grid_center: torch.Tensor,  # [2] xy the grid was stamped around
     center_pose: torch.Tensor,  # [3] search centre
     local_pts: torch.Tensor,  # [B, 2] scan points in the sensor frame
@@ -259,7 +264,7 @@ def _correlate(
     out at the candidate lattice); coarse windows of loop scale read only
     the stride-2 lattice, guarded at run time by a uniformity check on the
     candidate cells with the full surface as the fallback."""
-    dev = grid.device
+    dev = q.device
     g = spec.grid_size
     res = spec.resolution
     origin = grid_center - 0.5 * (g - 1) * res
@@ -310,10 +315,10 @@ def _correlate(
         )
         use_stride2 = bool(uniform)
     if use_stride2:
-        p2 = patch_sums_stride2(grid, ay + dyc[0], ax + dxc[0], ok, ny)
+        p2 = patch_sums_stride2(q, ay + dyc[0], ax + dxc[0], ok, ny)
         resp = p2 * 0.01 / denom
     else:
-        patches = patch_sums(grid, ay, ax, ok, size) * 0.01
+        patches = patch_sums(q, ay, ax, ok, size) * 0.01
         # out-of-range readouts clamp, as the JAX gather does
         iy = dyc.clamp(0, size - 1).long()
         ix = dxc.clamp(0, size - 1).long()
@@ -408,7 +413,7 @@ def _positional_covariance(
 
 def _angular_covariance(
     spec: CorrelativeSpec,
-    grid: torch.Tensor,
+    q: torch.Tensor,
     grid_center: torch.Tensor,
     center_pose: torch.Tensor,
     local_pts: torch.Tensor,
@@ -421,7 +426,7 @@ def _angular_covariance(
     """Mapper.cpp:641-692: angle response sweep at the best position."""
     resp, _, _ = _correlate(
         spec,
-        grid,
+        q,
         grid_center,
         # sweep around the SEARCH CENTRE heading at the best position
         torch.stack([mean[0], mean[1], center_pose[2]]),
@@ -462,14 +467,14 @@ def match_scan(
     flat_pts = base_pts.reshape(-1, base_pts.shape[-2], 2)
     flat_valid = base_valid.reshape(-1, base_valid.shape[-1])
     vp_valid = fvp.find_valid_points(flat_pts, flat_valid, center_pose[:2])
-    grid = build_correlation_grid(
+    q = byte_grid(build_correlation_grid(
         spec, center_pose[:2], base_pts, vp_valid.reshape(base_valid.shape)
-    )
+    ))
 
     grid_center = center_pose[:2]
     cxy = spec.coarse_xy()
     resp, best, mean = _correlate(
-        spec, grid, grid_center, center_pose, local_pts, valid, cxy,
+        spec, q, grid_center, center_pose, local_pts, valid, cxy,
         spec.coarse_angles(), penalize,
     )
     cov_pos = _positional_covariance(spec, resp, best, mean, center_pose, cxy)
@@ -481,7 +486,7 @@ def match_scan(
             if bool(best != 0.0):
                 break
             resp_x, best, mean = _correlate(
-                spec, grid, grid_center, center_pose, local_pts, valid,
+                spec, q, grid_center, center_pose, local_pts, valid,
                 cxy, spec.coarse_angles(extra), penalize,
             )
             cov_pos = _positional_covariance(
@@ -492,11 +497,11 @@ def match_scan(
         fxy = spec.fine_xy()
         fang = spec.fine_angles()
         _, best_f, mean_f = _correlate(
-            spec, grid, grid_center, mean, local_pts, valid, fxy, fang,
+            spec, q, grid_center, mean, local_pts, valid, fxy, fang,
             penalize,
         )
         var_th = _angular_covariance(
-            spec, grid, grid_center, mean, local_pts, valid, mean_f, best_f,
+            spec, q, grid_center, mean, local_pts, valid, mean_f, best_f,
             fang,
         )
         cov = cov_pos.clone()

@@ -47,7 +47,7 @@ def make_specs(cfg: HectorConfig) -> tuple[GridSpec, ...]:
 
 
 def init_state(cfg: HectorConfig, dtype=torch.float32,
-               device=None) -> HectorState:
+               device="cuda") -> HectorState:
     return HectorState(
         log_odds=tuple(torch.zeros(s.shape, dtype=dtype, device=device)
                        for s in make_specs(cfg)),

@@ -169,7 +169,7 @@ class KartoMapper:
         cfg: KartoConfig,
         max_scans: int = 2048,
         events=None,
-        device="cpu",
+        device="cuda",
     ):
         """events: optional ``tpuslam.utils.events.EventBus`` (or any object
         with ``fire(event, **payload)``) — receives the reference's
@@ -224,7 +224,7 @@ class KartoMapper:
         }
 
     @classmethod
-    def from_state(cls, cfg: KartoConfig, state: dict, device="cpu"):
+    def from_state(cls, cfg: KartoConfig, state: dict, device="cuda"):
         """A mapper that continues from ``state`` (see
         :func:`tpuslam_torch.convert.karto_state_from_numpy`)."""
         m = cls(cfg, max_scans=len(state["poses"]), device=device)

@@ -40,7 +40,7 @@ class OdomState(NamedTuple):
 
 
 def init_state(cfg: PlicpConfig, dtype=torch.float32,
-               device=None) -> OdomState:
+               device="cuda") -> OdomState:
     b = cfg.num_beams
     zeros3 = torch.zeros(3, dtype=dtype, device=device)
     return OdomState(

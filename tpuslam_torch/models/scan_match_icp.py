@@ -25,7 +25,7 @@ class FrameState(NamedTuple):
 
 
 def init_state(cfg: IcpConfig | PlicpConfig, dtype=torch.float32,
-               device=None) -> FrameState:
+               device="cuda") -> FrameState:
     return FrameState(
         last_pts=torch.zeros((cfg.num_beams, 2), dtype=dtype, device=device),
         last_valid=torch.zeros((cfg.num_beams,), dtype=torch.bool,

@@ -52,8 +52,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, g, ay, ax, ok, n_a, b, s, stride, out, stream
     "tpuslam_patch_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    # px, py, pv, vp, s, b, dec, keep, out, stream
-    "tpuslam_fvp": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    # pts, valid, vp, s, b, out, stream
+    "tpuslam_fvp": (_P, _P, _P, _I, _I, _P, _P),
     # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles,
     # q1, q2, d1, ok, j1, best, stream
     "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I,

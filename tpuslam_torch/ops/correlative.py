@@ -2,13 +2,15 @@
 plain PyTorch version.
 
 Counterpart of ``tpuslam/ops/pallas_correlative.py``.  For every angle
-``a`` the summed patches of the quantized grid ``q = round(grid * 100)``::
+``a`` the summed patches of the byte grid ``q = round(grid * 100)``
+(:func:`byte_grid`, uint8, taken once per correlation grid by the
+caller)::
 
     patch_sums:          out[a, k, l] = sum_p ok[a,p] * q[ay[a,p] + k,   ax[a,p] + l]
     patch_sums_stride2:  out[a, k, l] = sum_p ok[a,p] * q[ay[a,p] + 2k,  ax[a,p] + 2l]
 
-as f32 ``[nA, s, s]`` of exact integer sums (grid values are multiples of
-0.01, so every sum is an integer below 2^24).  Cells outside the grid read
+as f32 ``[nA, s, s]`` of exact integer sums (every sum is an integer
+below 2^24).  Cells outside the grid read
 zero.  Dropped points are masked by ``ok`` rather than sent to the TPU
 kernel's zero landing strip, so the grid needs no padding.
 
@@ -30,13 +32,14 @@ LAUNCHES = {"patch_sums": 0, "patch_sums_stride2": 0}
 _PLAIN_CHUNK = 1 << 24
 
 
-def quantize(grid: torch.Tensor) -> torch.Tensor:
-    """round(grid * 100): the grid's exact integer values (<= 100)."""
-    return torch.round(grid * 100.0)
+def byte_grid(grid: torch.Tensor) -> torch.Tensor:
+    """round(grid * 100) as uint8: the exact integer values (<= 100) of a
+    correlation grid whose cells are multiples of 0.01."""
+    return torch.round(grid * 100.0).to(torch.uint8)
 
 
 def patch_sums_plain(
-    grid: torch.Tensor,
+    q: torch.Tensor,
     ay: torch.Tensor,
     ax: torch.Tensor,
     ok: torch.Tensor,
@@ -44,11 +47,12 @@ def patch_sums_plain(
     stride: int = 1,
 ) -> torch.Tensor:
     """Integer gather-and-sum over points, chunked over angles."""
-    g = grid.shape[0]
+    g = q.shape[0]
     n_a, b = ay.shape
-    q = quantize(grid).to(torch.int32).reshape(-1)
-    steps = stride * torch.arange(s, device=grid.device, dtype=torch.int64)
-    out = torch.zeros((n_a, s, s), dtype=torch.int64, device=grid.device)
+    dev = q.device
+    q = q.to(torch.int32).reshape(-1)
+    steps = stride * torch.arange(s, device=dev, dtype=torch.int64)
+    out = torch.zeros((n_a, s, s), dtype=torch.int64, device=dev)
     per = max(1, _PLAIN_CHUNK // max(1, b * s * s))
     for a0 in range(0, n_a, per):
         ys = ay[a0 : a0 + per, :, None].long() + steps  # [n, B, s]
@@ -61,13 +65,13 @@ def patch_sums_plain(
     return out.to(torch.float32)
 
 
-def _check(grid, ay, ax, ok, s):
-    if grid.device.type != "cuda":
-        raise ValueError(f"patch_sums: unsupported device {grid.device}")
-    if grid.dim() != 2 or grid.shape[0] != grid.shape[1]:
-        raise ValueError(f"grid must be square [G, G], got {tuple(grid.shape)}")
-    if grid.dtype != torch.float32 or not grid.is_contiguous():
-        raise ValueError("grid must be contiguous f32")
+def _check(q, ay, ax, ok, s):
+    if q.device.type != "cuda":
+        raise ValueError(f"patch_sums: unsupported device {q.device}")
+    if q.dim() != 2 or q.shape[0] != q.shape[1]:
+        raise ValueError(f"q must be square [G, G], got {tuple(q.shape)}")
+    if q.dtype != torch.uint8 or not q.is_contiguous():
+        raise ValueError("q must be the contiguous uint8 byte grid")
     if ay.dim() != 2 or ay.shape != ax.shape or ay.shape != ok.shape:
         raise ValueError(f"ay, ax, ok must share one [nA, B] shape, got "
                          f"{tuple(ay.shape)} {tuple(ax.shape)} {tuple(ok.shape)}")
@@ -76,8 +80,8 @@ def _check(grid, ay, ax, ok, s):
     if ok.dtype != torch.bool:
         raise ValueError(f"ok must be bool, got {ok.dtype}")
     for t in (ay, ax, ok):
-        if t.device != grid.device:
-            raise ValueError("grid, ay, ax and ok must share one device")
+        if t.device != q.device:
+            raise ValueError("q, ay, ax and ok must share one device")
         if not t.is_contiguous():
             raise ValueError("ay, ax and ok must be contiguous")
     if s < 1:
@@ -87,16 +91,15 @@ def _check(grid, ay, ax, ok, s):
         raise ValueError(f"{ay.shape[1]} points per angle overflow f32 sums")
 
 
-def _launch(grid, ay, ax, ok, s, stride, name):
-    _check(grid, ay, ax, ok, s)
+def _launch(q, ay, ax, ok, s, stride, name):
+    _check(q, ay, ax, ok, s)
     lib = _build.load()
-    q = quantize(grid).to(torch.uint8)
     n_a, b = ay.shape
-    out = torch.empty((n_a, s, s), dtype=torch.float32, device=grid.device)
+    out = torch.empty((n_a, s, s), dtype=torch.float32, device=q.device)
     rc = lib.tpuslam_patch_sums(
-        q.data_ptr(), grid.shape[0], ay.data_ptr(), ax.data_ptr(),
+        q.data_ptr(), q.shape[0], ay.data_ptr(), ax.data_ptr(),
         ok.data_ptr(), n_a, b, s, stride, out.data_ptr(),
-        torch.cuda.current_stream(grid.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "tpuslam_patch_sums")
     LAUNCHES[name] += 1
@@ -104,29 +107,29 @@ def _launch(grid, ay, ax, ok, s, stride, name):
 
 
 def patch_sums(
-    grid: torch.Tensor,  # [G, G] f32 in [0, 1], multiples of 0.01
+    q: torch.Tensor,  # [G, G] uint8 byte grid (values <= 100)
     ay: torch.Tensor,  # [nA, B] int32 patch top rows
     ax: torch.Tensor,  # [nA, B] int32 patch left cols
     ok: torch.Tensor,  # [nA, B] bool keep mask
     s: int,  # patch side
 ) -> torch.Tensor:
     """Summed s x s patches per angle: [nA, s, s] f32 (x100 integer sums)."""
-    if grid.device.type == "cpu":
-        return patch_sums_plain(grid, ay, ax, ok, s)
-    return _launch(grid, ay, ax, ok, s, 1, "patch_sums")
+    if q.device.type == "cpu":
+        return patch_sums_plain(q, ay, ax, ok, s)
+    return _launch(q, ay, ax, ok, s, 1, "patch_sums")
 
 
 def patch_sums_stride2(
-    grid: torch.Tensor,
+    q: torch.Tensor,
     ay: torch.Tensor,  # [nA, B] int32 top row of candidate 0
     ax: torch.Tensor,
     ok: torch.Tensor,
     s2: int,  # stride-2 shifts per axis
 ) -> torch.Tensor:
     """Summed stride-2 patches per angle: [nA, s2, s2] f32 (x100 sums)."""
-    if grid.device.type == "cpu":
-        return patch_sums_plain(grid, ay, ax, ok, s2, stride=2)
-    return _launch(grid, ay, ax, ok, s2, 2, "patch_sums_stride2")
+    if q.device.type == "cpu":
+        return patch_sums_plain(q, ay, ax, ok, s2, stride=2)
+    return _launch(q, ay, ax, ok, s2, 2, "patch_sums_stride2")
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,14 +143,14 @@ def selfcheck(device: str) -> bool:
     dev = torch.device(device)
     gen = torch.Generator().manual_seed(0)
     g, n_a, b = 97, 5, 300
-    grid = torch.randint(0, 101, (g, g), generator=gen).float() / 100.0
+    q = torch.randint(0, 101, (g, g), generator=gen, dtype=torch.uint8)
     ay = torch.randint(-6, g, (n_a, b), generator=gen, dtype=torch.int32)
     ax = torch.randint(-6, g, (n_a, b), generator=gen, dtype=torch.int32)
     ok = torch.rand((n_a, b), generator=gen) >= 0.1
     for s, stride, fn in ((3, 1, patch_sums), (9, 1, patch_sums),
                           (41, 1, patch_sums), (11, 2, patch_sums_stride2)):
-        want = patch_sums_plain(grid, ay, ax, ok, s, stride)
-        got = fn(grid.to(dev), ay.to(dev), ax.to(dev), ok.to(dev), s).cpu()
+        want = patch_sums_plain(q, ay, ax, ok, s, stride)
+        got = fn(q.to(dev), ay.to(dev), ax.to(dev), ok.to(dev), s).cpu()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
             raise RuntimeError(

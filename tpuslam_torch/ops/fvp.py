@@ -1,5 +1,5 @@
 """FindValidPoints for a batch of scans: the ``csrc/fvp.cu`` kernel and
-its plain PyTorch version.
+its plain PyTorch versions.
 
 Counterpart of ``tpuslam/ops/pallas_fvp.py::find_valid_points_batch``.
 :func:`find_valid_points` takes ``pts [S, B, 2]`` f32 world points,
@@ -7,8 +7,12 @@ Counterpart of ``tpuslam/ops/pallas_fvp.py::find_valid_points_batch``.
 ``[S, B]``: a point is kept when the next decision of the reference's
 trailing-anchor walk (Mapper.cpp:758-817) sees the surface from the
 viewpoint's side.  A CUDA tensor goes to the kernel, a CPU tensor to
-:func:`find_valid_points_plain`; both evaluate the same f32 expressions
-in the same order, so the masks are bit-identical.
+:func:`find_valid_points_plain`, the walk itself.  The kernel computes
+the walk's parallel form (the decisions are the orbit of the first valid
+point under ``next``; see ``csrc/fvp.cu``), which
+:func:`find_valid_points_chain` writes out in PyTorch for the tests.  All
+three evaluate the same f32 expressions on the same operands, so the
+masks are bit-identical.
 """
 
 from __future__ import annotations
@@ -58,6 +62,61 @@ def find_valid_points_plain(
     return out & valid
 
 
+def find_valid_points_chain(
+    pts: torch.Tensor, valid: torch.Tensor, viewpoint: torch.Tensor
+) -> torch.Tensor:
+    """The kernel's formulation, step for step, in plain PyTorch (used by
+    the tests): ``next`` for every point, the decision chain by pointer
+    doubling, each decision's keep against its chain predecessor, and a
+    reverse min-scan over decision indices."""
+    s, b = valid.shape
+    dev = pts.device
+    px, py = pts[..., 0], pts[..., 1]
+    iota = torch.arange(b, device=dev)
+    term = torch.full((s, 1), b, dtype=torch.int64, device=dev)
+    # 1. next[i]: the first valid j > i farther than 0.1 m from p_i, b if
+    # none (rows of 128 keep the all-pairs transient small)
+    rows = []
+    for r0 in range(0, b, 128):
+        r1 = min(b, r0 + 128)
+        dx = px[:, r0:r1, None] - px[:, None, :]
+        dy = py[:, r0:r1, None] - py[:, None, :]
+        far = ((dx * dx + dy * dy > _MIN_SQ) & valid[:, None, :]
+               & (iota[None, :] > iota[r0:r1, None]))
+        first = far.to(torch.uint8).argmax(-1)
+        rows.append(torch.where(far.any(-1) & valid[:, r0:r1], first, b))
+    nxt = torch.cat(rows + [term], 1)  # [S, B + 1]; b is the terminator
+    # 2. the orbit of the first valid point i0, by pointer doubling
+    has = valid.any(1)
+    i0 = torch.where(has, valid.to(torch.uint8).argmax(1), b)
+    on = torch.zeros((s, b + 1), dtype=torch.int32, device=dev)
+    on.scatter_(1, nxt.gather(1, i0[:, None]), has[:, None].to(torch.int32))
+    ptr = nxt
+    span = 1
+    while span < b:
+        on = on | (torch.zeros_like(on).scatter_add_(1, ptr, on) > 0).int()
+        ptr = ptr.gather(1, ptr)
+        span <<= 1
+    decide = on[:, :b] > 0
+    # 3. each decision's keep against its chain predecessor
+    chain = decide | ((iota[None, :] == i0[:, None]) & has[:, None])
+    tgt = torch.where(chain, nxt[:, :b], b)
+    anchor = torch.zeros((s, b + 1), dtype=torch.int64, device=dev)
+    anchor = anchor.scatter_reduce(1, tgt, iota.expand(s, b), "amax")[:, :b]
+    ax, ay = px.gather(1, anchor), py.gather(1, anchor)
+    vpx, vpy = viewpoint[0], viewpoint[1]
+    la = vpy - ay
+    lb = ax - vpx
+    lc = ay * vpx - ax * vpy
+    keep = torch.cat([px * la + py * lb + lc >= 0.0,
+                      torch.zeros((s, 1), dtype=torch.bool, device=dev)], 1)
+    # 4. the first decision strictly after i: a reverse running min
+    cand = torch.where(decide, iota, b)
+    nd = torch.flip(torch.cummin(torch.flip(cand, [1]), 1).values, [1])
+    nd = torch.cat([nd[:, 1:], term], 1)
+    return keep.gather(1, nd) & valid
+
+
 def find_valid_points(
     pts: torch.Tensor, valid: torch.Tensor, viewpoint: torch.Tensor
 ) -> torch.Tensor:
@@ -79,19 +138,16 @@ def find_valid_points(
     if valid.device != pts.device or viewpoint.device != pts.device:
         raise ValueError("pts, valid and viewpoint must share one device")
     lib = _build.load()
-    # scans in the minor axis: neighbouring threads read neighbouring scans
-    px = pts[..., 0].t().contiguous()
-    py = pts[..., 1].t().contiguous()
-    pv = valid.t().contiguous()
+    pts = pts.contiguous()
+    if pts.data_ptr() % 8:  # the kernel reads a point as one float2
+        pts = pts.clone()
+    valid = valid.contiguous()
     vp = viewpoint.contiguous()
-    dec = torch.empty((b, s), dtype=torch.uint8, device=pts.device)
-    keep = torch.empty_like(dec)
-    out = torch.empty_like(dec)
+    out = torch.empty((s, b), dtype=torch.bool, device=pts.device)
     rc = lib.tpuslam_fvp(
-        px.data_ptr(), py.data_ptr(), pv.data_ptr(), vp.data_ptr(), s, b,
-        dec.data_ptr(), keep.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(pts.device).cuda_stream,
+        pts.data_ptr(), valid.data_ptr(), vp.data_ptr(), s, b,
+        out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _build.check(rc, "tpuslam_fvp")
     LAUNCHES["fvp"] += 1
-    return out.t().bool() & valid
+    return out
