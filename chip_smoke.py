@@ -91,8 +91,10 @@ FVP_SIZES = [(20, 180, "normal"), (8, 512, "normal"), (128, 1081, "normal"),
              (110, 1081, "normal"), (8, 1081, "single"), (4, 1, "normal"),
              (8, 1081, "inside")]
 # (pairs, beams): the odometry's single pair at 512 and 1081 beams, a
-# batch of 16 at 1081, the batched benchmark's 256 x 512
+# batch of 16 at 1081, the batched benchmark's 256 x 512; each with the
+# fixtures of _corr_inputs
 CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
+CORR_FIXTURES = ("normal", "lattice", "far")
 # the engine's scans run again under torch.profiler (phase 4g)
 PROFILE_SCANS = 80
 # (fixture, scans): bench.py's batch (map 1024, 512 beams, R = 12 m:
@@ -140,15 +142,17 @@ F32_OPS_PER_S = 67e12
 FVP_OPS_PER_POINT = 16
 CORR_OPS_PER_PAIR = 6
 HECTOR_OPS_PER_BEAM = 60
-# kernel names in the profiler, by table row
+# kernel names in the profiler, by table row: every kernel of a call
 KERNEL_NAMES = {
     "patch_sums": ("patch_sums_kernel",),
     "patch_sums_stride2": ("patch_sums_kernel",),
     "fvp": ("fvp_kernel",),
-    "plicp_corr": ("corr_rows_kernel", "doubles_kernel"),
-    "plicp_nearest": ("corr_rows_kernel", "doubles_kernel"),
+    "plicp_corr": ("plicp_corr_kernel",),
+    "plicp_nearest": ("plicp_corr_kernel",),
     "hector_gn": ("hector_gn_kernel",),
 }
+# kernels whose call must be one device op (no fill, no second pass)
+ONE_OP = ("plicp_corr", "plicp_nearest")
 # the library yardstick's first call may take this long before it counts
 # as "not measured"
 LIBRARY_CAP_S = 5.0
@@ -214,16 +218,16 @@ def hector_bound(grid, valid, iters) -> dict:
                  float(valid.sum()) * iters * HECTOR_OPS_PER_BEAM)
 
 
-def kernel_us(fn, names, runs: int = TIMED_RUNS,
-              tries: int = 3) -> float | None:
-    """Device microseconds a call of ``fn`` spends in the kernels named
-    ``names`` (substrings of the profiler's kernel names): ``runs`` calls
-    under ``torch.profiler`` (CUDA activity only), each kernel's device
-    time summed over its launches and divided by their count, the kernels
-    of one call added up.  CUPTI may drop records, now and then all of a
-    session's: a session that saw fewer than half the launches is run
-    again, up to ``tries`` sessions, and then the time is not measured
-    (None)."""
+def profile_call(fn, names, runs: int = TIMED_RUNS, tries: int = 3) -> dict:
+    """A call of ``fn`` on the device, from ``runs`` calls under
+    ``torch.profiler`` (CUDA activity only): ``kernel_us``, the
+    microseconds in the kernels named ``names`` (substrings of the
+    profiler's kernel names; each kernel's time summed over its launches
+    and divided by their count, times its launches a call), and
+    ``device_ops``, the device ops (kernels, fills, copies) a call.
+    CUPTI may drop records, now and then all of a session's: a session
+    that saw fewer than half the named launches is run again, up to
+    ``tries`` sessions, and then ``kernel_us`` is not measured (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -234,19 +238,23 @@ def kernel_us(fn, names, runs: int = TIMED_RUNS,
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        per_name = {}
+        per_name, ops = {}, 0
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and any(n in e.key
-                                                        for n in names):
+            if e.device_type != DeviceType.CUDA:
+                continue
+            ops += e.count
+            if any(n in e.key for n in names):
                 us = getattr(e, "self_device_time_total", None)
                 t, c = per_name.get(e.key, (0.0, 0))
                 per_name[e.key] = (t + (e.self_cuda_time_total if us is None
                                         else us), c + e.count)
         if per_name and min(c for _, c in per_name.values()) >= runs // 2:
-            return sum(t / c for t, c in per_name.values())
+            return {"kernel_us": sum(t / c * max(1, round(c / runs))
+                                     for t, c in per_name.values()),
+                    "device_ops": ops / runs}
     print(f"  the profiler saw {per_name} for {names} in {runs} calls, "
           f"{tries} times: kernel_us not measured", file=sys.stderr)
-    return None
+    return {"kernel_us": None, "device_ops": ops / runs}
 
 
 def library_ms(q, ay, ax, ok, s, stride) -> dict:
@@ -367,18 +375,26 @@ def _fvp_inputs(rng, s, b, kind="normal"):
             torch.tensor(vp, dtype=torch.float32, device="cuda"))
 
 
-def _row(kernel, shape, err, fn_k, fn_p, bnd, card, note=""):
+def _row(kernel, shape, err, fn_k, fn_p, bnd, card, note="", recheck=None):
     """A phase-3 row: the wrapper's and the plain version's CUDA-event
-    times, the kernel's profiled device time and the bound."""
+    times, the kernel's profiled device time and device ops a call, and
+    the bound.  ``recheck``, called after the timed calls, holds one more
+    call against the plain version: state that a call leaves behind
+    would show there."""
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
            "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p),
-           "kernel_us": kernel_us(fn_k, KERNEL_NAMES[kernel]), **bnd}
+           **profile_call(fn_k, KERNEL_NAMES[kernel]), **bnd}
+    if recheck is not None:
+        recheck()
+    if kernel in ONE_OP and row["device_ops"] > 1:
+        raise RuntimeError(f"{kernel} {shape}: {row['device_ops']} device "
+                           "ops a call, not 1")
     ku = row["kernel_us"]
     ku = "not measured" if ku is None else f"{ku:.2f} us"
     print(f"  {kernel:19s} {shape:34s} {note or 'equal'}  kernel {ku} "
-          f"(wrapper {row['ms']:.4f} ms, bound "
-          f"{row['bound_us']:.3f} us by {row['bound_by']})  plain "
-          f"{row['plain_ms']:.4f} ms  [{card}]", flush=True)
+          f"(wrapper {row['ms']:.4f} ms, {row['device_ops']:g} device ops a "
+          f"call, bound {row['bound_us']:.3f} us by {row['bound_by']})  "
+          f"plain {row['plain_ms']:.4f} ms  [{card}]", flush=True)
     return row
 
 
@@ -440,16 +456,22 @@ def check_kernels(card: str) -> list[dict]:
     return rows
 
 
-def _corr_inputs(rng, n, b, lattice):
-    """verify_tpu.py's fixture: normal(0, 2) points, 10 % invalid; or a
-    coarse 1/64 lattice with duplicate points and exact ties (every
-    squared distance exact in f32)."""
-    if lattice:
+def _corr_inputs(rng, n, b, fixture="normal"):
+    """verify_tpu.py's fixture: normal(0, 2) points, 10 % invalid;
+    ``lattice``: a coarse 1/64 lattice with duplicate points and exact ties
+    (every squared distance exact in f32); ``far``: the normal fixture with
+    every third reference point and every fifth source point moved 1e5 m,
+    so that many valid squared distances exceed BIG (1e9) and lose to an
+    invalid point's BIG."""
+    if fixture == "lattice":
         cur = rng.integers(-128, 129, (n, b, 2)) / 64.0
         ref = rng.integers(-16, 17, (n, b, 2)) / 8.0
     else:
         cur = rng.normal(0, 2.0, (n, b, 2))
         ref = rng.normal(0, 2.0, (n, b, 2))
+    if fixture == "far":
+        ref[:, ::3, 0] += 1e5
+        cur[:, ::5, 1] -= 1e5
     sv = rng.random((n, b)) > 0.1
     rv = rng.random((n, b)) > 0.1
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
@@ -466,8 +488,8 @@ def check_corr(card: str) -> list[dict]:
     rows = []
     rng = np.random.default_rng(29)
     for n, b in CORR_SIZES:
-        for fixture in ("normal", "lattice"):
-            args = _corr_inputs(rng, n, b, fixture == "lattice")
+        for fixture in CORR_FIXTURES:
+            args = _corr_inputs(rng, n, b, fixture)
             for line in (True, False):
                 for rd in (True, False):
                     name = "plicp_corr" if line else "plicp_nearest"
@@ -481,17 +503,28 @@ def check_corr(card: str) -> list[dict]:
                         return ops_p.correspondences_plain(*args, 1.0, rd,
                                                            line)
 
-                    got, want = kern(), plain()
-                    err = max(float((g.float() - w.float()).abs().max())
-                              for g, w in zip(got, want))
-                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                        raise RuntimeError(f"{name} {shape}: kernel != plain "
-                                           f"(max |err| {err})")
+                    want = plain()
+
+                    def same(tag, kern=kern, want=want, name=name,
+                             shape=shape):
+                        got = kern()
+                        err = max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(got, want))
+                        if not all(torch.equal(g, w)
+                                   for g, w in zip(got, want)):
+                            raise RuntimeError(f"{name} {shape}: kernel != "
+                                               f"plain {tag}(max |err| {err})")
+                        return got, err
+
+                    got, err = same("")
                     ok_rows = int(got[3].sum())
-                    rows.append({**_row(name, shape, err, kern, plain,
-                                        corr_bound(args[0], args[2]), card,
-                                        f"equal, ok rows {ok_rows}"),
-                                 "ok_rows": ok_rows})
+                    rows.append({**_row(
+                        name, shape, err, kern, plain,
+                        corr_bound(args[0], args[2]), card,
+                        f"equal, ok rows {ok_rows}",
+                        recheck=lambda same=same: same("after the timed "
+                                                       "calls ")),
+                        "ok_rows": ok_rows})
     return rows
 
 
@@ -525,6 +558,7 @@ def check_hector(card: str) -> list[dict]:
     at the paths' shapes, 5 iterations from the batch's guesses."""
     from tpuslam_torch.core.grid import recip
     from tpuslam_torch.match.hector import _window
+    from tpuslam_torch.ops import _build
     from tpuslam_torch.ops import hector as ops_h
 
     rows = []
@@ -542,6 +576,20 @@ def check_hector(card: str) -> list[dict]:
         shape = (f"map={spec.size_x} S={n} B={cfg.num_beams} "
                  f"window={window}")
         _within(f"hector_gn {shape}", diffs, HECTOR_BOUNDS)
+        # the kernel's own order of the beam sums, in PyTorch on the card
+        ws = ops_h.warps_per_scan(n, cfg.num_beams,
+                                  _build.sm_count(grids[0].device))
+        lanes = hector_gn_diffs(got, ops_h.match_level_lanes(
+            *args[:4], window=window, num_iters=5, ws=ws))
+        print(f"  hector_gn {shape}: {ws} warps a scan; kernel vs its order "
+              f"in PyTorch {lanes}", flush=True)
+
+        def recheck(args=args, got=got, shape=shape):
+            again = ops_h._launch(*args)
+            if not all(torch.equal(a, g) for a, g in zip(again, got)):
+                raise RuntimeError(f"hector_gn {shape}: a call after the "
+                                   "timed calls differs from the first")
+
         in_gate = int(got[3].sum())
         rows.append({
             **_row("hector_gn", shape,
@@ -549,8 +597,9 @@ def check_hector(card: str) -> list[dict]:
                    lambda args=args: ops_h._launch(*args),
                    lambda args=args: ops_h._plain(*args),
                    hector_bound(grids[0], valid[:n], 5), card,
-                   f"within bounds {diffs}, in gate {in_gate}"),
-            "diffs": diffs, "in_gate": in_gate})
+                   f"within bounds {diffs}, in gate {in_gate}", recheck),
+            "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
+            "vs_lanes": lanes})
     return rows
 
 
@@ -758,9 +807,12 @@ def _timed(fn, on_card):
     return out, time.perf_counter() - t0
 
 
-def run_odometry(device, num_beams: int = 1081, n_scans: int = 320):
+def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
+                 profile: bool = False):
     """Phase 4d: ``plicp_odometry.step`` over the stream; the launch
-    counters are set to 0 just before the stream and read just after."""
+    counters are set to 0 just before the stream and read just after.
+    With ``profile`` (on the card), the stream runs again under
+    ``torch.profiler``: device ms and device ops a scan, busy share."""
     from tpuslam_torch.core.config import PlicpConfig
     from tpuslam_torch.models import plicp_odometry
     from tpuslam_torch.ops import plicp as ops_p
@@ -784,7 +836,7 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320):
         stream, torch.device(device).type == "cuda")
     launches = dict(ops_p.LAUNCHES)
     err = np.hypot(*(poses[:, :2] - truth[:, :2]).T)
-    return {
+    out = {
         "scans": len(scans),
         "beams": num_beams,
         "seconds": wall,
@@ -795,7 +847,14 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320):
         "valid_matches": n_valid,
         "launches": launches,
         "launches_per_scan": launches["plicp_corr"] / len(scans),
-    }, poses
+    }
+    if profile and torch.device(device).type == "cuda":
+        prof = busy_share(stream, cpu=False)
+        out.update(profile=prof,
+                   device_ms_per_scan=prof["device_s"] * 1e3 / len(scans),
+                   device_ops_per_scan=prof["device_ops"] / len(scans),
+                   busy_share=prof["device_s"] / wall)
+    return out, poses
 
 
 def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50):
@@ -907,12 +966,14 @@ def time_batches(card: str, runs: int = 5) -> dict:
     return out
 
 
-def run_hector_batch(device, n: int = 1024, runs: int = 5) -> dict:
+def run_hector_batch(device, n: int = 1024, runs: int = 5,
+                     impls=("kernel", "mxu", "plain")) -> dict:
     """Phase 4f: ``match_pyramid_batched`` at bench.py's operating point,
     impl "kernel" (the main path: the counter is set to 0 just before its
     first call and read just after), "mxu", and the kernel path with
-    ``match_level_plain`` in the kernel's place; each must pass bench.py's
-    convergence check.  On the card, CUDA-event times in turns."""
+    ``match_level_plain`` in the kernel's place (``impls`` of these; the
+    kernel always); each must pass bench.py's convergence check.  On the
+    card, CUDA-event times in turns."""
     from tpuslam_torch.match.hector import match_pyramid_batched
     from tpuslam_torch.ops import hector as ops_h
 
@@ -933,20 +994,25 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5) -> dict:
 
     fns = {"kernel": lambda: match("kernel"), "mxu": lambda: match("mxu"),
            "plain": plain}
+    fns = {k: f for k, f in fns.items() if k == "kernel" or k in impls}
     _reset(ops_h.LAUNCHES)
     res = {"kernel": match("kernel")}
     launches = dict(ops_h.LAUNCHES)
-    res["mxu"], res["plain"] = match("mxu"), plain()
+    res.update({k: f() for k, f in fns.items() if k != "kernel"})
     out = {"scans": n, "beams": cfg.num_beams, "map": cfg.map_size,
            "launches": launches, "calls": 1}
     for name, r in res.items():
         err = np.abs(r.pose.cpu().numpy() - truths)
         out[name] = {"mean_xy_err_m": float(err[:, :2].mean()),
                      "max_xy_err_m": float(err[:, :2].max())}
-    out["kernel_vs_plain"] = hector_gn_diffs(
-        res["kernel"], res["plain"], res=specs[0].resolution)
+    if "plain" in res:
+        out["kernel_vs_plain"] = hector_gn_diffs(
+            res["kernel"], res["plain"], res=specs[0].resolution)
+    out["kernel_result"] = tuple(res["kernel"])  # pose, H, score
+    out["resolution"] = specs[0].resolution
     if torch.device(device).type == "cuda":
-        order = ["plain", "kernel", "mxu", "mxu", "kernel", "plain"]
+        order = [k for k in ("plain", "kernel", "mxu", "mxu", "kernel",
+                             "plain") if k in fns]
         times = {k: [] for k in fns}
         for k in order:
             times[k].append(cuda_ms(fns[k], runs))
@@ -1203,13 +1269,16 @@ def main() -> int:
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
     mark("4d. PL-ICP odometry")
-    od, od_poses = run_odometry("cuda")
+    od, od_poses = run_odometry("cuda", profile=True)
     print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans in "
           f"{od['seconds']:.2f} s = {od['scans_per_s']:.2f} scans/s, ATE RMSE "
           f"{od['ate_rmse_m']:.4f} m (max {od['max_err_m']:.4f}), keyframes "
           f"{od['keyframes']}, valid {od['valid_matches']}, launches "
           f"{od['launches']} ({od['launches_per_scan']:.2f} per scan) "
           f"[{card}]", flush=True)
+    print(f"  profiled rerun: {od['device_ms_per_scan']:.3f} device ms and "
+          f"{od['device_ops_per_scan']:.1f} device ops a scan, device busy "
+          f"{od['busy_share']:.4f} of the run above [{card}]", flush=True)
     if not od["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"odometry ATE RMSE {od['ate_rmse_m']} >= 0.05 m")
     if od["launches"]["plicp_corr"] <= 0:
@@ -1328,11 +1397,13 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
             "library_ms": main.get("library_ms"),
-            "kernel_us": main["kernel_us"], "shape": main["shape"],
+            "kernel_us": main["kernel_us"],
+            "device_ops_a_call": main["device_ops"], "shape": main["shape"],
             "launches_per_scan": per_scan[name],
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()
+    hb["kernel_result"] = [t.tolist() for t in hb["kernel_result"]]
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({"card": card, "build": {
         k: v for k, v in info.items() if k != "log"},

@@ -5,14 +5,25 @@
 
 Each tree runs in its own process, in turns other, this, this, other:
 every kernel of ``chip_smoke.py``'s table at the shape of the path that
-runs it (``MAIN_SHAPES``: the kernel's device time from ``torch.profiler``,
-the wrapper's CUDA-event time, the bound, a hash of the output), then the
-Karto room and courtyard streams of phase 4 with their profiled rerun
-(scans/s, device busy share, device ms a scan, a hash of the room's
-poses).  Inputs, timing and streams are this checkout's ``chip_smoke.py``,
-so both trees do the same work; a tree without ``tpuslam_torch.io`` reads
-this one's NumPy worlds.  Fails unless every output is identical across
-the trees.  Prints a line a run with the card's name and power limit and
+runs it (``MAIN_SHAPES``: the kernel's device time and device ops a call
+from ``torch.profiler``, the wrapper's CUDA-event time, the bound, the
+output), the Karto room and courtyard streams of phase 4 with their
+profiled rerun (scans/s, device busy share, device ms a scan, the room's
+poses), the PL-ICP odometry of phase 4d (scans/s, ATE RMSE, launches a
+scan, profiled device ms and device ops a scan, the poses) and the
+batched Hector call of phase 4f (ms a 1024-scan batch through impl
+"kernel", the result).  Inputs, timing and streams are this checkout's
+``chip_smoke.py``, so both trees do the same work; a tree without
+``tpuslam_torch.io`` reads this one's NumPy worlds, and a kernel's time
+counts the kernels of either tree's design (``OTHER_NAMES``).
+
+Fails unless the outputs agree across the trees: bit for bit (a sha256)
+for the patch sums, FindValidPoints, ``plicp_corr``, ``plicp_nearest``,
+the Karto room poses and the odometry poses; within
+``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate counts) for
+``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
+batched Hector result, whose beam sums may take another order in each
+tree.  Prints a line a run with the card's name and power limit and
 writes ``chiprun_out/compare_port.json``.
 """
 
@@ -31,6 +42,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "compare_port.json"
+# kernel names of other designs of a table row (the correspondence search
+# was a rows kernel and a doubles pass before it was one launch)
+OTHER_NAMES = {"plicp_corr": ("corr_rows_kernel", "doubles_kernel"),
+               "plicp_nearest": ("corr_rows_kernel", "doubles_kernel")}
+# outputs held to bounds across the trees rather than to a sha256
+BOUNDED = ("hector_gn",)
 
 
 def _digest(out) -> str:
@@ -41,17 +58,22 @@ def _digest(out) -> str:
     return h.hexdigest()
 
 
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def child(tree: Path) -> dict:
-    """One run: the kernels and Karto streams of the port in ``tree``."""
+    """One run: the kernels and paths of the port in ``tree``."""
     sys.path.insert(0, str(tree))
     import tpuslam_torch
 
     if tree != ROOT:  # modules the other tree lacks come from this one
         tpuslam_torch.__path__.append(str(ROOT / "tpuslam_torch"))
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _load_smoke()
 
     from tpuslam_torch.core.config import outdoor_karto_config
     from tpuslam_torch.core.grid import recip
@@ -78,7 +100,7 @@ def child(tree: Path) -> dict:
     pts, valid, vp = smoke._fvp_inputs(np.random.default_rng(23), 110, 1081)
     calls["fvp"] = (lambda: ops_f.find_valid_points(pts, valid, vp),
                     smoke.fvp_bound(valid))
-    corr = smoke._corr_inputs(np.random.default_rng(29), 1, 1081, False)
+    corr = smoke._corr_inputs(np.random.default_rng(29), 1, 1081)
     for name, line, rd in (("plicp_corr", True, True),
                            ("plicp_nearest", False, False)):
         calls[name] = (
@@ -97,26 +119,62 @@ def child(tree: Path) -> dict:
     for name, (fn, bnd) in calls.items():
         got = fn()
         torch.cuda.synchronize()
-        out["kernels"][name] = {
-            "shape": smoke.MAIN_SHAPES[name],
-            "kernel_us": smoke.kernel_us(fn, smoke.KERNEL_NAMES[name]),
-            "ms": smoke.cuda_ms(fn), "sha256": _digest(got), **bnd}
+        names = smoke.KERNEL_NAMES[name] + OTHER_NAMES.get(name, ())
+        row = {"shape": smoke.MAIN_SHAPES[name],
+               **smoke.profile_call(fn, names), "ms": smoke.cuda_ms(fn),
+               **bnd}
+        if name in BOUNDED:
+            row["output"] = [t.tolist() for t in got]
+        else:
+            row["sha256"] = _digest(got)
+        out["kernels"][name] = row
     cfg = dataclasses.replace(outdoor_karto_config(), num_beams=1081)
     for where in ("room", "courtyard"):
-        r, m = smoke.run_slice(cfg, "cuda", 1081, where=where, profile=True)
-        out[where] = {k: r[k] for k in (
+        res, m = smoke.run_slice(cfg, "cuda", 1081, where=where,
+                                 profile=True)
+        out[where] = {k: res[k] for k in (
             "scans", "seconds", "scans_per_s", "ate_m", "loop_closures",
             "launches", "device_ms_per_scan", "busy_share")}
-        out[where]["device_ops"] = r["profile"]["device_ops"]
+        out[where]["device_ops"] = res["profile"]["device_ops"]
         out[where]["poses_sha256"] = hashlib.sha256(
             m.poses[:len(m.records)].tobytes()).hexdigest()
+    od, od_poses = smoke.run_odometry("cuda", 1081, 320, profile=True)
+    out["odometry"] = {k: od[k] for k in (
+        "scans", "seconds", "scans_per_s", "ate_rmse_m", "launches",
+        "launches_per_scan", "device_ms_per_scan", "device_ops_per_scan",
+        "busy_share")}
+    out["odometry"]["poses_sha256"] = hashlib.sha256(
+        od_poses.tobytes()).hexdigest()
+    hb = smoke.run_hector_batch("cuda", 1024, impls=("kernel",))
+    out["hector_batch"] = {
+        "scans": hb["scans"], "ms": hb["kernel"]["ms"],
+        "matches_per_s": hb["kernel"]["matches_per_s"],
+        "mean_xy_err_m": hb["kernel"]["mean_xy_err_m"],
+        "launches": hb["launches"], "resolution": hb["resolution"],
+        "result": [t.tolist() for t in hb["kernel_result"]]}
     return out
+
+
+def _bounded(smoke, runs, key, bounds, res=1.0) -> dict:
+    """The largest differences of every run's output from the first's."""
+    def tensors(r):
+        return tuple(torch.tensor(x) for x in key(r))
+
+    base = tensors(runs[0])
+    worst = {}
+    for r in runs[1:]:
+        for k, v in smoke.hector_gn_diffs(tensors(r), base, res).items():
+            worst[k] = max(worst.get(k, 0), v)
+    ok = all(worst.get(k, 0) <= b for k, b in bounds.items()) and not (
+        worst.get("inb_differ", 0))
+    return {"ok": ok, "diffs": worst}
 
 
 def main(other: str) -> int:
     if not torch.cuda.is_available():
         print("compare_port: no CUDA device", file=sys.stderr)
         return 1
+    smoke = _load_smoke()
     trees = {"other": Path(other).resolve(), "this": ROOT}
     runs = []
     for tag in ("other", "this", "this", "other"):
@@ -129,21 +187,43 @@ def main(other: str) -> int:
         r = json.loads(res.stdout.strip().splitlines()[-1])
         r["side"] = tag
         runs.append(r)
+        od, hb = r["odometry"], r["hector_batch"]
         print(f"{tag} ({trees[tag].name}): "
-              + "  ".join(f"{k} {v['kernel_us']} us / {v['ms']:.4f} ms"
+              + "  ".join(f"{k} {v['kernel_us']} us, {v['device_ops']:g} ops"
+                          f" / {v['ms']:.4f} ms"
                           for k, v in r["kernels"].items())
               + "  " + "  ".join(
                   f"{w} {r[w]['scans_per_s']:.2f} scans/s, busy "
                   f"{r[w]['busy_share']:.4f}, {r[w]['device_ms_per_scan']:.3f}"
                   f" device ms/scan" for w in ("room", "courtyard"))
-              + f"  [{r['card']}]", flush=True)
+              + f"  odometry {od['scans_per_s']:.2f} scans/s, ATE RMSE "
+              f"{od['ate_rmse_m']:.5f} m, {od['launches_per_scan']:.2f} "
+              f"launches/scan, {od['device_ms_per_scan']:.3f} device ms/scan,"
+              f" {od['device_ops_per_scan']:.1f} device ops/scan, busy "
+              f"{od['busy_share']:.4f}  hector batch {hb['ms']:.3f} ms "
+              f"({hb['matches_per_s']:.0f} matches/s)  [{r['card']}]",
+              flush=True)
     same = {k: len({r["kernels"][k]["sha256"] for r in runs}) == 1
-            for k in runs[0]["kernels"]}
+            for k in runs[0]["kernels"] if k not in BOUNDED}
     same["room_poses"] = len({r["room"]["poses_sha256"] for r in runs}) == 1
+    same["odometry_poses"] = len({r["odometry"]["poses_sha256"]
+                                  for r in runs}) == 1
+    within = {k: _bounded(smoke, runs, lambda r, k=k: r["kernels"][k]["output"],
+                          smoke.HECTOR_BOUNDS) for k in BOUNDED}
+    within["hector_batch"] = _bounded(
+        smoke, runs, lambda r: r["hector_batch"]["result"],
+        smoke.HECTOR_PATH_BOUNDS, runs[0]["hector_batch"]["resolution"])
+    for r in runs:  # the outputs are long: keep the verdicts
+        for k in BOUNDED:
+            r["kernels"][k].pop("output")
+        r["hector_batch"].pop("result")
     print(f"outputs identical across the trees: {same}", flush=True)
+    print(f"outputs within bounds across the trees: {within}", flush=True)
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps({"runs": runs, "same": same}, indent=1))
-    return 0 if all(same.values()) else 1
+    OUT.write_text(json.dumps({"runs": runs, "same": same, "within": within},
+                              indent=1))
+    return 0 if all(same.values()) and all(
+        v["ok"] for v in within.values()) else 1
 
 
 if __name__ == "__main__":

@@ -400,6 +400,80 @@ def test_match_level_plain_without_iterations():
         np.testing.assert_array_equal(a.numpy(), _np(b))
 
 
+@pytest.mark.parametrize("ws", [1, 2, 4, 8])
+@pytest.mark.parametrize("map_size,guess", [
+    (256, [(0.04, -0.03, 0.02), (-0.05, 0.06, -0.04)]),
+    (512, [(2.1, 1.3, 0.03), (0.9, -2.2, -0.02)]),
+])
+def test_match_level_lanes_matches_plain_and_pallas_interpret(map_size,
+                                                              guess, ws):
+    """The CUDA kernel's order of the beam sums for ``ws`` warps a scan
+    (each thread's beams in order, the shuffle-down tree, the warps in
+    order), held to the plain version and to the Pallas kernel in
+    interpret mode within test_match_level_plain_matches_pallas_interpret's
+    tolerances, with the plain version's in-gate counts."""
+    _, specs, grids = _room_map(map_size)
+    spec = specs[0]
+    truth = np.asarray(guess) - [0.03, -0.02, 0.02]
+    pts, valid = _points(truth, 181)
+    pts_map = pts / np.float32(spec.resolution)
+    poses0 = _np(spec.world_pose_to_map(jnp.asarray(guess, jnp.float32)))
+    args = (_t(grids[0]), _t(pts_map), _t(valid), _t(poses0))
+    got = tops.match_level_lanes(*args, window=256, num_iters=3, ws=ws)
+    plain = tops._plain(*args, 256, 3, 0.2)
+    with _interpret():
+        want = pallas_hector.match_level_pallas(
+            grids[0], pts_map, valid, poses0, window=256, num_iters=3)
+    for ref in ([x.numpy() for x in plain[:3]], [_np(x) for x in want]):
+        np.testing.assert_allclose(got[0][:, :2].numpy(), ref[0][:, :2],
+                                   rtol=0, atol=1e-3)  # cells
+        np.testing.assert_allclose(got[0][:, 2].numpy(), ref[0][:, 2],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[1].numpy(), ref[1], rtol=1e-3)
+        np.testing.assert_allclose(got[2].numpy(), ref[2], rtol=0,
+                                   atol=1e-4)
+    np.testing.assert_array_equal(got[3].numpy(), plain[3].numpy())
+    assert np.abs(got[0].numpy() - poses0).max() > 0.1  # the GN moved
+
+
+@pytest.mark.parametrize("ws", [1, 2, 4])
+def test_sum_lanes_is_the_kernels_order(ws):
+    """``_sum_lanes`` against the kernel's order written out in NumPy f32:
+    thread t of the scan's ws warps adds the beams t, t + 32 ws, ... in
+    order, each warp's tree adds lane l + off into lane l (off = 16 ..
+    1), then the warps' lane 0 in warp order; bit for bit."""
+    rng = np.random.default_rng(3)
+    s, b = 3, 200
+    terms = rng.normal(0, 1, (2, s, b)).astype(np.float32)
+    inb = rng.random((s, b)) > 0.3
+    terms[:, ~inb] = 0.0  # a beam outside the gate adds nothing
+    g = 32 * ws
+    threads = np.zeros((2, s, g), np.float32)
+    for i in range(b):
+        threads[..., i % g] = threads[..., i % g] + terms[..., i]
+    warps = threads.reshape(2, s, ws, 32)
+    off = 16
+    while off:
+        warps[..., :off] = warps[..., :off] + warps[..., off:2 * off]
+        off //= 2
+    want = warps[..., 0, 0]
+    for k in range(1, ws):
+        want = want + warps[..., k, 0]
+    got, n_inb = tops._sum_lanes(_t(terms), _t(inb), ws)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(n_inb.numpy(), inb.sum(-1))
+
+
+@pytest.mark.parametrize("s,b,want", [
+    (1, 1081, 8), (256, 1081, 8), (1024, 512, 2), (4096, 512, 1),
+    (4096, 1081, 4),  # at most 16 beams a thread
+])
+def test_warps_per_scan_rule(s, b, want):
+    ws = tops.warps_per_scan(s, b, 132)
+    assert ws == want
+    assert -(-b // (32 * ws)) <= 16
+
+
 def test_kernel_wrapper_rejects_what_it_does_not_take():
     grid = torch.zeros((8, 8), device="meta")
     pts = torch.zeros((1, 4, 2), device="meta")

@@ -249,3 +249,21 @@ def test_patch_bound_counts_each_covered_cell_once(stride):
     bnd = smoke.patch_bound(torch.zeros((g, g), dtype=torch.uint8), _t(ay),
                             _t(ax), _t(ok), s, stride)
     assert bnd["bytes"] == len(want) + n_a * b * 9 + n_a * s * s * 4
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each C entry point in tpuslam_torch/csrc takes as many parameters
+    as its ctypes signature declares, pointers (``void*``) where the
+    signature has c_void_p: ctypes cannot check this, and a mismatch
+    shows only on the card."""
+    import re
+
+    srcs = "\n".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    m = re.search(rf"\bint {name}\(([^)]*)\)\s*{{", srcs)
+    assert m, f"{name} not defined in {_build.CSRC}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    argtypes = _build.SIGNATURES[name]
+    assert len(params) == len(argtypes)
+    for param, argtype in zip(params, argtypes):
+        assert ("*" in param) == (argtype is _build._P), (param, argtype)

@@ -249,6 +249,72 @@ def test_correspondence_launch_counters_stay_zero_on_cpu():
     assert tops.LAUNCHES == {"plicp_corr": 0, "plicp_nearest": 0}
 
 
+def _lanes_corr(cur, sv, ref, rv, max_d2, rd, line=True):
+    out = tops.correspondences_lanes(_t(cur), _t(sv), _t(ref), _t(rv),
+                                     max_d2, rd, line)
+    return [x.numpy() for x in out]
+
+
+def _plain_corr(cur, sv, ref, rv, max_d2, rd, line=True):
+    out = tops.correspondences_plain(_t(cur), _t(sv), _t(ref), _t(rv),
+                                     max_d2, rd, line)
+    return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize("line,rd", [(True, True), (True, False),
+                                     (False, False)])
+@pytest.mark.parametrize("fixture", ["lattice", "ties"])
+def test_correspondences_lanes_bit_exact_vs_plain_and_pallas(fixture, line,
+                                                             rd):
+    """The CUDA kernel's order (per-lane strict-less-than minima over the
+    valid points, the lexicographic butterfly, the invalid points back as
+    BIG) gives the plain version's q1, q2, d1 and ok bit for bit on every
+    row, and the Pallas kernel's on the ok rows, on the 1/64 lattice where
+    many rows tie."""
+    fx = (_corr_fixture(exact=True, n=2, b=70, nref=75)
+          if fixture == "lattice" else _tie_fixture())
+    max_d2 = 1.0 if fixture == "lattice" else 0.5
+    got = _lanes_corr(*fx, max_d2, rd, line)
+    for g, w in zip(got, _plain_corr(*fx, max_d2, rd, line)):
+        np.testing.assert_array_equal(g, w)
+    _assert_corr_equal(got, _jax_corr(*fx, max_d2, rd, line))
+
+
+@pytest.mark.parametrize("line", [True, False])
+def test_correspondences_lanes_far_points_lose_to_big(line):
+    """Valid squared distances above BIG lose to an invalid point's BIG,
+    whose lowest index then wins; with no invalid point the far minimum
+    stands.  Bit for bit against the plain version, doubles on."""
+    cur, sv, ref, rv = _corr_fixture(seed=6, b=80, nref=70, n=2)
+    ref[:, ::3, 0] += 1e5
+    cur[:, ::5, 1] -= 1e5
+    rv[1] = True  # the second pair has no invalid point
+    d2 = ((cur[:, :, None] - ref[:, None]) ** 2).sum(-1)
+    assert (d2.min(-1)[:, ::5] > 1e9).all()  # the moved rows are far
+    for rd in (line, False):
+        got = _lanes_corr(cur, sv, ref, rv, 1.0, rd, line)
+        want = _plain_corr(cur, sv, ref, rv, 1.0, rd, line)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert (got[2][0, ::5][sv[0, ::5]] == np.float32(1e9)).all()
+        assert (got[2][1, ::5][sv[1, ::5]] > 1e9).all()
+
+
+@pytest.mark.parametrize("n,b,sms,want", [
+    (1, 1081, 132, (68, 1)),  # the odometry: one pair over 68 blocks
+    (1, 90, 132, (6, 1)),  # at least 16 source rows a block
+    (16, 1081, 132, (16, 4)),
+    (64, 512, 132, (4, 4)),
+    (256, 512, 132, (1, 4)),  # the batch alone covers the card
+])
+def test_launch_shape_rule(n, b, sms, want):
+    """Blocks a pair and source rows a warp; the blocks cover every
+    source row."""
+    blocks, r = tops.launch_shape(n, b, sms)
+    assert (blocks, r) == want
+    assert blocks * -(-b // blocks) >= b
+
+
 # ------------------------------------------------------------ trim quantile
 
 

@@ -18,26 +18,41 @@
 //          the least d1 over the ok rows with j1 == j.
 // Every d2 is __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)) and the
 // library is built with --fmad=false, so d1, q1, q2 and ok equal the plain
-// PyTorch version (separate ops, no contraction) bit for bit.
+// PyTorch version (separate ops, no contraction) bit for bit.  Coordinates
+// are finite.
 //
 // What bounds it on this card: N*B*B' d2 evaluations (1.2 M per pair at
-// 1081 beams, 67 M for 256 pairs of 512), a few flops each and all from
-// shared memory.  At N = 1, the odometry's shape, the work is ~40 blocks
-// and the kernel is bound by latency: the staging of ref into shared
-// memory, a 34-step strided loop per lane and a 5-step shuffle reduction.
+// 1081 beams, 67 M for 256 pairs of 512) at ~9 issue slots each (5 for d2,
+// a compare and two selects for the running (d, j) minimum): issue bound
+// at N = 256.  At N = 1, the odometry's shape, a call is bound by latency:
+// staging the ref, one pass over it, the doubles' column minimum and the
+// gate, which the parent design spread over a fill, two kernels and 34
+// blocks.
 //
-// Design: pass 1 runs a (source tiles, N) grid; a block stages pair n's
-// ref x, y and valid bytes in shared memory (9 bytes a point: 9.7 KB at
-// B' = 1081) and each warp takes one source row at a time.  Lanes stride
-// over j keeping (d2, j) with a strict less-than, so each lane holds its
-// lowest-index minimum; a butterfly shuffle then takes the lexicographic
-// minimum, so the lowest index wins a tie.  Lane 0 reads j1 +- 1 from
-// shared memory and writes the row.  With doubles it atomicMin's the int
-// bits of d1 into best[n, j1]: for non-negative floats the bits order as
-// the values, so the minimum is exact in any order.  Pass 2 re-reads
-// best and gates ok.  The TPU kernel held a whole [B, B'] matrix in VMEM
-// and took the doubles column-min in the same program; here the matrix
-// is never stored.
+// Design: ONE launch a call, G blocks a pair (the wrapper's choice: enough
+// to fill the card; no choice changes a result).  Each block stages the
+// pair's ref in shared memory as float2, an invalid point as NaN (its d2
+// is NaN, which no strict less-than takes), and the lowest invalid index
+// j_inv.  Block g takes the source rows [g*rows, (g+1)*rows); each warp
+// holds R of them in registers (R = 1, 2 or 4: 1 where latency binds, 4
+// where issue does), so one shared load of a ref point serves R
+// distances.  Lanes stride over j keeping (d2, j) with a strict
+// less-than, each lane its lowest-index minimum of the valid points; a
+// butterfly takes the lexicographic minimum, so the lowest index wins a
+// tie.  Then the invalid points come back as BIG: j_inv wins where the
+// valid minimum is above BIG, or equal to it at a higher index.  An
+// invalid source row reads BIG everywhere: (BIG, j = 0).  Lane k of the
+// warp finishes row k (R rows at once).
+// Doubles: each block writes its rows with ok before the gate and j1 (-1
+// where not ok) in a scratch array, fences, and takes a ticket from the
+// pair's counter; the block that takes the last ticket (G - 1) reads the
+// pair's rows from L2 (8 a thread at once), takes best[] as an atomicMin
+// of d1's int bits in its shared memory (for non-negative floats the bits
+// order as the values, so the minimum is exact in any order), gates every
+// row and sets the counter back to 0.
+// The counters' rule: they are 0 between launches on a stream, because
+// each launch's last blocks reset them and launches on a stream run in
+// order; the wrapper keeps one counter array a stream, zeroed once.
 
 #include <climits>
 #include <cstdint>
@@ -46,9 +61,10 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerBlock = 32;  // source rows a block takes
+constexpr int kMaxThreads = 1024;
+// a Hopper block's shared memory (232,448 bytes) less 1 KB for the static
+// variables and what the system reserves
+constexpr int kMaxSmem = 232448 - 1024;
 constexpr float kBig = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -59,100 +75,227 @@ __device__ __forceinline__ float sq_dist(float cx, float cy, float rx,
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
-__global__ void __launch_bounds__(kThreads)
-corr_rows_kernel(const float* __restrict__ cur, const uint8_t* __restrict__ sv,
-                 const float* __restrict__ ref,
-                 const uint8_t* __restrict__ rv, int b, int nr, float max_d2,
-                 int line, int doubles, float* __restrict__ q1,
-                 float* __restrict__ q2, float* __restrict__ d1,
-                 uint8_t* __restrict__ ok, int* __restrict__ j1_out,
-                 int* __restrict__ best) {
-  extern __shared__ float smem[];
-  float* rx = smem;
-  float* ry = smem + nr;
-  uint8_t* rvs = reinterpret_cast<uint8_t*>(smem + 2 * nr);
+// Shared memory a block: ref as float2, best[] (doubles: used by a pair's
+// last block only), the ref's valid bytes.
+inline int smem_bytes(int nr, int doubles) {
+  return nr * 8 + (doubles ? nr * 4 : 0) + nr;
+}
+
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads)
+plicp_corr_kernel(const float2* __restrict__ cur,
+                  const uint8_t* __restrict__ sv,
+                  const float2* __restrict__ ref,
+                  const uint8_t* __restrict__ rv, int b, int nr, int rows,
+                  float max_d2, int line, int doubles,
+                  float2* __restrict__ q1, float2* __restrict__ q2,
+                  float* __restrict__ d1, uint8_t* __restrict__ ok,
+                  int* __restrict__ j1s, unsigned* __restrict__ tickets) {
+  extern __shared__ float2 smem[];
+  float2* rxy = smem;
+  int* best = reinterpret_cast<int*>(rxy + nr);
+  uint8_t* rvs = reinterpret_cast<uint8_t*>(best + (doubles ? nr : 0));
+  __shared__ int s_jinv;
+  __shared__ bool s_last;
 
   const int n = blockIdx.y;
-  const float* refn = ref + static_cast<size_t>(n) * nr * 2;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const float2* refn = ref + static_cast<size_t>(n) * nr;
   const uint8_t* rvn = rv + static_cast<size_t>(n) * nr;
-  for (int j = threadIdx.x; j < nr; j += kThreads) {
-    rx[j] = refn[2 * j];
-    ry[j] = refn[2 * j + 1];
-    rvs[j] = rvn[j];
-  }
+
+  if (tid == 0) s_jinv = nr;  // nr: every ref point valid
+  if (doubles)  // read by the pair's last block only
+    for (int j = tid; j < nr; j += nthreads) best[j] = __float_as_int(kBig);
   __syncthreads();
+  int jinv = nr;
+  constexpr int kStage = 4;  // points a thread loads at once
+  for (int j0 = tid; j0 < nr; j0 += kStage * nthreads) {
+    float2 p[kStage];
+    bool v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int j = j0 + u * nthreads;
+      v[u] = j < nr && rvn[j];
+      p[u] = j < nr ? refn[j] : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int j = j0 + u * nthreads;
+      if (j >= nr) break;
+      rvs[j] = v[u];
+      rxy[j] = v[u] ? p[u] : make_float2(__int_as_float(0x7fc00000),
+                                         __int_as_float(0x7fc00000));
+      if (!v[u] && jinv == nr) jinv = j;  // this thread's lowest
+    }
+  }
+  if (jinv < nr) atomicMin(&s_jinv, jinv);
+  __syncthreads();
+  jinv = s_jinv;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int i = blockIdx.x * kRowsPerBlock + r;
-    if (i >= b) break;  // uniform across the warp
-    const size_t o = static_cast<size_t>(n) * b + i;
-    const float cx = cur[2 * o];
-    const float cy = cur[2 * o + 1];
-    const bool s_ok = sv[o] != 0;
-
-    float bd = __int_as_float(0x7f800000);  // +inf: above every d2
-    int bj = INT_MAX;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(b, r0 + rows);
+  const size_t pair = static_cast<size_t>(n) * b;
+  for (int base = r0 + warp * R; base < r1; base += (nthreads / 32) * R) {
+    float cx[R], cy[R], bd[R];
+    int bj[R];
+    bool s_ok[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const size_t o = pair + min(base + k, r1 - 1);
+      const float2 c = cur[o];
+      cx[k] = c.x;
+      cy[k] = c.y;
+      s_ok[k] = sv[o] != 0;
+      bd[k] = __int_as_float(0x7f800000);  // +inf: above every finite d2
+      bj[k] = INT_MAX;
+    }
     for (int j = lane; j < nr; j += 32) {
-      const float d = (s_ok && rvs[j]) ? sq_dist(cx, cy, rx[j], ry[j]) : kBig;
-      if (d < bd) {  // strict: the lane keeps its lowest index
-        bd = d;
-        bj = j;
+      const float2 r = rxy[j];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float d = sq_dist(cx[k], cy[k], r.x, r.y);
+        if (d < bd[k]) {  // strict: the lane keeps its lowest index
+          bd[k] = d;
+          bj[k] = j;
+        }
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFull, bd, off);
-      const int oj = __shfl_xor_sync(kFull, bj, off);
-      if (od < bd || (od == bd && oj < bj)) {
-        bd = od;
-        bj = oj;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      for (int off = 16; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(kFull, bd[k], off);
+        const int oj = __shfl_xor_sync(kFull, bj[k], off);
+        if (od < bd[k] || (od == bd[k] && oj < bj[k])) {
+          bd[k] = od;
+          bj[k] = oj;
+        }
       }
     }
-    if (lane != 0) continue;
 
-    const int j1 = bj;
-    const float q1x = rx[j1];
-    const float q1y = ry[j1];
-    float q2x = q1x;
-    float q2y = q1y;
+    // lane k finishes row base + k: pick its row's values (a select
+    // chain: registers take no dynamic index)
+    float dk = bd[0], x = cx[0], y = cy[0];
+    int j1 = bj[0];
+    bool src = s_ok[0];
+#pragma unroll
+    for (int k = 1; k < R; ++k) {
+      if (lane == k) {
+        dk = bd[k];
+        j1 = bj[k];
+        x = cx[k];
+        y = cy[k];
+        src = s_ok[k];
+      }
+    }
+    const int i = base + lane;
+    if (lane >= R || i >= r1) continue;
+    // the invalid ref points read BIG: the lowest of them wins unless a
+    // valid d2 is below BIG, or equals it at a lower index
+    if (jinv < nr && (dk > kBig || (dk == kBig && jinv < j1))) {
+      dk = kBig;
+      j1 = jinv;
+    }
+    if (!src) {  // every pair reads BIG: the lowest index
+      dk = kBig;
+      j1 = 0;
+    }
+    j1 = min(j1, nr - 1);  // in bounds even for non-finite input
+    const size_t o = pair + i;
+    // shared memory holds NaN where a point is invalid
+    const float2 p1 = rvs[j1] ? rxy[j1] : refn[j1];
+    float2 p2 = p1;
     bool keep;
     if (line) {
       float d_r = kBig;
       float d_l = kBig;
-      if (j1 + 1 < nr && s_ok && rvs[j1 + 1])
-        d_r = sq_dist(cx, cy, rx[j1 + 1], ry[j1 + 1]);
-      if (j1 >= 1 && s_ok && rvs[j1 - 1])
-        d_l = sq_dist(cx, cy, rx[j1 - 1], ry[j1 - 1]);
+      if (src && j1 + 1 < nr && rvs[j1 + 1])
+        d_r = sq_dist(x, y, rxy[j1 + 1].x, rxy[j1 + 1].y);
+      if (src && j1 >= 1 && rvs[j1 - 1])
+        d_l = sq_dist(x, y, rxy[j1 - 1].x, rxy[j1 - 1].y);
       int j2 = d_r < d_l ? j1 + 1 : j1 - 1;
       j2 = min(max(j2, 0), nr - 1);
-      q2x = rx[j2];
-      q2y = ry[j2];
-      keep = bd < kBig && fminf(d_r, d_l) < kBig && bd < max_d2;
+      p2 = rvs[j2] ? rxy[j2] : refn[j2];
+      keep = dk < kBig && fminf(d_r, d_l) < kBig && dk < max_d2;
     } else {
-      keep = bd < kBig && bd < max_d2;
+      keep = dk < kBig && dk < max_d2;
     }
-    q1[2 * o] = q1x;
-    q1[2 * o + 1] = q1y;
-    q2[2 * o] = q2x;
-    q2[2 * o + 1] = q2y;
-    d1[o] = bd;
-    ok[o] = keep;
-    j1_out[o] = j1;
-    if (doubles && keep)
-      atomicMin(best + static_cast<size_t>(n) * nr + j1, __float_as_int(bd));
+    q1[o] = p1;
+    q2[o] = p2;
+    d1[o] = dk;
+    ok[o] = keep;  // before the doubles' gate
+    if (doubles) j1s[o] = keep ? j1 : -1;
   }
+  if (!doubles) return;
+
+  // the pair's last block gates its rows (a pair of one block: no ticket)
+  const bool solo = gridDim.x == 1;
+  if (!solo) __threadfence();  // this thread's rows reach L2 first
+  __syncthreads();
+  if (!solo) {
+    if (tid == 0) {
+      __threadfence();
+      s_last = atomicAdd(tickets + n, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+  }
+  // each thread reads kGate rows at once (from L2 where other blocks
+  // wrote them), j1 = -1 where a row is not ok; with the pair's rows in
+  // one round (b <= kGate * threads, the wrapper's shapes) the gate reuses
+  // the registers, else it reads them again
+  constexpr int kGate = 8;
+  int jg[kGate];
+  float dg[kGate];
+  const bool one_round = b <= kGate * nthreads;
+  auto read = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kGate; ++u) {
+      const int i = i0 + u * nthreads;
+      const size_t o = pair + min(i, b - 1);
+      const int j = solo ? j1s[o] : __ldcg(j1s + o);
+      const float d = solo ? d1[o] : __ldcg(d1 + o);
+      jg[u] = i < b ? j : -1;
+      dg[u] = d;
+    }
+  };
+  for (int i0 = tid; i0 < b; i0 += kGate * nthreads) {
+    read(i0);
+#pragma unroll
+    for (int u = 0; u < kGate; ++u)
+      if (jg[u] >= 0) atomicMin(best + jg[u], __float_as_int(dg[u]));
+  }
+  __syncthreads();
+  for (int i0 = tid; i0 < b; i0 += kGate * nthreads) {
+    if (!one_round) read(i0);
+#pragma unroll
+    for (int u = 0; u < kGate; ++u)
+      if (jg[u] >= 0)
+        ok[pair + i0 + u * nthreads] =
+            dg[u] <= __fadd_rn(__int_as_float(best[jg[u]]), 1e-12f);
+  }
+  if (tid == 0 && !solo) tickets[n] = 0;  // the next launch finds 0
 }
 
-__global__ void __launch_bounds__(kThreads)
-doubles_kernel(const float* __restrict__ d1, const int* __restrict__ j1,
-               const int* __restrict__ best, int total, int b, int nr,
-               uint8_t* __restrict__ ok) {
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= total || !ok[o]) return;
-  const int n = o / b;
-  const float bst = __int_as_float(best[static_cast<size_t>(n) * nr + j1[o]]);
-  ok[o] = d1[o] <= __fadd_rn(bst, 1e-12f);
+template <int R>
+cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t s,
+                   const float2* cur, const uint8_t* sv, const float2* ref,
+                   const uint8_t* rv, int b, int nr, int rows, float max_d2,
+                   int line, int doubles, float2* q1, float2* q2, float* d1,
+                   uint8_t* ok, int* j1s, unsigned* tickets) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        plicp_corr_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+  }
+  plicp_corr_kernel<R><<<grid, threads, smem, s>>>(
+      cur, sv, ref, rv, b, nr, rows, max_d2, line, doubles, q1, q2, d1, ok,
+      j1s, tickets);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -161,37 +304,43 @@ extern "C" {
 
 // q1, q2 [n, b, 2] f32, d1 [n, b] f32, ok [n, b] uint8 <- the
 // correspondences of cur [n, b, 2] f32 / sv [n, b] uint8 against
-// ref [n, nr, 2] f32 / rv [n, nr] uint8 (contract above).  j1 [n, b] int32
-// is scratch; with doubles, best [n, nr] int32 must hold the bits of 1e9f.
-// Returns cudaGetLastError() after the launches.
+// ref [n, nr, 2] f32 / rv [n, nr] uint8 (contract above), in one launch
+// of `blocks` blocks a pair holding `rows_per_warp` (1, 2 or 4) source
+// rows a warp.  With doubles: j1s [n, b] int32 is scratch and tickets [n]
+// uint32 must hold 0 (the launch leaves it so).  Returns
+// cudaGetLastError() after the launch.
 int tpuslam_plicp_corr(const void* cur, const void* sv, const void* ref,
                        const void* rv, int n, int b, int nr, float max_d2,
-                       int line, int doubles, void* q1, void* q2, void* d1,
-                       void* ok, void* j1, void* best, void* stream) {
+                       int line, int doubles, int blocks, int rows_per_warp,
+                       void* q1, void* q2, void* d1, void* ok, void* j1s,
+                       void* tickets, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is ours
   if (n <= 0 || b <= 0 || nr <= 0) return static_cast<int>(cudaGetLastError());
-  // ref x, y and valid bytes: 9 bytes a point (the wrapper caps nr)
-  const int smem = static_cast<int>(2 * nr * sizeof(float) + nr);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        corr_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int r = rows_per_warp;
+  if (blocks < 1 || (r != 1 && r != 2 && r != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (b + blocks - 1) / blocks;
+  const int g = (b + rows - 1) / rows;  // no block without rows
+  const int warps = min((rows + r - 1) / r, kMaxThreads / 32);
+  const int smem = smem_bytes(nr, doubles);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(g, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((b + kRowsPerBlock - 1) / kRowsPerBlock, n);
-  corr_rows_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(cur), static_cast<const uint8_t*>(sv),
-      static_cast<const float*>(ref), static_cast<const uint8_t*>(rv), b, nr,
-      max_d2, line, doubles, static_cast<float*>(q1), static_cast<float*>(q2),
-      static_cast<float*>(d1), static_cast<uint8_t*>(ok),
-      static_cast<int*>(j1), static_cast<int*>(best));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !doubles) return static_cast<int>(e);
-  const int total = n * b;
-  doubles_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(d1), static_cast<const int*>(j1),
-      static_cast<const int*>(best), total, b, nr, static_cast<uint8_t*>(ok));
-  return static_cast<int>(cudaGetLastError());
+  auto args = [&](auto launch_r) {
+    return launch_r(grid, 32 * warps, smem, s,
+                    static_cast<const float2*>(cur),
+                    static_cast<const uint8_t*>(sv),
+                    static_cast<const float2*>(ref),
+                    static_cast<const uint8_t*>(rv), b, nr, rows, max_d2,
+                    line, doubles, static_cast<float2*>(q1),
+                    static_cast<float2*>(q2), static_cast<float*>(d1),
+                    static_cast<uint8_t*>(ok), static_cast<int*>(j1s),
+                    static_cast<unsigned*>(tickets));
+  };
+  const cudaError_t e = r == 1   ? args(launch<1>)
+                        : r == 2 ? args(launch<2>)
+                                 : args(launch<4>);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -54,19 +54,20 @@ SIGNATURES = {
     "tpuslam_patch_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # pts, valid, vp, s, b, out, stream
     "tpuslam_fvp": (_P, _P, _P, _I, _I, _P, _P),
-    # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles,
-    # q1, q2, d1, ok, j1, best, stream
-    "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+    # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles, blocks,
+    # rows_per_warp, q1, q2, d1, ok, j1s, tickets, stream
+    "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P),
     # grid, h, w, pts, valid, pose0, s, b, window, num_iters, yaw_clamp,
-    # out_pose, out_h, out_score, out_inb, stream
-    "tpuslam_hector_gn": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F,
+    # ws, out_pose, out_h, out_score, out_inb, stream
+    "tpuslam_hector_gn": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                           _P, _P, _P, _P, _P),
 }
 _ERROR_STRING = "tpuslam_error_string"  # int code -> const char*
 
 # what the last build reported: seconds, library path, nvcc's -Xptxas -v
 BUILD_INFO: dict = {}
+_SMS: dict = {}  # streaming multiprocessors by device index
 _lock = threading.Lock()
 _lib = None
 
@@ -163,6 +164,19 @@ def load() -> ctypes.CDLL:
         )
         _lib = lib
         return lib
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once a device):
+    the wrappers size their launches to fill the card."""
+    import torch
+
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def check(rc: int, name: str) -> None:

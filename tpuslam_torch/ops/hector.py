@@ -23,6 +23,9 @@ A CUDA tensor goes to the kernel, a CPU tensor to
 :func:`match_level_plain`.  The two evaluate every per-beam f32 expression
 alike but sum the beams in another order, and the card's ``sinf`` /
 ``cosf`` are not torch's, so they agree to f32 rounding, not bit for bit.
+:func:`match_level_lanes` writes the kernel's order out in PyTorch for the
+tests: each thread's in-order beam sums, the shuffle-down tree of a warp,
+the warps of a scan added in order.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ from tpuslam_torch.ops.bilinear import crop_origin
 # kernel launches since the last reset (the CPU path never counts)
 LAUNCHES = {"hector_gn": 0}
 
+_MAX_WARPS = 8  # warps a scan at most (the kernel's blocks: 256 threads)
+_MAX_BEAMS = 16  # beams a thread at most (held in registers)
+
 
 def crop_origin_aligned(pose0: torch.Tensor, shape, window: int):
     """int32 (ox [S], oy [S]) of each scan's crop, aligned down to (8, 128)."""
@@ -42,8 +48,9 @@ def crop_origin_aligned(pose0: torch.Tensor, shape, window: int):
     return o[:, 0] // 128 * 128, o[:, 1] // 8 * 8
 
 
-def _system(grid_bf, w, pts, vmask, pose, ox, oy, window):
-    """One iteration's (h [S, 6], d [S, 3], score [S], n_inb [S])."""
+def _terms(grid_bf, w, pts, vmask, pose, ox, oy, window):
+    """One iteration's per-beam terms, ten [S, B] (h00 h01 h02 h11 h12
+    h22 d0 d1 d2 score, 0 outside the gate), and the gate [S, B]."""
     px, py = pts[..., 0], pts[..., 1]
     c = torch.cos(pose[:, 2:3])
     s = torch.sin(pose[:, 2:3])
@@ -69,12 +76,51 @@ def _system(grid_bf, w, pts, vmask, pose, ox, oy, window):
     gy = torch.where(inb, d0 * w0 + d1 * w1, zero)
     rot = (-s * px - c * py) * gx + (c * px - s * py) * gy
     r = torch.where(inb, 1.0 - val, zero)
-    h = torch.stack([(gx * gx).sum(-1), (gx * gy).sum(-1),
-                     (gx * rot).sum(-1), (gy * gy).sum(-1),
-                     (gy * rot).sum(-1), (rot * rot).sum(-1)], -1)
-    d = torch.stack([(gx * r).sum(-1), (gy * r).sum(-1), (rot * r).sum(-1)],
-                    -1)
-    return h, d, val.sum(-1), inb.sum(-1, dtype=torch.int32)
+    return (gx * gx, gx * gy, gx * rot, gy * gy, gy * rot, rot * rot,
+            gx * r, gy * r, rot * r, val), inb
+
+
+def _system(grid_bf, w, pts, vmask, pose, ox, oy, window):
+    """One iteration's (h [S, 6], d [S, 3], score [S], n_inb [S])."""
+    terms, inb = _terms(grid_bf, w, pts, vmask, pose, ox, oy, window)
+    sums = [t.sum(-1) for t in terms]
+    return (torch.stack(sums[:6], -1), torch.stack(sums[6:9], -1), sums[9],
+            inb.sum(-1, dtype=torch.int32))
+
+
+def _sum_lanes(terms, inb, ws):
+    """The kernel's sums of ``terms`` [K, S, B] over the beams and the
+    count of ``inb`` [S, B]: thread t of a scan's ``ws`` warps adds the
+    beams t, t + 32 ws, ... in order; each warp's __shfl_down_sync tree
+    (lane l += lane l + off, off = 16 .. 1) leaves its total in lane 0;
+    the warps' totals are added in warp order.  ([K, S], [S] int32.)"""
+    g = 32 * ws
+    pad = -terms.shape[-1] % g
+    terms = torch.nn.functional.pad(terms, (0, pad)).unflatten(-1, (-1, g))
+    cnt = torch.nn.functional.pad(inb.int(), (0, pad)).unflatten(-1, (-1, g))
+    acc = torch.zeros_like(terms[..., 0, :])  # [K, S, g]
+    for k in range(terms.shape[-2]):  # each thread's beams in order
+        acc = acc + terms[..., k, :]
+    acc = acc.unflatten(-1, (ws, 32))
+    n = cnt.sum(-2).unflatten(-1, (ws, 32))
+    off = 16
+    while off:
+        acc = acc[..., :off] + acc[..., off:2 * off]
+        n = n[..., :off] + n[..., off:2 * off]
+        off //= 2
+    acc, n = acc[..., 0], n[..., 0]  # [K, S, ws]: each warp's lane 0
+    total, n_inb = acc[..., 0], n[..., 0]
+    for k in range(1, ws):
+        total = total + acc[..., k]
+        n_inb = n_inb + n[..., k]
+    return total, n_inb.int()
+
+
+def _system_lanes(grid_bf, w, pts, vmask, pose, ox, oy, window, ws):
+    """:func:`_system` with the kernel's sums (:func:`_sum_lanes`)."""
+    terms, inb = _terms(grid_bf, w, pts, vmask, pose, ox, oy, window)
+    total, n_inb = _sum_lanes(torch.stack(terms), inb, ws)
+    return total[:6].T, total[6:9].T, total[9], n_inb
 
 
 def _step(pose, h, d, yaw_clamp):
@@ -103,9 +149,10 @@ def _hmat(h):
 
 
 def _plain(prob_grid, pts_map, valid, poses_map, window, num_iters,
-           yaw_clamp):
+           yaw_clamp, ws=None):
     """(poses, H, scores, n_inb): n_inb [S] counts the beams inside the
-    gate at the last iteration (0 with no iteration)."""
+    gate at the last iteration (0 with no iteration).  With ``ws``, the
+    sums in the kernel's order for ``ws`` warps a scan."""
     hh, w = prob_grid.shape
     window = min(window, hh, w)
     s_ = pts_map.shape[0]
@@ -117,8 +164,9 @@ def _plain(prob_grid, pts_map, valid, poses_map, window, num_iters,
     score = torch.zeros(s_, device=dev)
     n_inb = torch.zeros(s_, dtype=torch.int32, device=dev)
     for _ in range(num_iters):
-        h, d, score, n_inb = _system(grid_bf, w, pts_map.float(), valid,
-                                     pose, ox, oy, window)
+        args = (grid_bf, w, pts_map.float(), valid, pose, ox, oy, window)
+        h, d, score, n_inb = (_system(*args) if ws is None
+                              else _system_lanes(*args, ws))
         hmat = _hmat(h)
         pose = _step(pose, h, d, yaw_clamp)
     n = valid.sum(-1).clamp(min=1).float()
@@ -131,6 +179,30 @@ def match_level_plain(prob_grid, pts_map, valid, poses_map, *, window: int,
     scores [S])."""
     return _plain(prob_grid, pts_map, valid, poses_map, window, num_iters,
                   yaw_clamp)[:3]
+
+
+def match_level_lanes(prob_grid, pts_map, valid, poses_map, *,
+                      window: int, num_iters: int, yaw_clamp: float = 0.2,
+                      ws: int = 1):
+    """The kernel's order in plain PyTorch (used by the tests and by
+    ``chip_smoke.py`` on the card): (poses, H, scores, n_inb) with the
+    beam sums of ``ws`` warps a scan (:func:`_system_lanes`)."""
+    return _plain(prob_grid, pts_map, valid, poses_map, window, num_iters,
+                  yaw_clamp, ws)
+
+
+def warps_per_scan(s: int, b: int, sms: int) -> int:
+    """Warps a scan in the kernel (1, 2, 4 or 8): doubled from 1 while
+    the scans' warps would still fit 16 a streaming multiprocessor (one
+    warp a scan once the scans alone give each SM ~8 warps, 8 for a small
+    batch), then while a thread would hold more than 16 beams.  No choice
+    changes more than the order of the beam sums."""
+    ws = 1
+    while ws < _MAX_WARPS and 2 * ws * s <= 16 * sms:
+        ws *= 2
+    while ws < _MAX_WARPS and -(-b // (32 * ws)) > _MAX_BEAMS:
+        ws *= 2
+    return ws
 
 
 def _check(prob_grid, pts_map, valid, poses_map):
@@ -160,6 +232,9 @@ def _check(prob_grid, pts_map, valid, poses_map):
     if min(h, w) < 2 or h * w >= 1 << 31 or not 1 <= s < 1 << 31:
         raise ValueError(f"grid {h}x{w} with {s} scans is outside the "
                          "kernel's range")
+    if b > 32 * _MAX_WARPS * _MAX_BEAMS:
+        raise ValueError(f"{b} beams a scan: the kernel holds at most "
+                         f"{32 * _MAX_WARPS * _MAX_BEAMS}")
 
 
 def _launch(prob_grid, pts_map, valid, poses_map, window, num_iters,
@@ -170,17 +245,28 @@ def _launch(prob_grid, pts_map, valid, poses_map, window, num_iters,
     h, w = prob_grid.shape
     s, b = pts_map.shape[:2]
     window = min(window, h, w)
+    # the kernel reads 8 aligned bytes around each cell pair: the bf16 grid
+    # is 8-byte aligned and readable to a multiple of 4 cells
+    cells = h * w
     grid_bf = prob_grid.to(torch.bfloat16).contiguous()  # one cast a call
+    if cells % 4 or grid_bf.data_ptr() % 8:
+        padded = torch.empty(cells + -cells % 4, dtype=torch.bfloat16,
+                             device=prob_grid.device)
+        padded[:cells].copy_(grid_bf.reshape(-1))
+        grid_bf = padded
     pts, vm = pts_map.contiguous(), valid.contiguous()
+    if pts.data_ptr() % 8:  # the kernel reads a point as one float2
+        pts = pts.clone()
     pose0 = poses_map.contiguous()
     dev = pts_map.device
+    ws = warps_per_scan(s, b, _build.sm_count(dev))
     poses = torch.empty((s, 3), dtype=torch.float32, device=dev)
     hs = torch.empty((s, 3, 3), dtype=torch.float32, device=dev)
     scores = torch.empty((s,), dtype=torch.float32, device=dev)
     n_inb = torch.empty((s,), dtype=torch.int32, device=dev)
     rc = lib.tpuslam_hector_gn(
         grid_bf.data_ptr(), h, w, pts.data_ptr(), vm.data_ptr(),
-        pose0.data_ptr(), s, b, window, num_iters, float(yaw_clamp),
+        pose0.data_ptr(), s, b, window, num_iters, float(yaw_clamp), ws,
         poses.data_ptr(), hs.data_ptr(), scores.data_ptr(), n_inb.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

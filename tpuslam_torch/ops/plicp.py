@@ -19,6 +19,10 @@ distances as the JAX package's XLA chain does.  Both round every f32 op
 (no contraction), so they agree bit for bit in q1, q2, d1 and ok.  Where
 j1 +- 1 leaves the scan the row is never ok, and both take the clamped
 index (the JAX chain wraps around there and the Pallas kernel reads 0).
+The kernel (one launch a call, several blocks a pair) finds the
+minimum in another order, which :func:`correspondences_lanes` writes out
+in PyTorch for the tests: each lane's strict-less-than minimum of the
+valid points, a lexicographic butterfly, then the invalid points as BIG.
 """
 
 from __future__ import annotations
@@ -32,9 +36,12 @@ BIG = 1e9
 # kernel launches since the last reset (the CPU path never counts)
 LAUNCHES = {"plicp_corr": 0, "plicp_nearest": 0}
 
-# pass 1 stages ref x, y and valid (9 bytes a point) in one block's shared
-# memory: Hopper gives a block at most 227 KB
-_MAX_REF = 232_448 // 9
+# a block stages the pair's ref in shared memory: x, y and valid, 9 bytes
+# a point, and with doubles best[], 4 more; at most 227 KB less 1 KB
+_MAX_SMEM = 232_448 - 1024
+# per (device index, stream): the kernel's ticket counters, one a pair,
+# zeroed once and left at 0 by every launch (see csrc/plicp_corr.cu)
+_TICKETS: dict = {}
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,6 +106,71 @@ def correspondences_plain(cur, src_valid, ref, ref_valid, max_d2: float,
     return gather_rows(ref, j1), gather_rows(ref, j2), d1, ok
 
 
+def correspondences_lanes(cur, src_valid, ref, ref_valid, max_d2: float,
+                          remove_doubles: bool, line: bool = True):
+    """The kernel's order, step for step, in plain PyTorch (used by the
+    tests): (q1, q2, d1, ok) as :func:`correspondences_plain`.
+
+    Invalid reference points are NaN, whose d2 no strict less-than takes;
+    lane ``l`` of the warp walks j = l, l + 32, ... keeping its lowest-index
+    minimum; a butterfly over the 32 lanes takes the lexicographic (d, j)
+    minimum; then the lowest invalid index wins where the valid minimum is
+    above BIG, or equal to it at a higher index, and an invalid source row
+    reads (BIG, 0).  How rows are split among blocks, warps and registers
+    changes none of this."""
+    n, b = cur.shape[:2]
+    n_ref = ref.shape[-2]
+    nan = float("nan")
+    inf = float("inf")
+    rx = torch.where(ref_valid, ref[..., 0], nan)
+    ry = torch.where(ref_valid, ref[..., 1], nan)
+    dx = cur[..., :, None, 0] - rx[..., None, :]
+    dy = cur[..., :, None, 1] - ry[..., None, :]
+    d2 = dx * dx + dy * dy  # [N, B, B'], NaN at the invalid points
+    steps = -(-n_ref // 32)
+    d2 = torch.nn.functional.pad(d2, (0, steps * 32 - n_ref), value=nan)
+    lanes = d2.view(n, b, steps, 32)
+    vals = torch.where(lanes < inf, lanes, inf)  # NaN and inf: never taken
+    bd = vals.amin(dim=2)  # [N, B, 32]
+    step = torch.arange(steps, device=cur.device)[:, None]
+    hit = (vals == bd[:, :, None]) & (vals < inf)
+    first = torch.where(hit, step, steps).amin(dim=2)
+    lane = torch.arange(32, device=cur.device)
+    big_j = torch.iinfo(torch.int64).max
+    bj = torch.where(first < steps, first * 32 + lane, big_j)
+    off = 16
+    while off:
+        od, oj = bd[..., lane ^ off], bj[..., lane ^ off]
+        take = (od < bd) | ((od == bd) & (oj < bj))
+        bd, bj = torch.where(take, od, bd), torch.where(take, oj, bj)
+        off //= 2
+    d1, j1 = bd[..., 0], bj[..., 0]
+    jinv = torch.where(ref_valid, n_ref,
+                       torch.arange(n_ref, device=cur.device)).amin(-1)
+    jinv = jinv[:, None].expand(n, b)
+    use_big = (jinv < n_ref) & ((d1 > BIG) | ((d1 == BIG) & (jinv < j1)))
+    d1 = torch.where(use_big | ~src_valid, BIG, d1)
+    j1 = torch.where(use_big, jinv, j1)
+    j1 = torch.where(src_valid, j1, 0).clamp(max=n_ref - 1)
+    if line:
+        def side(j):
+            p = gather_rows(ref, j.clamp(0, n_ref - 1))
+            ddx, ddy = cur[..., 0] - p[..., 0], cur[..., 1] - p[..., 1]
+            keep = (src_valid & (j >= 0) & (j < n_ref)
+                    & torch.gather(ref_valid, 1, j.clamp(0, n_ref - 1)))
+            return torch.where(keep, ddx * ddx + ddy * ddy, BIG)
+
+        d_r, d_l = side(j1 + 1), side(j1 - 1)
+        j2 = torch.where(d_r < d_l, j1 + 1, j1 - 1).clamp(0, n_ref - 1)
+        ok = (d1 < BIG) & (torch.minimum(d_r, d_l) < BIG)
+    else:
+        j2, ok = j1, d1 < BIG
+    ok = ok & (d1 < max_d2)
+    if remove_doubles:
+        ok = drop_doubles(j1, d1, ok, n_ref)
+    return gather_rows(ref, j1), gather_rows(ref, j2), d1, ok
+
+
 def _check(cur, src_valid, ref, ref_valid):
     if cur.device.type != "cuda":
         raise ValueError(f"plicp correspondences: unsupported device "
@@ -122,11 +194,35 @@ def _check(cur, src_valid, ref, ref_valid):
     for t in (src_valid, ref, ref_valid):
         if t.device != cur.device:
             raise ValueError("cur, ref and the masks must share one device")
-    if not 1 <= nr <= _MAX_REF:
+    if not 1 <= nr <= _MAX_SMEM // 13:
         raise ValueError(f"{nr} reference points: the kernel holds 1 to "
-                         f"{_MAX_REF} in one block's shared memory")
+                         f"{_MAX_SMEM // 13} in one block's shared memory")
     if not 1 <= n <= 65535 or n * b >= 1 << 31:
         raise ValueError(f"{n} pairs of {b} points exceed the launch grid")
+
+
+def launch_shape(n: int, b: int, sms: int) -> tuple[int, int]:
+    """(blocks a pair, source rows a warp) for the kernel: enough blocks
+    that the N pairs give each of the ``sms`` streaming multiprocessors
+    about two, but at least 16 source rows a block; then 1, 2 or 4 rows a
+    warp, the fewest that keep a block within 32 warps (one row a warp
+    where latency binds, four where issue does).  No choice changes a
+    result."""
+    blocks = max(1, min(2 * sms // n, -(-b // 16)))
+    rows = -(-b // blocks)
+    r = 1
+    while r < 4 and rows > 32 * r:
+        r *= 2
+    return blocks, r
+
+
+def _tickets(device: torch.device, stream, n: int) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
@@ -135,21 +231,27 @@ def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
     n, b = cur.shape[:2]
     nr = ref.shape[1]
     cur, ref = cur.contiguous(), ref.contiguous()
+    if cur.data_ptr() % 8:  # the kernel reads a point as one float2
+        cur = cur.clone()
+    if ref.data_ptr() % 8:
+        ref = ref.clone()
     sv, rv = src_valid.contiguous(), ref_valid.contiguous()
     q1 = torch.empty_like(cur)
     q2 = torch.empty_like(cur)
     d1 = torch.empty((n, b), dtype=torch.float32, device=cur.device)
     ok = torch.empty((n, b), dtype=torch.bool, device=cur.device)
-    j1 = torch.empty((n, b), dtype=torch.int32, device=cur.device)
-    # the bits of BIG: pass 1 atomicMin's the bits of d1 into it
-    best = (torch.full((n, nr), BIG, dtype=torch.float32, device=cur.device)
-            .view(torch.int32) if doubles else j1)
+    stream = torch.cuda.current_stream(cur.device)
+    if doubles:
+        j1 = torch.empty((n, b), dtype=torch.int32, device=cur.device)
+        tickets = _tickets(cur.device, stream, n)
+    else:
+        j1 = tickets = d1  # not read
+    blocks, rows_per_warp = launch_shape(n, b, _build.sm_count(cur.device))
     rc = lib.tpuslam_plicp_corr(
         cur.data_ptr(), sv.data_ptr(), ref.data_ptr(), rv.data_ptr(),
-        n, b, nr, float(max_d2), int(line), int(doubles),
-        q1.data_ptr(), q2.data_ptr(), d1.data_ptr(), ok.data_ptr(),
-        j1.data_ptr(), best.data_ptr(),
-        torch.cuda.current_stream(cur.device).cuda_stream,
+        n, b, nr, float(max_d2), int(line), int(doubles), blocks,
+        rows_per_warp, q1.data_ptr(), q2.data_ptr(), d1.data_ptr(),
+        ok.data_ptr(), j1.data_ptr(), tickets.data_ptr(), stream.cuda_stream,
     )
     _build.check(rc, "tpuslam_plicp_corr")
     LAUNCHES[name] += 1
