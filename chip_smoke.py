@@ -26,10 +26,28 @@ line):
    with 1081 beams on the card, over a 24 x 18 m rectangular circuit; it
    must stay within the ATE bound and launch every kernel.  The same
    stream through the kernels' plain versions on the card must give the
-   same poses bit for bit.  Both Karto streams run once more under
-   ``torch.profiler`` for the device busy share and device ms a scan.
-   Over a longer circuit in the 36 x 28 m
-   courtyard of ``tpuslam_torch.io.simulate`` it must close a loop;
+   same poses, edges and map bit for bit.  Both Karto streams run once more
+   under ``torch.profiler`` for the device busy share and device ms a scan.
+   Over a longer circuit in the 36 x 28 m courtyard of
+   ``tpuslam_torch.io.simulate`` it must close a loop, and a second run
+   must repeat the first bit for bit (the pose-graph solve sums in a fixed
+   order); the solve of one ``correct_poses`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host read), timed, with
+   its count of LM graph replays.  Each map (``occupancy_grid``) must put
+   ``MAP_NEAR_SHARE`` of its occupied cells within ``MAP_NEAR_M`` of a
+   wall;
+   4h. ``process_batch`` (16 scans a flush) over the courtyard in each of
+   ``BATCH_MODES`` (sequential, parallel, pipelined 4 deep): the same scans
+   accepted as per-scan ``process``, a loop closed, the ATE bound, the
+   kernels launched; the sequential mode's flush dispatches run under the
+   sync debug mode, and a second sequential run repeats the first bit for
+   bit; the room stream through ``process_batch`` gives the same poses on
+   the plain versions;
+   4j. ``benchmarks/endurance.py``'s lossy garland (120 beams, seed 11),
+   its first ``ENDURANCE_SCANS`` (512) of 1,536 scans, through
+   ``process_batch(batch_size=16, pipeline=4)``: every scan accepted, and
+   the loop closures held to the f64 oracle's recorded events below the
+   cut (``ENDURANCE.json``) by its ``COUNT_BAND`` and ``EPISODE_SLACK``;
    4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
    1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
    below 0.05 m, the correspondence kernel launched, and the same stream
@@ -156,6 +174,19 @@ ONE_OP = ("plicp_corr", "plicp_nearest")
 # the library yardstick's first call may take this long before it counts
 # as "not measured"
 LIBRARY_CAP_S = 5.0
+# phase 4i: a map passes when this share of its occupied cells lies within
+# this distance of a segment of the world
+MAP_NEAR_SHARE = 0.9
+MAP_NEAR_M = 0.3
+# phase 4j: benchmarks/endurance.py's tolerances against the f64 oracle,
+# and the stream's depth: its first 512 of 1,536 scans (about 2.5 rounds
+# of the garland, 30 of the oracle's 98 closures).  The full stream took
+# 108-202 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) and put the
+# whole run at up to 782 s on the slowest host seen; 512 scans keep it
+# nearer half the time limit
+EPISODE_SLACK = 32
+COUNT_BAND = 0.2
+ENDURANCE_SCANS = 512
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -662,19 +693,11 @@ def world(name: str):
     raise ValueError(f"unknown world {name!r}")
 
 
-def run_slice(cfg, device, num_beams: int, where: str = "room",
-              max_scans: int = 256, profile: bool = False):
-    """Phase 4: the Karto path over the circuit of ``world(where)``.
-
-    Returns (numbers, mapper); the launch counters are set to 0 just
-    before the stream and read just after it.  With ``profile`` (on the
-    card), the stream runs again through a fresh mapper under
-    ``torch.profiler``: the device busy share and device ms a scan."""
-    from tpuslam_torch.io.simulate import simulate_scan
+def karto_stream(where: str, num_beams: int, device):
+    """[(true, odom, scan on ``device``)] over the circuit of
+    ``world(where)``."""
     from tpuslam_torch.core.scan import make_scan
-    from tpuslam_torch.models.karto import KartoMapper
-    from tpuslam_torch.ops import correlative as ops_c
-    from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.io.simulate import simulate_scan
 
     segs, corners, lidar_range = world(where)
     stream = []
@@ -684,43 +707,95 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
         stream.append((true, odom, make_scan(
             r, angle_min=amin, angle_increment=ainc, range_min=0.1,
             range_max=lidar_range, num_beams=num_beams, device=device)))
-    m = KartoMapper(cfg, max_scans=max_scans, device=device)
-    on_card = torch.device(device).type == "cuda"
-    _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
-    truths = []
-    if on_card:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for true, odom, scan in stream:
-        if m.process(scan, odom, time=0.0).processed:
-            truths.append(true)
-    if on_card:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
+    return stream
+
+
+@contextlib.contextmanager
+def solve_timer():
+    """Time every ``KartoMapper.correct_poses`` (the pose-graph solve of a
+    loop closure) on the host clock between two synchronizes; yields the
+    list of seconds."""
+    from tpuslam_torch.models.karto import KartoMapper
+
+    orig = KartoMapper.correct_poses
+    seconds = []
+
+    def timed(self):
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(self)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+
+    KartoMapper.correct_poses = timed
+    try:
+        yield seconds
+    finally:
+        KartoMapper.correct_poses = orig
+
+
+def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
+    """The numbers of a Karto run over ``stream`` (per-scan or batch)."""
+    truths = [t for (t, _, _), r in zip(stream, results) if r.processed]
     n = len(m.records)
     ate = float(np.hypot(*(m.poses[:n, :2] - np.stack(truths)[:n, :2]).T)
                 .mean())
-    odo_err = float(np.hypot(*(odom - true)[:2]))
-    out = {
+    return {
         "scans": len(stream),
         "processed": n,
+        "processed_flags": [bool(r.processed) for r in results],
         "seconds": wall,
         "scans_per_s": len(stream) / wall,
         "ate_m": ate,
-        "ate_bound_m": max(0.35, odo_err),
+        "ate_bound_m": max(0.35, float(np.hypot(*(odom - true)[:2]))),
         "loop_closures": m.stats["loop_closures"],
         "near_chain_links": m.stats["near_chain_links"],
         "edges": len(m.edges),
         "fetch_count": m.stats["fetch_count"],
+        "fetches_per_scan": m.stats["fetch_count"] / len(stream),
         "fetch_seconds": m.stats["fetch_seconds"],
+        "expansion_retries": m.stats["expansion_retries"],
         "seq_grid": m.seq_spec.grid_size,
         "loop_grid": m.loop_spec.grid_size,
-        "world": where,
-        "scan_buffer_size": cfg.scan_buffer_size,
+        "scan_buffer_size": m.cfg.scan_buffer_size,
         "launches": launches,
         "launches_per_scan": {k: v / len(stream) for k, v in launches.items()},
     }
+
+
+def run_slice(cfg, device, num_beams: int, where: str = "room",
+              max_scans: int = 256, profile: bool = False):
+    """Phase 4: the Karto path over the circuit of ``world(where)``.
+
+    Returns (numbers, mapper); the launch counters are set to 0 just
+    before the stream and read just after it.  With ``profile`` (on the
+    card), the stream runs again through a fresh mapper under
+    ``torch.profiler``: the device busy share and device ms a scan."""
+    from tpuslam_torch.models.karto import KartoMapper
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+
+    stream = karto_stream(where, num_beams, device)
+    m = KartoMapper(cfg, max_scans=max_scans, device=device)
+    on_card = torch.device(device).type == "cuda"
+    _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
+    results = []
+    with solve_timer() as solves:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, odom, scan in stream:
+            results.append(m.process(scan, odom, time=0.0))
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
+    out = _karto_numbers(m, stream, results, wall, launches, stream[-1][1],
+                         stream[-1][0])
+    out.update(world=where, solve_seconds=solves)
     if profile and on_card:
         def again():
             fresh = KartoMapper(cfg, max_scans=max_scans, device=device)
@@ -733,6 +808,240 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
         # the same device work over the unprofiled run's wall time
         out["busy_share"] = prof["device_s"] / wall
     return out, m
+
+
+# process_batch modes of phase 4h, by name, and the scans a flush
+BATCH_MODES = {"sequential": {}, "parallel": {"parallel": True},
+               "pipeline4": {"pipeline": 4}}
+BATCH_SIZE = 16
+
+
+@contextlib.contextmanager
+def sync_checked_dispatch():
+    """Run every flush dispatch of ``KartoMapper.process_batch`` after the
+    first under ``torch.cuda.set_sync_debug_mode("error")``: a host read
+    or a blocking copy in a dispatch raises.  (The first flush uploads the
+    matcher's constants once.)  Yields the count of checked dispatches."""
+    from tpuslam_torch.models.karto import KartoMapper
+
+    orig = KartoMapper._dispatch_flush
+    count = {"calls": 0, "checked": 0}
+
+    def checked(self, run, pend):
+        count["calls"] += 1
+        if count["calls"] == 1:
+            return orig(self, run, pend)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig(self, run, pend)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        count["checked"] += 1
+        return out
+
+    KartoMapper._dispatch_flush = checked
+    try:
+        yield count
+    finally:
+        KartoMapper._dispatch_flush = orig
+
+
+@contextlib.contextmanager
+def near_chain_counter():
+    """Count the near-chain (LinkNearChains) matches a run issues, those of
+    a flush's one fetch and those matched at settle time; with response
+    expansion on, each reads its coarse response once on the host.  Yields
+    the counts."""
+    from tpuslam_torch.models.karto import KartoMapper
+
+    orig_flush = KartoMapper._match_chains_flush
+    orig_near = KartoMapper._match_near_chains
+    count = {"flush": 0, "settle": 0}
+
+    def flush(self, staged):
+        count["flush"] += sum(len(st["chains"]) for st in staged)
+        return orig_flush(self, staged)
+
+    def near(self, sid, chains):
+        count["settle"] += len(chains)
+        return orig_near(self, sid, chains)
+
+    KartoMapper._match_chains_flush = flush
+    KartoMapper._match_near_chains = near
+    try:
+        yield count
+    finally:
+        KartoMapper._match_chains_flush = orig_flush
+        KartoMapper._match_near_chains = orig_near
+
+
+def run_batch(cfg, device, num_beams: int, where: str = "courtyard",
+              mode: str = "sequential", check_sync: bool = False):
+    """Phase 4h: ``KartoMapper.process_batch`` over the circuit of
+    ``world(where)`` in one of ``BATCH_MODES``; the launch counters are set
+    to 0 just before the call and read just after it.  With
+    ``check_sync``, flush dispatches run under the sync debug mode
+    (:func:`sync_checked_dispatch`).  Returns (numbers, mapper)."""
+    from tpuslam_torch.models.karto import KartoMapper
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+
+    stream = karto_stream(where, num_beams, device)
+    m = KartoMapper(cfg, max_scans=256, device=device)
+    on_card = torch.device(device).type == "cuda"
+    check = (sync_checked_dispatch() if check_sync
+             else contextlib.nullcontext({"checked": 0}))
+    _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
+    with solve_timer() as solves, check as checked, \
+            near_chain_counter() as near:
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = m.process_batch([sc for _, _, sc in stream],
+                                  [od for _, od, _ in stream],
+                                  batch_size=BATCH_SIZE,
+                                  **BATCH_MODES[mode])
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
+    out = _karto_numbers(m, stream, results, wall, launches, stream[-1][1],
+                         stream[-1][0])
+    out.update(world=where, mode=mode, batch_size=BATCH_SIZE,
+               solve_seconds=solves, checked_dispatches=checked["checked"],
+               near_chain_matches=near,
+               response_expansion=cfg.use_response_expansion)
+    return out, m
+
+
+def segment_distance(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
+    """Distance [P] from each point [P, 2] to the nearest segment [S, 2, 2]."""
+    a, b = segs[None, :, 0], segs[None, :, 1]
+    ab = b - a
+    out = []
+    for k in range(0, len(pts), 4096):
+        p = pts[k: k + 4096, None, :]
+        t = np.clip(np.sum((p - a) * ab, -1)
+                    / np.maximum(np.sum(ab * ab, -1), 1e-12), 0.0, 1.0)
+        d = np.hypot(*np.moveaxis(p - (a + t[..., None] * ab), -1, 0))
+        out.append(d.min(1))
+    return np.concatenate(out) if out else np.zeros(0)
+
+
+def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
+    """Phase 4i: ``occupancy_grid()`` of a mapper, timed between two
+    synchronizes; at least ``MAP_NEAR_SHARE`` of its occupied cells must lie
+    within ``MAP_NEAR_M`` of a segment of the world."""
+    (spec, img), secs = _timed(m.occupancy_grid, m.device.type == "cuda")
+    a = img.cpu().numpy()
+    iy, ix = np.nonzero(a == 100)
+    xy = np.stack([spec.origin_x + ix * spec.resolution,
+                   spec.origin_y + iy * spec.resolution], 1)
+    near = float(np.mean(segment_distance(xy, segs) <= MAP_NEAR_M)) if len(
+        xy) else 0.0
+    out = {"shape": list(a.shape), "resolution": spec.resolution,
+           "occupied": int(len(xy)), "free": int((a == 0).sum()),
+           "unknown": int((a == -1).sum()), "seconds": secs,
+           "near_share": near, "scans": len(m.records)}
+    print(f"map {tag}: {a.shape[1]} x {a.shape[0]} cells at "
+          f"{spec.resolution} m, {out['occupied']} occupied, {out['free']} "
+          f"free, {near:.4f} of the occupied within {MAP_NEAR_M} m of a "
+          f"wall, export {secs:.3f} s for {out['scans']} scans [{card}]",
+          flush=True)
+    if not near >= MAP_NEAR_SHARE or not out["occupied"]:
+        raise RuntimeError(f"map {tag}: {near} of the occupied cells near a "
+                           f"wall < {MAP_NEAR_SHARE}")
+    return out, a
+
+
+def endurance_cfg(nb: int):
+    """benchmarks/endurance.py's configuration (mapper_params-style loop
+    knobs), on the port's KartoConfig."""
+    from tpuslam_torch.core.config import KartoConfig
+
+    return KartoConfig(
+        num_beams=nb, use_scan_range=10.0,
+        minimum_travel_distance=0.2, minimum_travel_heading=0.174,
+        minimum_time_interval=3600.0,
+        scan_buffer_size=20, scan_buffer_maximum_scan_distance=10.0,
+        correlation_search_space_dimension=0.32,
+        correlation_search_space_resolution=0.02,
+        correlation_search_space_smear_deviation=0.04,
+        loop_search_space_dimension=4.0, loop_search_space_resolution=0.1,
+        loop_search_space_smear_deviation=0.1,
+        loop_search_maximum_distance=1.5, loop_match_minimum_chain_size=4,
+        loop_match_maximum_variance_coarse=0.4,
+        loop_match_minimum_response_coarse=0.5,
+        loop_match_minimum_response_fine=0.5,
+        link_match_minimum_response_fine=0.6,
+        link_scan_maximum_distance=1.5,
+        do_loop_closing=True,
+    )
+
+
+def episodes_covered(a, b) -> bool:
+    """Every closure event in ``a`` has one in ``b`` within
+    ``EPISODE_SLACK`` scans (benchmarks/endurance.py's _episode_ok)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if len(a) == 0 or len(b) == 0:
+        return len(a) == len(b)
+    return bool((np.abs(a[:, None] - b[None, :]).min(axis=1)
+                 <= EPISODE_SLACK).all())
+
+
+def run_endurance(device, n_scans: int) -> dict:
+    """Phase 4j: benchmarks/endurance.py's lossy garland (120 beams, 15 %
+    NaN beams, noisy odometry, three circles revisited, seed 11) through
+    ``process_batch`` (16 scans a flush, pipeline 4, as that script runs
+    it), held to the f64 oracle's recorded closure events (``ENDURANCE.json``,
+    ``closure_events_oracle``, those below ``n_scans``): every scan
+    accepted, the closure count within ``COUNT_BAND``, every closure event
+    on either side matched within ``EPISODE_SLACK`` scans."""
+    from tpuslam_torch.core.scan import make_scan
+    from tpuslam_torch.io.simulate import lossy_garland_stream
+    from tpuslam_torch.models.karto import KartoMapper
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+
+    nb, batch_size, pipeline = 120, BATCH_SIZE, 4
+    cfg = endurance_cfg(nb)
+    trues, metas, odoms, _ = lossy_garland_stream(num_scans=n_scans,
+                                                  num_beams=nb, seed=11)
+    scans = [make_scan(r, angle_min=amin, angle_increment=ainc,
+                       range_min=0.1, range_max=30.0, num_beams=nb,
+                       device=device) for r, amin, ainc in metas]
+    oracle = json.loads((ROOT / "ENDURANCE.json").read_text())
+    o_events = [e for e in oracle["closure_events_oracle"] if e < n_scans]
+    m = KartoMapper(cfg, max_scans=n_scans + 64, device=device)
+    _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
+    with solve_timer() as solves, near_chain_counter() as near:
+        res, wall = _timed(lambda: m.process_batch(
+            scans, odoms, batch_size=batch_size, pipeline=pipeline),
+            torch.device(device).type == "cuda")
+    events = [i for i, r in enumerate(res) if r.loop_closed]
+    n = len(m.records)
+    err = np.hypot(*(m.poses[:n, :2] - trues[[i for i, r in enumerate(res)
+                                              if r.processed]][:n, :2]).T)
+    hi = max(m.stats["loop_closures"], len(o_events))
+    lo = min(m.stats["loop_closures"], len(o_events))
+    return {
+        "scans": n_scans, "beams": nb, "batch_size": batch_size,
+        "pipeline": pipeline, "accepted": n, "seconds": wall,
+        "scans_per_s": n_scans / wall,
+        "closures": m.stats["loop_closures"],
+        "closures_oracle": len(o_events),
+        "count_ok": hi - lo <= max(2, COUNT_BAND * hi),
+        "closure_events": events,
+        "episodes_ok": (episodes_covered(events, o_events)
+                        and episodes_covered(o_events, events)),
+        "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
+        "fetches_per_scan": m.stats["fetch_count"] / n_scans,
+        "expansion_retries": m.stats["expansion_retries"],
+        "solves": len(solves), "solve_seconds_total": sum(solves),
+        "near_chain_matches": near,
+        "response_expansion": cfg.use_response_expansion,
+        "launches": {**ops_c.LAUNCHES, **ops_f.LAUNCHES},
+    }
 
 
 @contextlib.contextmanager
@@ -1170,6 +1479,58 @@ def hector_fixture(device, n: int, where: str = "bench"):
             torch.tensor(guesses, device=device))
 
 
+def check_solve(m, card) -> dict:
+    """The solve of one ``correct_poses`` on the mapper's final graph, run
+    under ``torch.cuda.set_sync_debug_mode("error")``: the graph is
+    uploaded before the checked region and the poses fetched after it.  A
+    first, unchecked solve captures the graph's bucket if it is new; the
+    checked solve must repeat it bit for bit.  Returns its synced seconds
+    and LM graph replays."""
+    from tpuslam_torch.graph import solver
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+
+    n = len(m.records)
+    g = graph_from_edges(m.poses[:n], m.edges, device=m.device)
+    backend = make_solver(m.cfg.solver_type)
+    first, _ = backend.compute(g)
+    torch.cuda.synchronize()
+    replays = solver.REPLAYS["lm_step"]
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses, stats = backend.compute(g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"nodes": n, "edges": len(m.edges),
+           "seconds": time.perf_counter() - t0,
+           "lm_replays": solver.REPLAYS["lm_step"] - replays,
+           "captures": solver.REPLAYS["captures"],
+           "same_as_first": bool(torch.equal(poses, first)),
+           "initial_cost": float(stats.initial_cost),
+           "final_cost": float(stats.final_cost),
+           "good_iters": int(stats.good_iters)}
+    print(f"solve under sync debug mode \"error\": {n} nodes, {out['edges']} "
+          f"edges, {out['seconds']:.4f} s synced, {out['lm_replays']} LM "
+          f"graph replays ({out['captures']} buckets captured so far), cost "
+          f"{out['initial_cost']:.4g} -> {out['final_cost']:.4g}, repeats "
+          f"the first solve bit for bit: {out['same_as_first']} [{card}]",
+          flush=True)
+    if not out["same_as_first"]:
+        raise RuntimeError("two solves of one graph differ")
+    return out
+
+
+def _same_graph(a, b) -> bool:
+    """Two mappers hold the same poses and edges, bit for bit."""
+    n = len(a.records)
+    return (len(b.records) == n
+            and np.array_equal(a.poses[:n], b.poses[:n])
+            and [e[:2] for e in a.edges] == [e[:2] for e in b.edges]
+            and all(np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3])
+                    for x, y in zip(a.edges, b.edges)))
+
+
 def _report(tag, s, card):
     print(f"{tag}: {s['scans']} scans in {s['seconds']:.2f} s = "
           f"{s['scans_per_s']:.2f} scans/s, ATE {s['ate_m']:.4f} m "
@@ -1233,8 +1594,11 @@ def main() -> int:
     idle = [k for k, v in s["launches"].items() if v <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")
+    maps = {}
+    maps["room"], img_a = map_check(m, world("room")[0], "4a room", card)
     # 4b. the same stream through the plain versions on the card: the
-    # kernels are bit-identical to them, so every pose must be too
+    # kernels are bit-identical to them, and every other op (the solve's
+    # too) sums in a fixed order, so every pose and the map must be too
     mark("4b. Karto, room, plain versions")
     with plain_path():
         sp, mp = run_slice(cfg, "cuda", 1081)
@@ -1242,13 +1606,14 @@ def main() -> int:
     n = len(m.records)
     dpose = float(np.abs(mp.poses[:n] - m.poses[:n]).max())
     print(f"  kernel path vs plain path: max |pose diff| {dpose}", flush=True)
-    # bit for bit unless the solver ran: index_add_ on CUDA sums in an
-    # order that changes from run to run
-    if [e[:2] for e in mp.edges] != [e[:2] for e in m.edges] or dpose > (
-        1e-4 if s["loop_closures"] else 0.0
-    ):
+    if not _same_graph(m, mp):
         raise RuntimeError("the plain path's poses or edges differ from the "
                            "kernel path's")
+    maps["room_plain"], img_b = map_check(mp, world("room")[0],
+                                          "4b room, plain versions", card)
+    if not np.array_equal(img_a, img_b):
+        raise RuntimeError("the plain path's map differs from the kernel "
+                           "path's")
     # 4c. loop closure.  The room circuit closes no loop at this
     # configuration, in the JAX mapper as here (4b shows the plain
     # versions agree): the 110-scan running window still holds the first
@@ -1258,13 +1623,97 @@ def main() -> int:
     # courtyard built for this operating point separates the trajectory by
     # more than 15 m, and its circuit is longer than the running window
     mark("4c. Karto, courtyard")
-    sl, _ = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True)
+    sl, ml = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True)
     _report("slice (outdoor, courtyard)", sl, card)
+    print(f"  correct_poses synced seconds {sl['solve_seconds']} (the first "
+          f"captures its bucket's LM iteration) [{card}]", flush=True)
     if sl["loop_closures"] < 1:
         raise RuntimeError("no loop closure on the courtyard circuit")
     idle = [k for k, v in sl["launches"].items() if v <= 0]
     if idle:
         raise RuntimeError(f"kernels never launched in the loop run: {idle}")
+    maps["courtyard"], _ = map_check(ml, world("courtyard")[0],
+                                     "4c courtyard", card)
+    # the solve is deterministic: a second run closes the same loops with
+    # the same poses and edges, bit for bit
+    sl2, ml2 = run_slice(cfg, "cuda", 1081, where="courtyard")
+    repeat = _same_graph(ml, ml2)
+    print(f"  courtyard again: {sl2['loop_closures']} closures, poses and "
+          f"edges identical to the first run: {repeat} [{card}]", flush=True)
+    if not repeat:
+        raise RuntimeError("two courtyard runs differ")
+    solve = check_solve(ml, card)
+
+    # 4h. process_batch over the courtyard in its three modes, beside the
+    # per-scan run of 4c; the sequential mode's dispatches after the first
+    # run under the sync debug mode
+    mark("4h. Karto process_batch, courtyard")
+    batch, batch_maps = {}, {}
+    for mode in BATCH_MODES:
+        b, mb = run_batch(cfg, "cuda", 1081, mode=mode,
+                          check_sync=mode == "sequential")
+        _report(f"process_batch {mode} (outdoor, courtyard, 16 a flush)", b,
+                card)
+        print(f"  {mode}: {b['scans_per_s']:.2f} scans/s and "
+              f"{b['fetches_per_scan']:.3f} fetches a scan; per-scan "
+              f"process {sl['scans_per_s']:.2f} scans/s and "
+              f"{sl['fetches_per_scan']:.3f}; {b['expansion_retries']} "
+              f"expansion retries, {b['checked_dispatches']} dispatches "
+              f"checked for syncs; near-chain matches "
+              f"{b['near_chain_matches']} (expansion "
+              f"{b['response_expansion']}: one host read each when on) "
+              f"[{card}]", flush=True)
+        if b["processed_flags"] != sl["processed_flags"]:
+            raise RuntimeError(f"batch {mode} accepts other scans than "
+                               "per-scan process")
+        if b["loop_closures"] < 1:
+            raise RuntimeError(f"batch {mode} closed no loop")
+        if not b["ate_m"] < sl["ate_bound_m"]:
+            raise RuntimeError(f"batch {mode}: ATE {b['ate_m']}")
+        if b["launches"]["patch_sums"] <= 0 or b["launches"]["fvp"] <= 0:
+            raise RuntimeError(f"batch {mode} launched {b['launches']}")
+        batch[mode] = b
+        if mode == "sequential":
+            if b["checked_dispatches"] < 1:
+                raise RuntimeError("no flush dispatch was sync-checked")
+            mb_seq = mb
+    b2, mb2 = run_batch(cfg, "cuda", 1081, mode="sequential")
+    repeat_b = _same_graph(mb_seq, mb2)
+    print(f"  sequential again: identical poses and edges {repeat_b} "
+          f"[{card}]", flush=True)
+    if not repeat_b:
+        raise RuntimeError("two sequential batch runs differ")
+    br, mbr = run_batch(cfg, "cuda", 1081, where="room")
+    with plain_path():
+        brp, mbrp = run_batch(cfg, "cuda", 1081, where="room")
+    same_room = _same_graph(mbr, mbrp)
+    print(f"  room through process_batch: {br['scans_per_s']:.2f} scans/s, "
+          f"plain versions {brp['scans_per_s']:.2f}; identical poses and "
+          f"edges {same_room} [{card}]", flush=True)
+    if not same_room:
+        raise RuntimeError("process_batch: the plain path differs")
+    batch["room"], batch["room_plain"] = br, brp
+    batch_maps["courtyard_sequential"], _ = map_check(
+        mb_seq, world("courtyard")[0], "4h courtyard, batch", card)
+
+    # 4j. the endurance stream: lossy scans against the oracle, cut to
+    # ENDURANCE_SCANS
+    mark("4j. endurance")
+    endu = run_endurance("cuda", ENDURANCE_SCANS)
+    print(f"endurance: {endu['scans']} scans ({endu['beams']} beams, 16 a "
+          f"flush, pipeline 4) in {endu['seconds']:.2f} s = "
+          f"{endu['scans_per_s']:.2f} scans/s, accepted {endu['accepted']}, "
+          f"closures {endu['closures']} (oracle {endu['closures_oracle']}), "
+          f"episodes matched {endu['episodes_ok']}, ATE RMSE "
+          f"{endu['ate_rmse_m']:.4f} m, {endu['solves']} solves in "
+          f"{endu['solve_seconds_total']:.2f} s, "
+          f"{endu['fetches_per_scan']:.3f} fetches a scan, near-chain "
+          f"matches {endu['near_chain_matches']} (expansion "
+          f"{endu['response_expansion']}) [{card}]",
+          flush=True)
+    if endu["accepted"] != endu["scans"] or not endu["count_ok"] or not (
+            endu["episodes_ok"]):
+        raise RuntimeError(f"endurance against the oracle: {endu}")
 
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
@@ -1372,15 +1821,18 @@ def main() -> int:
                       "tpuslam/ops/pallas_hector.py:220"),
     }
     # each kernel's count from the path that runs it, and a scan's share:
-    # Karto's over the room and courtyard streams, the odometry's, the
+    # Karto's over the room and courtyard streams and the sequential batch
+    # run over the courtyard, the odometry's, the
     # frame-to-frame ICP's, and the batched Hector call's (1024 scans)
-    launches = {**s["launches"], **od["launches"],
+    karto_runs = (s, sl, batch["sequential"])
+    karto_scans = sum(r["scans"] for r in karto_runs)
+    launches = {**{k: sum(r["launches"][k] for r in karto_runs)
+                   for k in s["launches"]},
+                **od["launches"],
                 "plicp_nearest": ff["icp"]["launches"]["plicp_nearest"],
                 "hector_gn": hb["launches"]["hector_gn"]}
-    karto_scans = s["scans"] + sl["scans"]
     per_scan = {
-        **{k: (s["launches"][k] + sl["launches"][k]) / karto_scans
-           for k in s["launches"]},
+        **{k: launches[k] / karto_scans for k in s["launches"]},
         "plicp_corr": od["launches"]["plicp_corr"] / od["scans"],
         "plicp_nearest": (ff["icp"]["launches"]["plicp_nearest"]
                           / ff["icp"]["scans"]),
@@ -1408,7 +1860,9 @@ def main() -> int:
     OUT.write_text(json.dumps({"card": card, "build": {
         k: v for k, v in info.items() if k != "log"},
         "ptxas": info["log"], "kernels_vs_plain": rows, "slice": s,
-        "slice_plain_path": sp, "slice_courtyard": sl, "odometry": od,
+        "slice_plain_path": sp, "slice_courtyard": sl,
+        "slice_courtyard_repeat": sl2, "solve_check": solve, "batch": batch,
+        "maps": {**maps, **batch_maps}, "endurance": endu, "odometry": od,
         "odometry_plain_path": odp, "frame_to_frame": ff,
         "batches": batches, "hector_batch": hb, "hector_engine": he,
         "kernels": kernels}, indent=1))

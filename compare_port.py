@@ -9,9 +9,12 @@ runs it (``MAIN_SHAPES``: the kernel's device time and device ops a call
 from ``torch.profiler``, the wrapper's CUDA-event time, the bound, the
 output), the Karto room and courtyard streams of phase 4 with their
 profiled rerun (scans/s, device busy share, device ms a scan, the room's
-poses), the PL-ICP odometry of phase 4d (scans/s, ATE RMSE, launches a
-scan, profiled device ms and device ops a scan, the poses) and the
-batched Hector call of phase 4f (ms a 1024-scan batch through impl
+poses, and the synced seconds of each ``correct_poses`` of the
+courtyard's loop closures), ``process_batch`` over the courtyard in each
+of phase 4h's modes (scans/s, fetches a scan; "absent" in a tree without
+``process_batch``), the PL-ICP odometry of phase 4d (scans/s, ATE RMSE,
+launches a scan, profiled device ms and device ops a scan, the poses) and
+the batched Hector call of phase 4f (ms a 1024-scan batch through impl
 "kernel", the result).  Inputs, timing and streams are this checkout's
 ``chip_smoke.py``, so both trees do the same work; a tree without
 ``tpuslam_torch.io`` reads this one's NumPy worlds, and a kernel's time
@@ -136,8 +139,20 @@ def child(tree: Path) -> dict:
             "scans", "seconds", "scans_per_s", "ate_m", "loop_closures",
             "launches", "device_ms_per_scan", "busy_share")}
         out[where]["device_ops"] = res["profile"]["device_ops"]
+        out[where]["solve_seconds"] = res["solve_seconds"]
         out[where]["poses_sha256"] = hashlib.sha256(
             m.poses[:len(m.records)].tobytes()).hexdigest()
+    from tpuslam_torch.models.karto import KartoMapper
+
+    out["batch"] = {}
+    for mode in smoke.BATCH_MODES:
+        if not hasattr(KartoMapper, "process_batch"):
+            out["batch"][mode] = "absent"
+            continue
+        b, _ = smoke.run_batch(cfg, "cuda", 1081, mode=mode)
+        out["batch"][mode] = {k: b[k] for k in (
+            "scans", "seconds", "scans_per_s", "fetches_per_scan",
+            "loop_closures", "ate_m")}
     od, od_poses = smoke.run_odometry("cuda", 1081, 320, profile=True)
     out["odometry"] = {k: od[k] for k in (
         "scans", "seconds", "scans_per_s", "ate_rmse_m", "launches",
@@ -196,6 +211,13 @@ def main(other: str) -> int:
                   f"{w} {r[w]['scans_per_s']:.2f} scans/s, busy "
                   f"{r[w]['busy_share']:.4f}, {r[w]['device_ms_per_scan']:.3f}"
                   f" device ms/scan" for w in ("room", "courtyard"))
+              + "  courtyard correct_poses s " + ", ".join(
+                  f"{x:.4f}" for x in r["courtyard"]["solve_seconds"])
+              + "  batch " + "  ".join(
+                  f"{k} " + (v if isinstance(v, str) else
+                             f"{v['scans_per_s']:.2f} scans/s "
+                             f"({v['fetches_per_scan']:.3f} fetches/scan)")
+                  for k, v in r["batch"].items())
               + f"  odometry {od['scans_per_s']:.2f} scans/s, ATE RMSE "
               f"{od['ate_rmse_m']:.5f} m, {od['launches_per_scan']:.2f} "
               f"launches/scan, {od['device_ms_per_scan']:.3f} device ms/scan,"

@@ -3,9 +3,10 @@ the JAX package, and entry points that run on the card by default.
 
 - ``tpuslam_torch.io.simulate`` is a NumPy copy of the functions of
   ``tpuslam.io.simulate`` that ``chip_smoke.py`` uses: held bit for bit;
-- a fresh interpreter that imports every module of ``tpuslam_torch``,
-  ``chip_smoke`` and ``compare_port`` holds no ``jax`` and no
-  ``tpuslam``/``tpuslam.*`` module;
+- a fresh interpreter that imports every module of ``tpuslam_torch`` (the
+  Karto engine with ``process_batch`` and ``occupancy_grid``,
+  ``ops.counts``, the solver), ``chip_smoke`` and ``compare_port`` holds
+  no ``jax`` and no ``tpuslam``/``tpuslam.*`` module;
 - every entry point that places state on a device defaults to ``"cuda"``
   (a caller who wants the CPU says so, as these tests do).
 """
@@ -30,6 +31,7 @@ from tpuslam_torch.models import (
     scan_match_icp,
     scan_match_plicp,
 )
+from tpuslam_torch.ops import counts
 
 ROOT = Path(__file__).resolve().parent.parent
 SEGS = jsim.world_with_boxes()
@@ -46,7 +48,19 @@ SIMULATE_CASES = {
         rng=np.random.default_rng(3)),
     "circle_trajectory": lambda m: m.circle_trajectory(
         radius=1.2, num_poses=50, full_turns=0.5),
+    "garland_trajectory": lambda m: m.garland_trajectory(
+        [(-5.5, -3.0), (0.0, -3.0), (5.5, -3.0)], radius=1.6, step=0.25,
+        rounds=2),
+    "lossy_garland_stream": lambda m: _flat(m.lossy_garland_stream(
+        num_scans=150, num_beams=60, seed=11)),
 }
+
+
+def _flat(stream):
+    """(trues, metas, odoms, world) as a tuple of arrays."""
+    trues, metas, odoms, world = stream
+    return (trues, *(np.asarray(x) for meta in metas for x in meta),
+            np.stack(odoms), world)
 
 
 @pytest.mark.parametrize("name", sorted(SIMULATE_CASES))
@@ -88,6 +102,7 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     hector_slam.init_state,
     tscan.make_scan,
     backends.graph_from_edges,
+    counts.zero_counts,
     convert.odom_state_from_numpy,
     convert.hector_state_from_numpy,
     convert.frame_state_from_numpy,

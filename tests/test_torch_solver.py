@@ -1,10 +1,17 @@
 """tpuslam_torch.graph against tpuslam.graph: LM + PCG and the presets.
 
 Both sides solve in float32 from the same numpy graph.  Sums are reduced
-in another order (index_add_ vs XLA scatter-add), so poses are held to
-atol 1e-4 and costs to rtol 1e-4.  The JAX side pads the graph to
-power-of-two capacities; padding is masked and changes no result.
+in another order (the port's per-node pairwise tree vs XLA scatter-add),
+so poses are held to atol 1e-4 and costs to rtol 1e-4.  The JAX side pads
+the graph to power-of-two capacities; padding is masked and changes no
+result.
+
+The port's own contract: the fixed-count form reads no tensor, equals the
+CPU's early-exit form bit for bit and repeats itself bit for bit, and its
+per-node sums take the order that ``node_edge_index`` writes down.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -163,3 +170,102 @@ def test_registry_and_empty_graph():
     assert calls == [1]
     g0 = tb.graph_from_edges(np.zeros((0, 3)), [], device="cpu")
     assert g0.poses.shape == (0, 3) and g0.edge_i.shape == (0,)
+
+
+SETTINGS = {  # the presets' LM / GN settings (graph.backends._REGISTRY)
+    "spa_solver": dict(num_iters=40, init_lambda=1e-4, gauss_newton=False),
+    "ceres_solver": dict(num_iters=100, init_lambda=1e-8, gauss_newton=False),
+    "g2o_solver": dict(num_iters=40, init_lambda=0.0, gauss_newton=True),
+}
+
+
+def _solve(graph, early_exit, **kw):
+    kw = {"num_iters": 40, "init_lambda": 1e-4, "gauss_newton": False, **kw}
+    return ts._solve(graph, kw["num_iters"], 1, 60, 1e-6,
+                     kw["init_lambda"], kw["gauss_newton"], early_exit)
+
+
+def _raise(*args, **kw):
+    raise AssertionError("the solve read a tensor back to the host")
+
+
+@pytest.mark.parametrize("problem", ["noisy_loop", "bad_init"])
+def test_fixed_count_form_reads_no_tensor(problem, monkeypatch):
+    init, edges = (noisy_loop_graph() if problem == "noisy_loop"
+                   else bad_init_problem())
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    for name in ("__bool__", "__float__", "__int__", "__index__", "item",
+                 "tolist", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, _raise)
+    poses, stats = _solve(g, early_exit=False)
+    monkeypatch.undo()
+    assert poses.shape == (len(init), 3)
+    assert float(stats.final_cost) < float(stats.initial_cost)
+
+
+@pytest.mark.parametrize("preset", sorted(SETTINGS))
+@pytest.mark.parametrize("problem", ["noisy_loop", "bad_init"])
+def test_early_exit_and_fixed_count_forms_agree_bit_for_bit(preset, problem):
+    init, edges = (noisy_loop_graph() if problem == "noisy_loop"
+                   else bad_init_problem())
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    # optimize on the CPU is the early-exit form
+    early = ts.optimize(g, cg_iters=60, **SETTINGS[preset])
+    fixed = _solve(g, False, **SETTINGS[preset])
+    runs = [fixed]
+    if preset == "spa_solver":  # and a second solve repeats the first
+        runs.append(_solve(g, False, **SETTINGS[preset]))
+    for run in runs:
+        for a, b in zip((early[0], *early[1]), (run[0], *run[1])):
+            assert torch.equal(a, b)
+
+
+def _tree_sum_numpy(index, t_i, t_j):
+    """segment_sum written out in NumPy f32: node n's slots in the order
+    of its row, added pairwise (0+1, 2+3, ...) level by level."""
+    terms = np.concatenate([np.zeros_like(t_i[:1]),
+                            np.stack([t_i, t_j], 1).reshape(-1,
+                                                            *t_i.shape[1:])])
+    out = []
+    for row in index:
+        level = [terms[s] for s in row]
+        while len(level) > 1:
+            level = [np.float32(a + b) for a, b in zip(level[0::2],
+                                                       level[1::2])]
+        out.append(level[0])
+    return np.stack(out)
+
+
+def test_node_sums_take_the_written_order():
+    init, edges = noisy_loop_graph(n=12, seed=7)
+    # a hub node with more ends than 4, and a repeated pair
+    edges = edges + [(5, j, edges[0][2], edges[0][3]) for j in (0, 1, 2, 8)]
+    n, e = len(init), len(edges)
+    ei = np.asarray([x[0] for x in edges])
+    ej = np.asarray([x[1] for x in edges])
+    index = tb.node_edge_index(n, ei, ej)
+    assert index.shape[1] == 8  # node 5 has 6 ends: the next power of two
+    for v in range(n):  # every end of v once, by edge index, then padding
+        want = sorted([1 + 2 * k for k in range(e) if ei[k] == v]
+                      + [2 + 2 * k for k in range(e) if ej[k] == v])
+        row = list(index[v])
+        assert row == want + [0] * (index.shape[1] - len(want)), v
+    rng = np.random.default_rng(0)
+    for shape in ((3,), (3, 3)):
+        t_i = rng.normal(0, 1, (e, *shape)).astype(np.float32)
+        t_j = rng.normal(0, 1, (e, *shape)).astype(np.float32)
+        got = ts.segment_sum(torch.from_numpy(index), torch.from_numpy(t_i),
+                             torch.from_numpy(t_j)).numpy()
+        np.testing.assert_array_equal(got, _tree_sum_numpy(index, t_i, t_j))
+
+
+def test_block_inverse_and_no_float_scatter():
+    rng = np.random.default_rng(1)
+    a = rng.normal(0, 1, (64, 3, 3)).astype(np.float32)
+    spd = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32)
+    got = ts._inv3(torch.from_numpy(spd)).numpy()
+    np.testing.assert_allclose(got, np.linalg.inv(spd.astype(np.float64)),
+                               rtol=1e-4, atol=1e-4)
+    src = inspect.getsource(ts)
+    for op in (".index_add", ".scatter_add", "linalg.inv"):
+        assert op not in src, op

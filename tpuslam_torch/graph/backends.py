@@ -84,15 +84,44 @@ def make_solver(name: str) -> ScanSolver:
     return _REGISTRY[name]()
 
 
+def node_edge_index(n: int, edge_i: np.ndarray, edge_j: np.ndarray
+                    ) -> np.ndarray:
+    """[n, D] int64: node v's edge ends as slots ``1 + 2k + end`` (end 0
+    at ``edge_i[k]``, 1 at ``edge_j[k]``), sorted by edge index, padded
+    with the zero slot 0 to D, the power of two (at least 4) that holds
+    the largest degree.  The solver's per-node sums read this order
+    (``graph.solver.segment_sum``)."""
+    e = len(edge_i)
+    node = np.empty(2 * e, np.int64)
+    node[0::2] = edge_i
+    node[1::2] = edge_j
+    slot = 1 + np.arange(2 * e, dtype=np.int64)
+    order = np.lexsort((slot, node))  # by node, then by slot
+    node, slot = node[order], slot[order]
+    deg = np.bincount(node, minlength=n)
+    width = 4
+    while width < (deg.max() if n else 0):
+        width *= 2
+    start = np.concatenate([[0], np.cumsum(deg)[:-1]]) if n else deg
+    out = np.zeros((n, width), np.int64)
+    out[node, np.arange(2 * e) - start[node]] = slot
+    return out
+
+
 def graph_from_edges(
     poses: np.ndarray,
     edges: list[tuple[int, int, np.ndarray, np.ndarray]],
     device="cuda",
 ) -> PoseGraph:
-    """A float32 PoseGraph on ``device`` from host-side pose/edge lists.
+    """A float32 PoseGraph on ``device`` from host-side pose/edge lists,
+    with each node's edge ends (:func:`node_edge_index`) built once here
+    on the host.
 
-    No capacity padding: the JAX version pads to power-of-two buckets only
-    to reuse compiled programs."""
+    The graph holds exactly the n poses and e edges.  On a CUDA device
+    ``optimize`` copies it into the static buffers of its padded bucket
+    (powers of two, at least 256 nodes and 512 edges, masks for the
+    padding, as the JAX version pads), so that the captured LM iteration
+    of that bucket serves every graph in it."""
     n, e = len(poses), len(edges)
     p = np.asarray(poses[:n], np.float32).reshape(n, 3)
     edge_i = np.asarray([x[0] for x in edges], np.int64)
@@ -111,4 +140,5 @@ def graph_from_edges(
         measurements=dev(meas),
         precisions=dev(prec),
         edge_mask=torch.ones(e, dtype=torch.bool, device=device),
+        node_edges=dev(node_edge_index(n, edge_i, edge_j)),
     )

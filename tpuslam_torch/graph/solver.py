@@ -13,21 +13,39 @@ The residual model of the reference's SPA2d backend
   spa2d.cpp:555-582; converged when ``|dx|^2 < 1e-16``; the gauge is fixed
   by the first ``n_fixed`` nodes.
 
-``H x`` is matrix-free: two gathers, two 3x3 matvecs and two
-``index_add_`` scatters per edge, solved by conjugate gradients
-preconditioned with the inverse diagonal blocks.  Plain PyTorch, no
-kernel: the JAX solver has no Pallas kernel either.  The JAX version runs
-a fixed number of masked iterations under ``lax.scan``; here the loops
-stop at convergence, which gives the same result.
+``H x`` is matrix-free: two gathers and two 3x3 matvecs per edge, solved
+by conjugate gradients preconditioned with the inverse diagonal blocks.
+Plain PyTorch, no kernel: the JAX solver has no Pallas kernel either.
+
+Every per-node sum (g, the diagonal blocks, each ``H x``) is a gather of
+the per-edge-end terms through the graph's ``node_edges`` index followed
+by a pairwise tree over its padded width (:func:`segment_sum`): a fixed
+order, so a solve repeats itself bit for bit on the card, where a float
+``index_add_`` adds through atomics in an order that changes from run to
+run.
+
+The loops are the reference's masked fixed-count form: PCG and LM carry
+``done`` flags on the device and freeze their state once done, and no
+value is read back to the host.  On a CUDA device one LM iteration (with
+its ``cg_iters`` PCG iterations) is captured once as a CUDA graph for each
+padded (nodes, edges, node width) bucket and replayed ``num_iters`` times
+(:class:`_CudaSolve`).  On the CPU the same iteration runs eagerly and
+stops at ``done``, where a read costs nothing and the frozen iterations
+would change no value.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpuslam_torch.core import se2
+
+# CUDA-graph replays (one a solve's LM iteration) and captures since the
+# last reset
+REPLAYS = {"lm_step": 0, "captures": 0}
 
 
 class PoseGraph(NamedTuple):
@@ -40,6 +58,10 @@ class PoseGraph(NamedTuple):
     measurements: torch.Tensor  # [E, 3] pose of j in i's frame
     precisions: torch.Tensor  # [E, 3, 3] information matrices
     edge_mask: torch.Tensor  # [E] bool — active edges
+    # [N, D] int64: each node's edge ends as slots ``1 + 2k + end`` (end 0
+    # for edge_i, 1 for edge_j), by edge index, padded with the zero slot
+    # 0; D is a power of two (see graph.backends.node_edge_index)
+    node_edges: torch.Tensor
 
 
 def residuals(graph: PoseGraph, poses: torch.Tensor) -> torch.Tensor:
@@ -90,6 +112,24 @@ def _edge_jacobians(graph: PoseGraph, poses: torch.Tensor):
     return j0, j1
 
 
+def segment_sum(
+    node_edges: torch.Tensor, t_i: torch.Tensor, t_j: torch.Tensor
+) -> torch.Tensor:
+    """Per-node sums of per-edge-end terms, in a fixed order.
+
+    ``t_i`` / ``t_j`` [E, ...] are each edge's terms at its i and j end.
+    Node n's sum is over the slots ``node_edges[n]`` (``1 + 2k + end``,
+    slot 0 reads zero), added as a pairwise tree: slots (0, 1), (2, 3), ...
+    first, then their sums pairwise, down to one.  Every add is an f32
+    elementwise add, so the result is the same on any device."""
+    terms = torch.stack([t_i, t_j], dim=1).reshape(-1, *t_i.shape[1:])
+    terms = torch.cat([torch.zeros_like(terms[:1]), terms])
+    out = terms[node_edges]  # [N, D, ...]
+    while out.shape[1] > 1:
+        out = out[:, 0::2] + out[:, 1::2]
+    return out[:, 0]
+
+
 class _System(NamedTuple):
     j0: torch.Tensor  # [E, 3, 3]
     j1: torch.Tensor
@@ -107,17 +147,14 @@ def _build_system(graph: PoseGraph, poses: torch.Tensor, n_fixed: int) -> _Syste
     lj0 = torch.einsum("eab,ebc->eac", prec, j0)
     lj1 = torch.einsum("eab,ebc->eac", prec, j1)
 
-    n = poses.shape[0]
     le = torch.einsum("eab,eb->ea", prec, e)
-    g = torch.zeros((n, 3), dtype=poses.dtype, device=poses.device)
-    g.index_add_(0, graph.edge_i, torch.einsum("eba,eb->ea", j0, le))
-    g.index_add_(0, graph.edge_j, torch.einsum("eba,eb->ea", j1, le))
+    g = segment_sum(graph.node_edges, torch.einsum("eba,eb->ea", j0, le),
+                    torch.einsum("eba,eb->ea", j1, le))
+    diag = segment_sum(graph.node_edges,
+                       torch.einsum("eba,ebc->eac", j0, lj0),
+                       torch.einsum("eba,ebc->eac", j1, lj1))
 
-    diag = torch.zeros((n, 3, 3), dtype=poses.dtype, device=poses.device)
-    diag.index_add_(0, graph.edge_i, torch.einsum("eba,ebc->eac", j0, lj0))
-    diag.index_add_(0, graph.edge_j, torch.einsum("eba,ebc->eac", j1, lj1))
-
-    idx = torch.arange(n, device=poses.device)
+    idx = torch.arange(poses.shape[0], device=poses.device)
     free = graph.node_mask & (idx >= n_fixed)
     return _System(j0, j1, lj0, lj1, g, diag, free)
 
@@ -131,11 +168,29 @@ def _hvp(graph: PoseGraph, sys: _System, lam, x: torch.Tensor) -> torch.Tensor:
     ljx = torch.einsum("eab,eb->ea", sys.lj0, xi) + torch.einsum(
         "eab,eb->ea", sys.lj1, xj
     )
-    out = torch.zeros_like(x)
-    out.index_add_(0, graph.edge_i, torch.einsum("eba,eb->ea", sys.j0, ljx))
-    out.index_add_(0, graph.edge_j, torch.einsum("eba,eb->ea", sys.j1, ljx))
+    out = segment_sum(graph.node_edges, torch.einsum("eba,eb->ea", sys.j0, ljx),
+                      torch.einsum("eba,eb->ea", sys.j1, ljx))
     out = out + lam * torch.einsum("nab,nb->na", sys.diag, x)
     return torch.where(sys.free[:, None], out, 0.0)
+
+
+def _inv3(d: torch.Tensor) -> torch.Tensor:
+    """Inverses of [N, 3, 3] blocks by the adjugate: elementwise only, so
+    no pivoting, no solver library and no host check of the result (the
+    blocks are symmetric positive definite, or the identity)."""
+    a, b, c = d[:, 0, 0], d[:, 0, 1], d[:, 0, 2]
+    e, f, g = d[:, 1, 0], d[:, 1, 1], d[:, 1, 2]
+    h, i, k = d[:, 2, 0], d[:, 2, 1], d[:, 2, 2]
+    c00 = f * k - g * i
+    c01 = g * h - e * k
+    c02 = e * i - f * h
+    det = a * c00 + b * c01 + c * c02
+    adj = torch.stack([
+        torch.stack([c00, c * i - b * k, b * g - c * f], dim=-1),
+        torch.stack([c01, a * k - c * h, c * e - a * g], dim=-1),
+        torch.stack([c02, b * h - a * i, a * f - b * e], dim=-1),
+    ], dim=-2)
+    return adj / det[:, None, None]
 
 
 def _block_inv(diag: torch.Tensor, free: torch.Tensor, lam) -> torch.Tensor:
@@ -143,7 +198,7 @@ def _block_inv(diag: torch.Tensor, free: torch.Tensor, lam) -> torch.Tensor:
     d = diag * (1.0 + lam)
     eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
     d = torch.where(free[:, None, None], d + 1e-8 * eye, eye)
-    return torch.linalg.inv(d)
+    return _inv3(d)
 
 
 def _pcg(
@@ -153,8 +208,12 @@ def _pcg(
     rhs: torch.Tensor,
     num_iters: int,
     tol: float,
+    early_exit: bool,
 ) -> torch.Tensor:
-    """Block-Jacobi PCG for (H + lam D) x = rhs (bpcg/bpcg.h:178-330 role)."""
+    """Block-Jacobi PCG for (H + lam D) x = rhs (bpcg/bpcg.h:178-330 role):
+    ``num_iters`` masked iterations that freeze once the residual is
+    below ``tol`` of the right-hand side's; with ``early_exit`` the loop
+    reads ``done`` and stops there instead."""
     minv = _block_inv(sys.diag, sys.free, lam)
     rhs = torch.where(sys.free[:, None], rhs, 0.0)
     x = torch.zeros_like(rhs)
@@ -163,17 +222,23 @@ def _pcg(
     p = z
     rz = torch.sum(r * z)
     stop = tol * tol * torch.sum(rhs * rhs)
+    done = torch.zeros((), dtype=torch.bool, device=rhs.device)
     for _ in range(num_iters):
         hp = _hvp(graph, sys, lam, p)
         alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
-        x = x + alpha * p
-        r = r - alpha * hp
-        z = torch.einsum("nab,nb->na", minv, r)
-        rzn = torch.sum(r * z)
+        xn = x + alpha * p
+        rn = r - alpha * hp
+        zn = torch.einsum("nab,nb->na", minv, rn)
+        rzn = torch.sum(rn * zn)
         beta = rzn / torch.clamp_min(rz, 1e-30)
-        p = z + beta * p
-        rz = rzn
-        if bool(torch.sum(r * r) < stop):
+        pn = zn + beta * p
+        new_done = done | (torch.sum(rn * rn) < stop)
+        x = torch.where(done, x, xn)
+        r = torch.where(done, r, rn)
+        p = torch.where(done, p, pn)
+        rz = torch.where(done, rz, rzn)
+        done = new_done
+        if early_exit and bool(done):
             break
     return x
 
@@ -181,8 +246,167 @@ def _pcg(
 class SolveStats(NamedTuple):
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
-    good_iters: int  # accepted LM steps
+    good_iters: torch.Tensor  # [] int32 — accepted LM steps
     final_lambda: torch.Tensor
+
+
+class _LmState(NamedTuple):
+    poses: torch.Tensor  # [N, 3]
+    cost: torch.Tensor  # []
+    lam: torch.Tensor  # []
+    laminc: torch.Tensor  # []
+    good: torch.Tensor  # [] int32
+    done: torch.Tensor  # [] bool
+
+
+def _init_state(graph: PoseGraph, init_lambda: float) -> _LmState:
+    poses = graph.poses
+    return _LmState(
+        poses=poses,
+        cost=cost(graph, poses),
+        lam=torch.full((), init_lambda, dtype=poses.dtype, device=poses.device),
+        laminc=torch.full((), 2.0, dtype=poses.dtype, device=poses.device),
+        good=torch.zeros((), dtype=torch.int32, device=poses.device),
+        done=torch.zeros((), dtype=torch.bool, device=poses.device),
+    )
+
+
+def _lm_step(
+    graph: PoseGraph,
+    st: _LmState,
+    n_fixed: int,
+    cg_iters: int,
+    cg_tol: float,
+    gauss_newton: bool,
+    early_exit: bool,
+) -> _LmState:
+    """One masked LM iteration (doSPA's loop body, spa2d.cpp:425-609):
+    every update is ``torch.where``-selected and frozen once ``done``."""
+    sys = _build_system(graph, st.poses, n_fixed)
+    dx = _pcg(graph, sys, st.lam, -sys.g, cg_iters, cg_tol, early_exit)
+    converged = torch.sum(dx * dx) < 1e-16
+    new_poses = st.poses + dx
+    new_poses = torch.cat(
+        [new_poses[:, :2], se2.wrap_angle(new_poses[:, 2:3])], dim=1
+    )
+    new_cost = cost(graph, new_poses)
+    if gauss_newton:  # every step taken, no damping schedule
+        accept = torch.ones((), dtype=torch.bool, device=st.done.device)
+        lam_n, laminc_n = st.lam, st.laminc
+    else:
+        accept = new_cost < st.cost
+        lam_n = torch.where(accept, st.lam * 0.5, st.lam * st.laminc)
+        laminc_n = torch.where(accept, st.laminc, st.laminc * 2.0)
+    poses_n = torch.where(accept, new_poses, st.poses)
+    cost_n = torch.where(accept, new_cost, st.cost)
+    good_n = st.good + accept.to(torch.int32)
+    done = st.done
+    return _LmState(
+        poses=torch.where(done, st.poses, poses_n),
+        cost=torch.where(done, st.cost, cost_n),
+        lam=torch.where(done, st.lam, lam_n),
+        laminc=torch.where(done, st.laminc, laminc_n),
+        good=torch.where(done, st.good, good_n),
+        done=done | converged,
+    )
+
+
+def _solve(
+    graph: PoseGraph,
+    num_iters: int,
+    n_fixed: int,
+    cg_iters: int,
+    cg_tol: float,
+    init_lambda: float,
+    gauss_newton: bool,
+    early_exit: bool,
+) -> tuple[torch.Tensor, SolveStats]:
+    """The LM loop run eagerly on the graph's device; ``early_exit`` reads
+    the ``done`` flags and stops at them (the CPU's form), otherwise every
+    iteration runs, masked, with no host read."""
+    st = _init_state(graph, init_lambda)
+    cost0 = st.cost
+    for _ in range(num_iters):
+        st = _lm_step(graph, st, n_fixed, cg_iters, cg_tol, gauss_newton,
+                      early_exit)
+        if early_exit and bool(st.done):
+            break
+    return st.poses, SolveStats(cost0, st.cost, st.good, st.lam)
+
+
+def _pow2(n: int, floor: int) -> int:
+    return max(floor, 1 << max(0, (max(n, 1) - 1).bit_length()))
+
+
+class _CudaSolve:
+    """One LM iteration as a CUDA graph over static, padded buffers.
+
+    The bucket is (nodes, edges, node width) padded to powers of two with
+    masks, at least 256 nodes and 512 edges as the reference's
+    ``graph_from_edges`` pads; padded nodes have no edge ends and padded
+    edges no mask, so they change no value.  A solve copies its graph into
+    the buffers, sets the LM state and replays the graph ``num_iters``
+    times; the captured iteration writes its new state over the old."""
+
+    def __init__(self, cap_n, cap_e, width, device, n_fixed, cg_iters,
+                 cg_tol, gauss_newton):
+        f32 = dict(dtype=torch.float32, device=device)
+        self.graph = PoseGraph(
+            poses=torch.zeros((cap_n, 3), **f32),
+            node_mask=torch.zeros(cap_n, dtype=torch.bool, device=device),
+            edge_i=torch.zeros(cap_e, dtype=torch.int64, device=device),
+            edge_j=torch.zeros(cap_e, dtype=torch.int64, device=device),
+            measurements=torch.zeros((cap_e, 3), **f32),
+            precisions=torch.zeros((cap_e, 3, 3), **f32),
+            edge_mask=torch.zeros(cap_e, dtype=torch.bool, device=device),
+            node_edges=torch.zeros((cap_n, width), dtype=torch.int64,
+                                   device=device),
+        )
+        self.state = _init_state(self.graph, 0.0)
+        args = (n_fixed, cg_iters, cg_tol, gauss_newton, False)
+
+        def step():
+            new = _lm_step(self.graph, self.state, *args)
+            for buf, val in zip(self.state, new):
+                buf.copy_(val)
+
+        # warm up on a side stream, then capture (torch.cuda.graphs)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.cuda_graph):
+            step()
+        REPLAYS["captures"] += 1
+
+    def run(self, graph: PoseGraph, num_iters: int, init_lambda: float):
+        """Copy ``graph`` in, replay; returns (poses [n, 3], stats)."""
+        for buf, src in zip(self.graph, graph):
+            k = src.shape[0]
+            buf[:k].copy_(src)
+            buf[k:].zero_()
+        n = graph.poses.shape[0]
+        st = self.state
+        st.poses.copy_(self.graph.poses)
+        st.cost.copy_(cost(self.graph, self.graph.poses))
+        st.lam.fill_(init_lambda)
+        st.laminc.fill_(2.0)
+        st.good.zero_()
+        st.done.zero_()
+        cost0 = st.cost.clone()
+        for _ in range(num_iters):
+            self.cuda_graph.replay()
+        REPLAYS["lm_step"] += num_iters
+        return st.poses[:n].clone(), SolveStats(
+            cost0, st.cost.clone(), st.good.clone(), st.lam.clone())
+
+
+# captured solves by (device, bucket, solver settings): a mapping session
+# meets a handful of buckets as its graph grows
+_CUDA_SOLVES: dict[tuple, _CudaSolve] = {}
 
 
 def optimize(
@@ -200,37 +424,19 @@ def optimize(
     ``gauss_newton=True`` applies every step unconditionally and keeps
     lambda at ``init_lambda`` (the g2o adapter's
     OptimizationAlgorithmGaussNewton, g2o_solver.cc:42-138), which can
-    diverge where LM's reject/escalate recovers."""
-    poses = graph.poses
-    cost0 = cost(graph, poses)
-    cur_cost = cost0
-    lam = torch.tensor(init_lambda, dtype=poses.dtype, device=poses.device)
-    laminc = 2.0
-    good = 0
-    for _ in range(num_iters):
-        sys = _build_system(graph, poses, n_fixed)
-        dx = _pcg(graph, sys, lam, -sys.g, cg_iters, cg_tol)
-        converged = bool(torch.sum(dx * dx) < 1e-16)
-        new_poses = poses + dx
-        new_poses = torch.cat(
-            [new_poses[:, :2], se2.wrap_angle(new_poses[:, 2:3])], dim=1
-        )
-        new_cost = cost(graph, new_poses)
-        accept = gauss_newton or bool(new_cost < cur_cost)
-        if accept:
-            poses, cur_cost = new_poses, new_cost
-            good += 1
-        if not gauss_newton:  # GN has no damping schedule
-            if accept:
-                lam = lam * 0.5
-            else:
-                lam = lam * laminc
-                laminc *= 2.0
-        if converged:
-            break
-    return poses, SolveStats(
-        initial_cost=cost0,
-        final_cost=cur_cost,
-        good_iters=good,
-        final_lambda=lam,
-    )
+    diverge where LM's reject/escalate recovers.
+
+    On a CUDA device the solve replays the captured LM iteration of the
+    graph's bucket and reads nothing back; on the CPU it runs eagerly and
+    stops at convergence."""
+    dev = graph.poses.device
+    if dev.type != "cuda":
+        return _solve(graph, num_iters, n_fixed, cg_iters, cg_tol,
+                      init_lambda, gauss_newton, early_exit=True)
+    n, e = graph.poses.shape[0], graph.edge_i.shape[0]
+    key = (str(dev), _pow2(n, 256), _pow2(e, 512), graph.node_edges.shape[1],
+           n_fixed, cg_iters, cg_tol, gauss_newton)
+    solve = _CUDA_SOLVES.get(key)
+    if solve is None:
+        solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:4], dev, *key[4:])
+    return solve.run(graph, num_iters, init_lambda)

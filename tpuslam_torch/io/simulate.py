@@ -3,7 +3,8 @@
 A NumPy-only copy of the functions of ``tpuslam/io/simulate.py`` that
 ``chip_smoke.py`` drives the port with: segment worlds and exact ray
 casting on the host in float64, so that a run on the card can be held
-against its ground-truth trajectory.  The port keeps its own copy so that
+against its ground-truth trajectory, and the lossy multi-loop garland
+stream of ``benchmarks/endurance.py``.  The port keeps its own copy so that
 neither it nor ``chip_smoke.py`` imports anything of the JAX package;
 ``tests/test_torch_io.py`` holds each function bit for bit against the
 original.
@@ -126,3 +127,118 @@ def circle_trajectory(
     y = radius * np.sin(s)
     th = np.arctan2(np.cos(s), -np.sin(s))
     return np.stack([x, y, th], axis=-1)
+
+
+def garland_trajectory(
+    centers: np.ndarray,
+    radius: float = 1.6,
+    step: float = 0.25,
+    rounds: int = 1,
+) -> np.ndarray:
+    """Poses [T, 3] for a multi-loop course: a full CCW lap around each
+    circle center in turn, joined by straight transits between the laps
+    (and, with ``rounds > 1``, back from the last circle to the first).
+
+    Every lap completion and every later revisit of an earlier circle is a
+    genuine karto loop-closure event: the path between leaves the
+    link-scan radius, so the revisited scans are spatially near but NOT
+    near-linked (FindNearLinkedScans' distance-gated BFS cannot reach them,
+    Mapper.cpp:1290-1305) — unlike a single circled lap, where everything
+    after the first closure stays near-linked and closes exactly once.
+    ``step`` is the along-path spacing in meters (laps and transits)."""
+    centers = np.asarray(centers, dtype=np.float64)
+    poses: list[np.ndarray] = []
+
+    def lap(c):
+        # enter at the bottom of the circle heading east, go CCW
+        n = max(8, int(round(2.0 * np.pi * radius / step)))
+        s = -np.pi / 2 + np.linspace(0.0, 2.0 * np.pi, n, endpoint=False)
+        x = c[0] + radius * np.cos(s)
+        y = c[1] + radius * np.sin(s)
+        th = np.arctan2(np.cos(s), -np.sin(s))
+        poses.extend(np.stack([x, y, th], axis=-1))
+
+    def transit(a, b):
+        # straight drive between the two lap entry points
+        p0 = np.array([a[0], a[1] - radius])
+        p1 = np.array([b[0], b[1] - radius])
+        d = p1 - p0
+        dist = float(np.hypot(*d))
+        if dist < 1e-9:
+            return
+        th = float(np.arctan2(d[1], d[0]))
+        n = max(1, int(round(dist / step)))
+        for k in range(1, n):
+            p = p0 + d * (k / n)
+            poses.append(np.array([p[0], p[1], th]))
+
+    for r in range(rounds):
+        for i, c in enumerate(centers):
+            if poses:
+                prev = centers[i - 1] if i else centers[-1]
+                transit(prev, c)
+            lap(c)
+    return np.stack(poses)
+
+
+def lossy_garland_stream(
+    num_scans: int = 1536,
+    num_beams: int = 120,
+    seed: int = 11,
+    dropout: float = 0.15,
+    step: float = 0.25,
+    max_range: float = 30.0,
+):
+    """Long lossy multi-loop stream for endurance differential runs.
+
+    Repeats the garland course (three circles in a boxes world — the
+    realistic-bench fixture, every lap completion/revisit a genuine karto
+    loop-closure event) for as many rounds as ``num_scans`` needs, with
+    the stress profile of test_pipeline_parity_lossy_loop_closure:
+    ``dropout`` NaN beams per scan and gaussian odometry noise integrated
+    in the odom frame.  Both engines in a differential run must consume
+    the IDENTICAL metas/odoms, so the losses are baked into the returned
+    ranges rather than applied by the caller.
+
+    Returns ``(trues, metas, odoms, world)`` — ground-truth poses [T,3],
+    per-scan ``(ranges, angle_min, angle_increment)``, noisy odometry
+    poses [T,3] (as a list), and the world segments.
+    """
+    import math
+
+    rng = np.random.default_rng(seed)
+    world = world_with_boxes(20.0, 14.0)
+    centers = [(-5.5, -3.0), (0.0, -3.0), (5.5, -3.0)]
+    per_round = len(garland_trajectory(centers, radius=1.6, step=step,
+                                       rounds=1))
+    rounds = max(1, -(-num_scans // per_round))
+    course = garland_trajectory(centers, radius=1.6, step=step,
+                                rounds=rounds)[:num_scans]
+
+    metas, odoms, trues = [], [], []
+    odom = course[0].copy()
+    for i, true in enumerate(course):
+        r, amin, ainc = simulate_scan(world, true, num_beams=num_beams,
+                                      max_range=max_range)
+        r = r.copy()
+        r[rng.random(num_beams) < dropout] = np.nan
+        metas.append((r, amin, ainc))
+        odoms.append(odom.copy())
+        trues.append(true.copy())
+        if i + 1 < len(course):
+            prev, nxt = course[i], course[i + 1]
+            c, s = math.cos(prev[2]), math.sin(prev[2])
+            d = nxt[:2] - prev[:2]
+            rel = np.array([
+                c * d[0] + s * d[1],
+                -s * d[0] + c * d[1],
+                math.atan2(math.sin(nxt[2] - prev[2]),
+                           math.cos(nxt[2] - prev[2])),
+            ])
+            n = rel + rng.normal(0, [0.01, 0.01, 0.005])
+            c, s = math.cos(odom[2]), math.sin(odom[2])
+            odom = np.array([odom[0] + c * n[0] - s * n[1],
+                             odom[1] + s * n[0] + c * n[1],
+                             math.atan2(math.sin(odom[2] + n[2]),
+                                        math.cos(odom[2] + n[2]))])
+    return np.stack(trues), metas, odoms, world

@@ -23,7 +23,9 @@ response surfaces are summed patches of the x100 integer grid
 version on the CPU.  ``match_scan`` quantizes the correlation grid to that
 byte grid once and hands it to every response pass.  Data-dependent
 branches the JAX code runs under ``lax.cond`` (the stride-2 uniformity
-guard, response expansion) read one scalar back to the host here.
+guard, response expansion) read one scalar back to the host here; a match
+with neither (expansion off, patches under 40 cells a side) reads
+nothing.
 """
 
 from __future__ import annotations
@@ -131,8 +133,21 @@ class CorrelativeResult(NamedTuple):
     covariance: torch.Tensor  # [3, 3]
 
 
+# a matcher's f32 constants (candidate offsets and angles) by device and
+# value: a handful a spec
+_CONSTS: dict[tuple, torch.Tensor] = {}
+
+
 def _f32(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    """The constant ``a`` as f32 on ``device``, uploaded on first use only:
+    a blocking host-to-device copy in every match would make each dispatch
+    wait on the device."""
+    a = np.ascontiguousarray(a, np.float32)
+    key = (str(device), a.shape, a.tobytes())
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, device=device)
+    return t
 
 
 def _cell(x: torch.Tensor, res: float) -> torch.Tensor:

@@ -25,14 +25,22 @@ Mapper::Process step by step (Mapper.cpp:1999-2079):
    response and variance, fine sequential-grid match, LinkChainToScan,
    CorrectPoses.
 
+Offline, ``process_batch`` issues the device side of a flush of scans
+back to back with no host read (sequentially chained, or in parallel from
+odometry-chained predictions, optionally pipelined over several flushes)
+and settles the host bookkeeping after one fetch a flush;
+``occupancy_grid`` exports the map (CreateFromScans).
+
 Float32 on the device, float64 in the host bookkeeping, exactly where the
-JAX package has them.  ``process_batch``, the flush pipelines, the loop
-and batch meshes and ``occupancy_grid`` are not ported yet.
+JAX package has them.  The loop and batch meshes are not ported.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 import math
 import time
 from typing import NamedTuple
@@ -42,10 +50,15 @@ import torch
 
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import KartoConfig
+from tpuslam_torch.core.grid import GridSpec
 from tpuslam_torch.core.scan import Scan, scan_to_points
 from tpuslam_torch.graph.backends import graph_from_edges, make_solver
 from tpuslam_torch.match.correlative import CorrelativeSpec, match_scan
 from tpuslam_torch.ops import correlative as ops_correlative
+from tpuslam_torch.ops.counts import accumulate_scan, karto_export, zero_counts
+
+# occupancy_grid: ray steps (scans x beams x steps) traced at once
+_MAP_CHUNK = 1 << 23
 
 
 def _np_compose(a, b):
@@ -88,6 +101,25 @@ def _gather_match(
     )
 
 
+def _stage(pts_store, valid_store, sid, scan: Scan, max_range: float):
+    """Polar to cartesian, store write at row ``sid`` (in place; the JAX
+    version donates and returns the store) and the barycenter mean.
+
+    The matcher consumes the UNFILTERED readings (GetPointReadings(false),
+    Karto.h:5336-5355): every finite beam takes part in visibility, grid
+    stamping and the response.  Only the barycenter uses the
+    range-filtered set (Karto.h:5361-5427)."""
+    pts, valid = scan_to_points(scan)
+    valid = valid & (scan.ranges > 0.0)
+    filtered = valid & (scan.ranges <= max_range)
+    pts_store[sid] = pts
+    valid_store[sid] = valid
+    mean_local = torch.sum(
+        torch.where(filtered[..., None], pts, 0.0), dim=-2
+    ) / torch.clamp_min(torch.sum(filtered, dim=-1), 1)[..., None]
+    return pts, valid, mean_local
+
+
 def _fused_seq_step(
     spec: CorrelativeSpec,
     pts_store: torch.Tensor,  # [M, B, 2], written in place at row sid
@@ -100,22 +132,11 @@ def _fused_seq_step(
     max_range: float,
     do_match: bool,
 ):
-    """The per-scan device side of Mapper::Process: polar to cartesian,
-    store write, barycenter mean, running-chain match (Mapper.cpp:2037-2045).
-
-    The matcher consumes the UNFILTERED readings (GetPointReadings(false),
-    Karto.h:5336-5355): every finite beam takes part in visibility, grid
-    stamping and the response.  Only the barycenter uses the
-    range-filtered set (Karto.h:5361-5427).  The store is updated in place
-    (the JAX version donates and returns it)."""
-    pts, valid = scan_to_points(scan)
-    valid = valid & (scan.ranges > 0.0)
-    filtered = valid & (scan.ranges <= max_range)
-    pts_store[sid] = pts
-    valid_store[sid] = valid
-    mean_local = torch.sum(
-        torch.where(filtered[:, None], pts, 0.0), dim=0
-    ) / torch.clamp_min(torch.sum(filtered), 1)
+    """The per-scan device side of Mapper::Process: the store write and
+    barycenter (:func:`_stage`), then the running-chain match
+    (Mapper.cpp:2037-2045)."""
+    pts, valid, mean_local = _stage(pts_store, valid_store, sid, scan,
+                                    max_range)
     if not do_match:
         return mean_local, None
     res = _gather_match(
@@ -123,6 +144,137 @@ def _fused_seq_step(
         valid, penalize=True, refine=True,
     )
     return mean_local, res
+
+
+def _pack(res, mean_local) -> torch.Tensor:
+    """[15] f32: pose 3, response 1, covariance 9, barycenter mean 2 (one
+    row of a flush's output, fetched as one block)."""
+    return torch.cat([res.pose, res.response[None], res.covariance.reshape(9),
+                      mean_local])
+
+
+def _fused_batch_steps(
+    spec: CorrelativeSpec,
+    pts_store: torch.Tensor,  # [M, B, 2], written in place
+    valid_store: torch.Tensor,  # [M, B], written in place
+    poses_store: torch.Tensor,  # [M, 3] matched poses, written in place
+    sid0: int,  # state id of the first scan of the flush
+    scans: list[Scan],  # K scans
+    deltas: torch.Tensor,  # [K, 3] odometry increments
+    chains: list[torch.Tensor],  # K running-chain id tensors
+    start_pose: torch.Tensor,  # [3] pose of the scan before the flush
+    max_range: float,
+) -> torch.Tensor:
+    """K sequential Mapper::Process device steps issued back to back, with
+    no host read: [K, 15] packed outputs (:func:`_pack`).
+
+    Each prediction is ``prev_matched ∘ delta_k`` (the odometry carry,
+    Mapper.cpp:2021-2025), prev_matched the previous scan's MATCHED pose:
+    within a flush the host's weighted-mean fusion is deferred to the flush
+    boundary.  Each match writes its pose into ``poses_store``, from which
+    the later scans' chains take theirs."""
+    prev = start_pose
+    rows = []
+    for k, scan in enumerate(scans):
+        sid = sid0 + k
+        pts, valid, mean_local = _stage(pts_store, valid_store, sid, scan,
+                                        max_range)
+        center = se2.compose(prev, deltas[k])
+        res = _gather_match(
+            spec, pts_store, valid_store, chains[k], poses_store[chains[k]],
+            center, pts, valid, penalize=True, refine=True,
+        )
+        poses_store[sid] = res.pose
+        prev = res.pose
+        rows.append(_pack(res, mean_local))
+    return torch.stack(rows)
+
+
+def _parallel_steps(
+    spec: CorrelativeSpec,
+    pts_store: torch.Tensor,  # [M, B, 2], written in place
+    valid_store: torch.Tensor,  # [M, B], written in place
+    sid0: int,
+    scans: list[Scan],  # K scans
+    centers: torch.Tensor,  # [K, 3] odometry-chained predictions
+    chains: list[torch.Tensor],  # K running-chain id tensors
+    chain_poses: list[torch.Tensor],  # K [n_k, 3] chain poses
+    max_range: float,
+) -> torch.Tensor:
+    """Throughput mode: every prediction and every in-flush chain pose
+    comes from the odometry carry alone (host-computed), so the K matches
+    are independent; all K scans are staged, then the K matches issued
+    back to back.  [K, 15] packed outputs."""
+    k = len(scans)
+    batch = Scan(*(torch.stack(t) for t in zip(*scans)))
+    _, _, mean_local = _stage(pts_store, valid_store, slice(sid0, sid0 + k),
+                              batch, max_range)
+    rows = []
+    for j in range(k):
+        sid = sid0 + j
+        res = _gather_match(
+            spec, pts_store, valid_store, chains[j], chain_poses[j],
+            centers[j], pts_store[sid], valid_store[sid], penalize=True,
+            refine=True,
+        )
+        rows.append(_pack(res, mean_local[j]))
+    return torch.stack(rows)
+
+
+class _Fetch(NamedTuple):
+    """Device outputs whose copy to the host has started: ``host`` are
+    pinned tensors, complete once ``event`` has passed (None on the CPU,
+    where the outputs are the host's already)."""
+
+    host: list[torch.Tensor]
+    event: object
+
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("cosf", "sinf"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
+    return lib
+
+
+def _cos_sin_f32(theta: np.ndarray) -> np.ndarray:
+    """[n, 2] f32 (cos, sin) of f32 headings from the C library's cosf and
+    sinf: the values the jitted JAX package takes on the CPU (XLA calls
+    them there), so that the map export can match it bit for bit."""
+    lib = _libm()
+    return np.array([(lib.cosf(float(t)), lib.sinf(float(t)))
+                     for t in np.asarray(theta, np.float32)],
+                    np.float32).reshape(-1, 2)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a*b + c`` rounded once, as an FMA: the product is exact in
+    f64, so only a double rounding at an exact f32 tie could differ."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _clipped_endpoints(pts: torch.Tensor, pose: torch.Tensor, thr: float):
+    """Ranges ``|pts|`` and world endpoints of sensor-frame points [k, B, 2]
+    at poses [k, 1, 4] (x, y, cos, sin), over-threshold points clipped to
+    the threshold ray point (Karto.h:5866-5888).  Rounded as jitted XLA
+    rounds ``jnp.linalg.norm`` and ``se2.transform_points`` on the CPU:
+    ``sqrt(fma(y, y, x*x))``, ``fma(c, x, -(s*y)) + px`` and
+    ``fma(s, x, c*y) + py``."""
+    x, y = pts[..., 0], pts[..., 1]
+    # the f32 square root correctly rounded, through f64 (PyTorch's
+    # vectorised f32 sqrt on the CPU is not)
+    r = torch.sqrt(_fma(y, y, x * x).double()).float()
+    # thr / r as one division (a Python scalar over a tensor would take
+    # the reciprocal and multiply)
+    scale = torch.where(
+        r > thr, torch.full_like(r, thr) / r.clamp_min(1e-9), 1.0)
+    xs, ys = x * scale, y * scale
+    c, s = pose[..., 2], pose[..., 3]
+    wx = _fma(c, xs, -(s * ys)) + pose[..., 0]
+    wy = _fma(s, xs, c * ys) + pose[..., 1]
+    return r, torch.stack([wx, wy], -1)
 
 
 class ProcessResult(NamedTuple):
@@ -139,6 +291,21 @@ class _ScanRecord:
     time: float
     mean_local: np.ndarray  # [2] mean of valid local points (barycenter)
     sensor: str = "laser0"
+
+
+@dataclasses.dataclass
+class _BatchRun:
+    """One ``process_batch`` call: its inputs, results and the flushes in
+    flight (oldest first)."""
+
+    scans: list
+    odom_poses: list
+    times: list
+    sensor: str
+    parallel: bool
+    spec: CorrelativeSpec  # the flush spec: expansion off
+    results: list
+    inflight: list
 
 
 def _spec(cfg: KartoConfig, resolution, search_dim, smear) -> CorrelativeSpec:
@@ -203,6 +370,9 @@ class KartoMapper:
                                 device=self.device)
         self._valid = torch.zeros((max_scans, b), dtype=torch.bool,
                                   device=self.device)
+        # device-resident matched-pose store, refreshed by every sequential
+        # flush (carries in-flight poses across pipelined flushes)
+        self._poses_dev = None
         # host-side metadata; scan ids are global, windows are per sensor
         self.records: list[_ScanRecord] = []
         self.poses = np.zeros((max_scans, 3))  # corrected sensor poses
@@ -217,7 +387,7 @@ class KartoMapper:
             "near_chain_links": 0,  # accepted LinkNearChains matches
             "pose_fusions": 0,  # ComputeWeightedMean writebacks
             "loop_closures": 0,
-            "expansion_retries": 0,  # batch-mode retries (batch not ported)
+            "expansion_retries": 0,  # batch-mode response-expansion retries
             # every device->host fetch goes through _get
             "fetch_count": 0,
             "fetch_seconds": 0.0,
@@ -289,12 +459,41 @@ class KartoMapper:
         """Device->host copy with wall-time accounting: every match result
         of the mapper is fetched through here, so
         ``stats['fetch_count'/'fetch_seconds']`` record how often and how
-        long the host waited on the device."""
+        long the host waited on the device.  ``tensors`` is a list of
+        tensors, or a :class:`_Fetch` whose copy started earlier (then the
+        wait is for its event)."""
         t0 = time.perf_counter()
-        out = [t.cpu() for t in tensors]
+        if isinstance(tensors, _Fetch):
+            if tensors.event is not None:
+                tensors.event.synchronize()
+            out = list(tensors.host)
+        else:
+            out = [t.cpu() for t in tensors]
         self.stats["fetch_seconds"] += time.perf_counter() - t0
         self.stats["fetch_count"] += 1
         return out
+
+    def _start_fetch(self, tensors) -> _Fetch:
+        """Start the copy of ``tensors`` into pinned host memory, followed
+        by an event; :meth:`_get` waits on it.  Reads nothing now."""
+        if self.device.type != "cuda":
+            return _Fetch(list(tensors), None)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return _Fetch(host, event)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without blocking the host: staged in
+        pinned memory and copied asynchronously (a copy from pageable
+        memory waits for the device)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _match_async(
         self, spec, sid: int, center: np.ndarray, chain: list[int],
@@ -528,6 +727,53 @@ class KartoMapper:
             time, sensor, running, last_id,
         )
 
+    def _near_chains(self, sid: int) -> list[list[int]]:
+        """LinkNearChains' candidates (Mapper.cpp:965): the near chains of
+        sid long enough to match; chains containing sid are invalid."""
+        return [c for c in self._find_near_chains(sid)
+                if len(c) >= self.cfg.loop_match_minimum_chain_size]
+
+    def _match_near_chains(self, sid: int, chains: list[list[int]]):
+        """Each chain's unpenalized match centred on sid's pose: all share
+        the centre (fusion applies after them), so they are queued and
+        settled with ONE fetch."""
+        return self._fetch_matches([
+            self._match_async(self.seq_spec, sid, self.poses[sid], c,
+                              penalize=False, refine=True)
+            for c in chains
+        ])
+
+    def _link_near_chains(self, sid, chains, fetched, means, covs) -> None:
+        """The near-chain links whose match passes the response gate, then
+        the multi-match fusion of ``means``/``covs`` with theirs
+        (ComputeWeightedMean, Mapper.cpp:965-972)."""
+        for chain, (mean_c, resp_c, cov_c) in zip(chains, fetched):
+            if resp_c > self.cfg.link_match_minimum_response_fine - 1e-9:
+                means.append(mean_c)
+                covs.append(cov_c)
+                self._link_chain_to_scan(chain, sid, mean_c, cov_c)
+                self.stats["near_chain_links"] += 1
+        if means:
+            self.poses[sid] = self._weighted_mean(means, covs)
+            self.stats["pose_fusions"] += 1
+
+    def _add_running(self, running: list[int], sid: int) -> None:
+        """Running window maintenance (AddRunningScan, Mapper.h:1356-1385):
+        cap by count, then by the span between the first and last
+        barycenters."""
+        cfg = self.cfg
+        running.append(sid)
+        while len(running) > cfg.scan_buffer_size:
+            running.pop(0)
+        while running and (
+            np.sum(
+                (self._barycenter(running[0]) - self._barycenter(running[-1]))
+                ** 2
+            )
+            > cfg.scan_buffer_maximum_scan_distance**2
+        ):
+            running.pop(0)
+
     def _finish_scan(
         self, sid, corrected, response, cov, mean_local, odom_pose, time,
         sensor, running, last_id,
@@ -573,49 +819,13 @@ class KartoMapper:
                         means.append(mean_o)
                         covs.append(cov_o)
 
-            # near chains, unconditionally (LinkNearChains, Mapper.cpp:965;
-            # chains containing sid are invalid, the match is unpenalized)
-            # All chains share the centre pose (fusion applies after the
-            # loop): queue them all and settle them with ONE fetch
-            chains = [
-                c for c in self._find_near_chains(sid)
-                if len(c) >= cfg.loop_match_minimum_chain_size
-            ]
-            ress = [
-                self._match_async(
-                    self.seq_spec, sid, self.poses[sid], c,
-                    penalize=False, refine=True,
-                )
-                for c in chains
-            ]
-            for chain, (mean_c, resp_c, cov_c) in zip(
-                chains, self._fetch_matches(ress)
-            ):
-                if resp_c > cfg.link_match_minimum_response_fine - 1e-9:
-                    means.append(mean_c)
-                    covs.append(cov_c)
-                    self._link_chain_to_scan(chain, sid, mean_c, cov_c)
-                    self.stats["near_chain_links"] += 1
-            # multi-match fusion (ComputeWeightedMean, Mapper.cpp:969-972)
-            if means:
-                self.poses[sid] = self._weighted_mean(means, covs)
-                self.stats["pose_fusions"] += 1
-
-            # 5. running window maintenance (Mapper.h:1356-1385)
-            running.append(sid)
-            while len(running) > cfg.scan_buffer_size:
-                running.pop(0)
-            while running and (
-                np.sum(
-                    (
-                        self._barycenter(running[0])
-                        - self._barycenter(running[-1])
-                    )
-                    ** 2
-                )
-                > cfg.scan_buffer_maximum_scan_distance**2
-            ):
-                running.pop(0)
+            # near chains, unconditionally (LinkNearChains, Mapper.cpp:965)
+            chains = self._near_chains(sid)
+            self._link_near_chains(sid, chains,
+                                   self._match_near_chains(sid, chains),
+                                   means, covs)
+            # 5. running window maintenance
+            self._add_running(running, sid)
 
             # 6. loop closure, against every sensor's history
             # (Mapper::Process loops device names, Mapper.cpp:2063-2070)
@@ -625,6 +835,400 @@ class KartoMapper:
 
         self.last_by_sensor[sensor] = sid
         return ProcessResult(True, self.poses[sid].copy(), response, loop_closed)
+
+    # ------------------------------------------- flush-phased finishing
+    # The batch path splits _finish_scan into stage (record + immediate
+    # edges + near-chain discovery + window maintenance), one flush-wide
+    # LinkNearChains fetch, and settle (link application + fusion + loop
+    # closure).  The per-scan :meth:`process` keeps the reference's exact
+    # ordering in :meth:`_finish_scan`.
+
+    def _stage_scan(
+        self, sid, corrected, response, cov, mean_local, odom_pose, time,
+        sensor, running, last_id,
+    ) -> dict:
+        """Phase A of the flush finish: everything in _finish_scan that
+        does not depend on this scan's near-chain match results."""
+        cfg = self.cfg
+        self.poses[sid] = corrected
+        self.mean_locals[sid] = mean_local
+        self.records.append(
+            _ScanRecord(sid, odom_pose, time, mean_local, sensor)
+        )
+        self.sensor_scans.setdefault(sensor, []).append(sid)
+        means, covs = [], []
+        chains: list[list[int]] = []
+        if cfg.use_scan_matching:
+            # process_batch routes a sensor's first scan through process,
+            # so last_id is always set here
+            self._add_edge(last_id, sid, corrected, cov)
+            means.append(corrected.copy())
+            covs.append(cov)
+            self._link_chain_to_scan(running, sid, corrected, cov)
+            chains = self._near_chains(sid)
+            # window maintenance at stage time (before fusion): the span
+            # rule sees sid's raw matched barycenter rather than the fused
+            # one, a mm-scale input to an eviction threshold
+            self._add_running(running, sid)
+        self.last_by_sensor[sensor] = sid
+        return {
+            "sid": sid, "sensor": sensor, "center": self.poses[sid].copy(),
+            "means": means, "covs": covs, "chains": chains,
+            "response": response,
+        }
+
+    def _match_chains_flush(self, staged: list[dict]) -> dict[int, list]:
+        """Phase B: every near-chain match of a flush queued on the device,
+        then ONE fetch.  Returns {sid: [(pose, response, cov), ...] aligned
+        with staged[...]["chains"]}.  These matches use the sequential spec
+        as configured: with response expansion on, each reads its coarse
+        response once (the reference's semantics)."""
+        pairs = [(st, c) for st in staged for c in st["chains"]]
+        if not pairs:
+            return {}
+        ress = [
+            self._match_async(self.seq_spec, st["sid"], st["center"], c,
+                              penalize=False, refine=True)
+            for st, c in pairs
+        ]
+        out: dict[int, list] = {}
+        for (st, _), f in zip(pairs, self._fetch_matches(ress)):
+            out.setdefault(st["sid"], []).append(f)
+        return out
+
+    def _settle_scan(self, st: dict, fetched: list | None) -> bool:
+        """Phase C: near-chain link application + weighted-mean fusion +
+        loop closure for one staged scan.
+
+        Chains are re-discovered here: earlier scans of the same flush have
+        applied their near-chain link edges by now, and _find_near_chains
+        seeds from the distance-gated edge BFS (FindNearLinkedScans,
+        Mapper.cpp:1290-1305), so the stage-time chain set is thinner.  A
+        re-discovered chain equal to a staged one reuses the flush's match
+        (its centre only moved by same-flush fusion); new or changed chains
+        match now.  ``fetched=None`` re-matches every chain: used after an
+        earlier loop closure of the flush corrected the poses the flush's
+        matches were centred on (per-scan semantics for the rest of the
+        flush)."""
+        cfg = self.cfg
+        sid = st["sid"]
+        chains = self._near_chains(sid)
+        if fetched is None:
+            fetched = self._match_near_chains(sid, chains)
+        else:
+            by_chain = {tuple(c): f for c, f in zip(st["chains"], fetched)}
+            miss = [c for c in chains if tuple(c) not in by_chain]
+            by_chain.update(zip(map(tuple, miss),
+                                self._match_near_chains(sid, miss)))
+            fetched = [by_chain[tuple(c)] for c in chains]
+        self._link_near_chains(sid, chains, fetched, st["means"], st["covs"])
+        loop_closed = False
+        if cfg.use_scan_matching and cfg.do_loop_closing:
+            for sname in self.sensor_scans:
+                loop_closed |= self._try_close_loop(sid, sname)
+        return loop_closed
+
+    # --------------------------------------------------------- batch process
+    def _dispatch_flush(self, run: "_BatchRun", pend: list[int]) -> dict:
+        """Build a flush's inputs on the host and issue its device program,
+        with no host read: the inputs go up through pinned memory, the
+        outputs start their copy down (:meth:`_start_fetch`)."""
+        cfg = self.cfg
+        k = len(pend)
+        inflight = run.inflight
+        # sids continue past the in-flight flushes (records not yet added)
+        sid0 = self._num() + sum(len(r["pending"]) for r in inflight)
+        cap = cfg.scan_buffer_size
+        running = self.running_by_sensor.setdefault(run.sensor, [])
+        if inflight:
+            prev_odom = inflight[-1]["odom_last"]
+        else:
+            prev_odom = self.records[self.last_by_sensor[run.sensor]].odom_pose
+        deltas = np.zeros((k, 3), np.float32)
+        for j, i in enumerate(pend):
+            deltas[j] = _np_relative(prev_odom, run.odom_poses[i])
+            prev_odom = run.odom_poses[i]
+
+        # odometry-chained predictions of this flush's poses: they stand in
+        # for the matches not yet on the host in the span rule below, and
+        # for this flush in the next dispatch while it is in flight
+        if inflight:
+            prev_pose = inflight[-1]["pred_poses"][-1]
+            pred_prior = {}
+            for r in inflight:
+                pred_prior.update(zip(r["sids"], r["pred_poses"]))
+        else:
+            prev_pose = np.asarray(
+                self.poses[self.last_by_sensor[run.sensor]], np.float64
+            )
+            pred_prior = {}
+        pred_poses = []
+        for j in range(k):
+            prev_pose = _np_compose(prev_pose, deltas[j])
+            pred_poses.append(prev_pose.copy())
+
+        def _pos(s: int) -> np.ndarray:
+            """Barycenter of scan s: exact for finished scans, the
+            predicted sensor position for in-flight and in-flush ones."""
+            if s in pred_prior:
+                return pred_prior[s][:2]
+            if s >= sid0:
+                return pred_poses[s - sid0][:2]
+            return self._barycenter(s)
+
+        # the running window (AddRunningScan, Mapper.h:1356-1385) each
+        # scan of the flush matches against: count cap and span rule, the
+        # span on predicted positions for scans not yet finished
+        max_span2 = cfg.scan_buffer_maximum_scan_distance**2
+
+        def _sim_add(sim: list[int], sid: int) -> None:
+            sim.append(sid)
+            while len(sim) > cap:
+                sim.pop(0)
+            while sim and float(
+                np.sum((_pos(sim[0]) - _pos(sim[-1])) ** 2)
+            ) > max_span2:
+                sim.pop(0)
+
+        sim = list(running)
+        for r in inflight:
+            for s in r["sids"]:
+                _sim_add(sim, s)
+        chains = []
+        for j in range(k):
+            chains.append(list(sim))
+            _sim_add(sim, sid0 + j)
+        offs = np.cumsum([0] + [len(c) for c in chains])
+        flat_ids = np.asarray(sum(chains, []), np.int64)
+        ids = self._upload(flat_ids)
+        chain_dev = [ids[offs[j]:offs[j + 1]] for j in range(k)]
+        scans = [run.scans[i].to(self.device) for i in pend]
+        if run.parallel:
+            centers = np.asarray(pred_poses, np.float32)
+            lookup = self.poses[: self.max_scans].astype(np.float32)
+            lookup[sid0: sid0 + k] = centers
+            f32 = self._upload(np.concatenate(
+                [centers.reshape(-1), lookup[flat_ids].reshape(-1)]))
+            cposes = f32[3 * k:].view(-1, 3)
+            out = _parallel_steps(
+                run.spec, self._pts, self._valid, sid0, scans,
+                f32[: 3 * k].view(k, 3), chain_dev,
+                [cposes[offs[j]:offs[j + 1]] for j in range(k)],
+                cfg.use_scan_range,
+            )
+        else:
+            m = self.max_scans
+            f32 = self._upload(np.concatenate([
+                self.poses[:m].astype(np.float32).reshape(-1),
+                deltas.reshape(-1),
+            ]))
+            poses_in = f32[: 3 * m].view(m, 3)
+            if inflight:
+                # the host poses lack the in-flight flushes' matches: take
+                # them from the device pose store (it holds every earlier
+                # flush's), and chain from the last of them
+                i = torch.arange(m, device=self.device)[:, None]
+                lo = inflight[0]["sid0"]
+                poses_in = torch.where((i >= lo) & (i < sid0),
+                                       self._poses_dev, poses_in)
+                start_pose = poses_in[sid0 - 1]
+            else:
+                start_pose = poses_in[self.last_by_sensor[run.sensor]]
+            self._poses_dev = poses_in
+            out = _fused_batch_steps(
+                run.spec, self._pts, self._valid, poses_in, sid0, scans,
+                f32[3 * m:].view(k, 3), chain_dev, start_pose,
+                cfg.use_scan_range,
+            )
+        return {
+            "pending": list(pend),
+            "sids": [sid0 + j for j in range(k)],
+            "sid0": sid0,
+            "odom_last": run.odom_poses[pend[-1]],
+            "pred_poses": pred_poses,
+            "deltas": deltas,
+            "chains": chains,
+            "running": running,
+            "fetch": self._start_fetch([out]),
+        }
+
+    def _finish_flush(self, run: "_BatchRun", rec: dict) -> None:
+        """Fetch a dispatched flush and settle it on the host: the
+        expansion retry, stage, the flush's near-chain matches, settle."""
+        (out,) = self._get(rec["fetch"])
+        out = out.numpy()
+        sid0 = rec["sid0"]
+        last_id = self.last_by_sensor[run.sensor]
+        staged: list[tuple[int, dict]] = []
+        for j, i in enumerate(rec["pending"]):
+            sid = sid0 + j
+            lid_j = last_id if j == 0 else sid - 1
+            pose_j = np.asarray(out[j, :3], np.float64)
+            resp_j = float(out[j, 3])
+            cov_j = np.asarray(out[j, 4:13], np.float64).reshape(3, 3)
+            if resp_j == 0.0 and self.seq_spec.use_response_expansion:
+                # the host-side response-expansion retry (Mapper.cpp:
+                # 242-272): the flush ran without expansion
+                center_j = _np_compose(self.poses[lid_j], rec["deltas"][j])
+                pose_j, resp_j, cov_j = self._match(
+                    self.seq_spec, sid, center_j, rec["chains"][j],
+                    penalize=True, refine=True,
+                )
+                self.stats["expansion_retries"] += 1
+            staged.append((i, self._stage_scan(
+                sid, pose_j, resp_j, cov_j, out[j, 13:15].copy(),
+                run.odom_poses[i], run.times[i], run.sensor, rec["running"],
+                lid_j,
+            )))
+        fetched = self._match_chains_flush([st for _, st in staged])
+        closed_in_flush = False
+        for i, st in staged:
+            # a loop closure earlier in this flush corrected the poses the
+            # flush's matches were centred on: re-match the rest per scan
+            lc = self._settle_scan(
+                st, None if closed_in_flush else fetched.get(st["sid"], [])
+            )
+            closed_in_flush |= lc
+            run.results[i] = ProcessResult(
+                True, self.poses[st["sid"]].copy(), st["response"], lc
+            )
+
+    def process_batch(
+        self,
+        scans: list[Scan],
+        odom_poses,
+        times=None,
+        sensor: str = "laser0",
+        batch_size: int = 16,
+        parallel: bool = False,
+        pipeline: bool | int = False,
+    ) -> list[ProcessResult]:
+        """Offline (bag-playback) processing: the device side of up to
+        ``batch_size`` consecutive scans is issued back to back with no
+        host read (:func:`_fused_batch_steps`), and the host settles the
+        flush after one fetch.
+
+        Semantics against scan-by-scan :meth:`process` (deltas bounded by
+        one flush, as in the JAX package):
+        - within a flush, the running chain a scan matches against applies
+          the count cap and the span rule (Mapper.h:1356-1385), the span
+          decided on odometry-predicted positions for scans whose matches
+          are not on the host yet; chain poses are the raw matched poses
+          (fusion and loop-closure corrections apply on the host after the
+          flush and take effect from the next one);
+        - gating (HasMovedEnough) is odometry/time-only, as the
+          reference's (Mapper.cpp:2087-2120), and exact per scan;
+        - response expansion (Mapper.cpp:242-272) is a host-side retry
+          after the flush: the flush runs without it, and a scan whose
+          coarse response comes back exactly 0 is matched again alone with
+          expansion on (``stats["expansion_retries"]`` counts these; the
+          flush's later predictions keep the pre-retry pose).
+
+        ``parallel=True``: the K matches of a flush take odometry-chained
+        centres and chain poses, so they are independent; they are issued
+        back to back with one fetch.  Valid while odometric drift over one
+        flush stays well inside the search window.
+
+        ``pipeline=True`` keeps one flush in flight, ``pipeline=N`` (an int
+        >= 2) N-1: a flush is dispatched before the previous one is
+        fetched, each dispatched flush's outputs start their copy to pinned
+        host memory at once, and the host settles a flush while the
+        device runs the next.  The next flush's chain poses for in-flight
+        scans come from the device pose store; host corrections land up to
+        N-1 flushes later.  Sequential mode only."""
+        cfg = self.cfg
+        n_in = len(scans)
+        odom_poses = [np.asarray(p, np.float64) for p in odom_poses]
+        times = (
+            [float(t) for t in times] if times is not None else [0.0] * n_in
+        )
+        depth = 2 if pipeline is True else int(pipeline or 0)
+        if pipeline is not False and pipeline is not True and depth < 2:
+            raise ValueError("pipeline must be False, True, or an int >= 2")
+        if pipeline and parallel:
+            raise ValueError(
+                "pipeline=True requires sequential mode (parallel=False): "
+                "the parallel flush does not carry the device pose store"
+            )
+        run = _BatchRun(
+            scans=scans, odom_poses=odom_poses, times=times, sensor=sensor,
+            parallel=parallel,
+            # expansion runs as a host retry (see above)
+            spec=dataclasses.replace(self.seq_spec,
+                                     use_response_expansion=False),
+            results=[None] * n_in, inflight=[],
+        )
+        pending: list[int] = []  # input indices accepted, awaiting flush
+        # the last accepted scan (may still be pending)
+        last_odom = last_time = None
+        if (lid := self.last_by_sensor.get(sensor)) is not None:
+            last_odom = self.records[lid].odom_pose
+            last_time = self.records[lid].time
+
+        def flush(final: bool = False):
+            if pending:
+                run.inflight.append(self._dispatch_flush(run, pending))
+                pending.clear()
+            keep = 0 if final else max(depth - 1, 0)
+            while len(run.inflight) > keep:
+                self._finish_flush(run, run.inflight.pop(0))
+
+        for i in range(n_in):
+            n_inflight = sum(len(r["pending"]) for r in run.inflight)
+            if self._num() + n_inflight + len(pending) >= self.max_scans:
+                run.results[i] = ProcessResult(False, odom_poses[i], 0.0,
+                                               False)
+                continue
+            if self.last_by_sensor.get(sensor) is None and not pending:
+                # first scan of the sensor: the per-scan path (cross-sensor
+                # links, no matching)
+                run.results[i] = self.process(scans[i], odom_poses[i],
+                                              times[i], sensor)
+                if run.results[i].processed:
+                    last_odom = odom_poses[i]
+                    last_time = times[i]
+                continue
+            # HasMovedEnough against the last ACCEPTED scan (odom/time only)
+            dt = times[i] - last_time
+            dh = abs(
+                math.atan2(
+                    math.sin(odom_poses[i][2] - last_odom[2]),
+                    math.cos(odom_poses[i][2] - last_odom[2]),
+                )
+            )
+            d2 = float(np.sum((odom_poses[i][:2] - last_odom[:2]) ** 2))
+            if not (
+                dt >= cfg.minimum_time_interval
+                or dh >= cfg.minimum_travel_heading
+                or d2 >= cfg.minimum_travel_distance**2 - 1e-9
+            ):
+                # the report's prediction carries the last FINISHED
+                # correction (Mapper.cpp:2021-2025)
+                lid = self.last_by_sensor[sensor]
+                pred = _np_compose(
+                    _np_compose(
+                        self.poses[lid],
+                        _np_inverse(self.records[lid].odom_pose),
+                    ),
+                    odom_poses[i],
+                )
+                run.results[i] = ProcessResult(False, pred, 0.0, False)
+                continue
+            if not cfg.use_scan_matching:
+                flush(final=True)
+                run.results[i] = self.process(scans[i], odom_poses[i],
+                                              times[i], sensor)
+                last_odom = odom_poses[i]
+                last_time = times[i]
+                continue
+            pending.append(i)
+            last_odom = odom_poses[i]
+            last_time = times[i]
+            if len(pending) >= batch_size:
+                flush()
+        flush(final=True)
+        return run.results
+
 
     # --------------------------------------------------------- loop closure
     def _find_possible_loop_closure(
@@ -734,3 +1338,70 @@ class KartoMapper:
                 initial_cost=float(stats.initial_cost),
                 final_cost=float(stats.final_cost),
             )
+
+    # --------------------------------------------------------------- output
+    def occupancy_grid(self, resolution: float | None = None):
+        """OccupancyGrid::CreateFromScans (Karto.h:5659-5990): the pass/hit
+        counts of every scan at its corrected pose, thresholded; returns
+        (GridSpec, int8 [H, W] on the mapper's device), or None with no
+        scans.
+
+        Over-threshold beams (range >= use_scan_range) are kept: ``AddScan``
+        (Karto.h:5852-5899) clips each one's endpoint to the threshold ray
+        point and traces it free-only (``isEndPointValid = range <
+        threshold - KT_TOLERANCE``).  The store holds those beams' true
+        endpoints (staging only masks ``_valid``), so the raw range comes
+        back as ``|pts|``.  The grid's origin and size are bucketed to 64
+        cells as the JAX package buckets them, so two maps compare cell for
+        cell.  Scans are traced a chunk at a time, their counts added as
+        int32; the f32 arithmetic is written as the jitted JAX package
+        computes it (its FMAs in ``|pts|`` and the pose transform, glibc's
+        cosf/sinf of the headings), so the map is the JAX package's bit for
+        bit on the CPU."""
+        cfg = self.cfg
+        res = resolution or cfg.resolution
+        n = self._num()
+        if n == 0:
+            return None
+        poses = self.poses[:n]
+        margin = cfg.use_scan_range + 1.0
+        xmin = poses[:, 0].min() - margin
+        xmax = poses[:, 0].max() + margin
+        ymin = poses[:, 1].min() - margin
+        ymax = poses[:, 1].max() + margin
+
+        def _bucket(c, m=64):
+            return m * int(math.ceil(c / m))
+
+        cell64 = 64 * res
+        xmin = math.floor(xmin / cell64) * cell64
+        ymin = math.floor(ymin / cell64) * cell64
+        spec = GridSpec(
+            res,
+            _bucket(int(math.ceil((xmax - xmin) / res))),
+            _bucket(int(math.ceil((ymax - ymin) / res))),
+            xmin,
+            ymin,
+        )
+        thr = cfg.use_scan_range
+        max_steps = int(thr / res) + 2
+        p32 = poses.astype(np.float32)
+        pose_dev = self._upload(
+            np.concatenate([p32[:, :2], _cos_sin_f32(p32[:, 2])], 1))
+        counts = zero_counts(spec, self.device)
+        per = max(1, _MAP_CHUNK // (self._pts.shape[1] * max_steps))
+        for a in range(0, n, per):
+            b = min(n, a + per)
+            pts, valid = self._pts[a:b], self._valid[a:b]
+            pp = pose_dev[a:b, None, :]  # [k, 1, 4]
+            r, world = _clipped_endpoints(pts, pp, thr)
+            counts = accumulate_scan(
+                spec, counts, spec.world_to_map(pp[..., :2]),
+                spec.world_to_map(world), r >= (thr - 1e-6), valid,
+                max_steps=max_steps, trace_includes_endpoint=True,
+            )
+        return spec, karto_export(
+            counts,
+            min_pass_through=cfg.min_pass_through,
+            occupancy_threshold=cfg.occupancy_threshold,
+        )
