@@ -65,8 +65,20 @@ line):
    defaults (map 2048, 3 levels) with 1081 beams over the 320-scan
    ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, scans/s, and the
    device busy share of 80 scans under ``torch.profiler``;
-5. the ``{"kernels": [...]}`` table and, last, the ``{"ok": true, ...}``
-   line.
+   4k. the CLI (``tpuslam_torch.cli.main``, in this process) over a ROS1
+   bag written by the port's ``write_bag`` from ``bag.synthesize``'s 160
+   motion-distorted scans of 1081 beams (four laps of the boxes world):
+   scan-info, pointcloud, features, undistort, plicp-odometry,
+   scan-match-icp, karto without and with ``--undistort``, occupancy-map
+   from the truth poses, synth and scan-info of its .tslg; each prints its
+   JSON line and its scans/s; karto launches ``fvp`` and the patch sums,
+   plicp-odometry ``plicp_corr``, scan-match-icp nothing; karto
+   --undistort closes a loop and beats the raw run's ATE, below
+   ``CLI_ATE_BOUND_M``; the occupancy map passes the wall test; features,
+   undistort and the GMapping counters agree with the CPU's within the
+   ``CLI_*`` bounds;
+5. the ``{"kernels": [...]}`` table (launches include phase 4k's) and,
+   last, the ``{"ok": true, ...}`` line.
 
 Writes the full results to ``chiprun_out/chip_smoke.json``.  Imports
 nothing of JAX and nothing of the JAX package ``tpuslam``: the synthetic
@@ -84,6 +96,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,18 +109,20 @@ TIMED_RUNS = 20
 
 # (G, S): default sequential 0.3 m @ 0.01 / 12 m, outdoor sequential
 # 0.3 m @ 0.05 / 50 m (coarse S=9, fine S=5, angular sweep S=3), outdoor
-# loop 15 m @ 0.1 / 50 m (full surface, the stride-2 fallback), and the
-# default fine pass
+# loop 15 m @ 0.1 / 50 m (full surface, the stride-2 fallback), the
+# default fine pass, and the CLI's karto sequential 0.32 m @ 0.02 / 12 m
+# (phase 4k also holds every call of its path on the path's own inputs)
 PATCH_SIZES = [(2431, 33), (2007, 9), (1151, 153), (2431, 5), (2007, 5),
-               (2007, 3)]
-# (G, s2): outdoor loop 15 m @ 0.1 / 50 m; default loop 8 m @ 0.05 / 12 m
-STRIDE2_SIZES = [(1151, 76), (641, 81)]
+               (2007, 3), (1217, 19)]
+# (G, s2): outdoor loop 15 m @ 0.1 / 50 m; default loop 8 m @ 0.05 / 12 m;
+# the CLI's karto loop 4 m @ 0.1 / 12 m
+STRIDE2_SIZES = [(1151, 76), (641, 81), (281, 21)]
 # (scans, beams, kind): sequential buffer, link chain, loop chain, outdoor
-# buffer; then the edge cases (one valid point a scan, one beam, whole
-# scans inside 0.1 m)
+# buffer, the CLI's karto buffer; then the edge cases (one valid point a
+# scan, one beam, whole scans inside 0.1 m)
 FVP_SIZES = [(20, 180, "normal"), (8, 512, "normal"), (128, 1081, "normal"),
-             (110, 1081, "normal"), (8, 1081, "single"), (4, 1, "normal"),
-             (8, 1081, "inside")]
+             (110, 1081, "normal"), (20, 1081, "normal"),
+             (8, 1081, "single"), (4, 1, "normal"), (8, 1081, "inside")]
 # (pairs, beams): the odometry's single pair at 512 and 1081 beams, a
 # batch of 16 at 1081, the batched benchmark's 256 x 512; each with the
 # fixtures of _corr_inputs
@@ -187,6 +202,28 @@ MAP_NEAR_M = 0.3
 EPISODE_SLACK = 32
 COUNT_BAND = 0.2
 ENDURANCE_SCANS = 512
+# phase 4k: the CLI over a ROS1 bag of a Hokuyo UTM-30LX-class scanner
+# (1081 beams, 30 m, 10 Hz) driving four laps of the boxes world
+# (``bag.synthesize``: 160 scans, 40 a lap, motion-distorted); karto
+# --undistort's ATE bound is tests/test_cli.py's; the card against the
+# CPU: undistorted points within this many metres, features' corner
+# masks and curvature equal bit for bit, GMapping counters differing in at
+# most this share of the visited cells
+CLI_BEAMS = 1081
+CLI_SCANS = 160
+CLI_ATE_BOUND_M = 0.08
+CLI_POINTS_ATOL_M = 1e-5
+CLI_GMAPPING_SHARE = 1e-3
+# the phase 4k commands that drive each kernel (their scans are a scan's
+# share's denominator); no CLI command runs the Hector GN kernel
+CLI_KERNEL_COMMANDS = {
+    "patch_sums": ("karto", "karto_undistort"),
+    "patch_sums_stride2": ("karto", "karto_undistort"),
+    "fvp": ("karto", "karto_undistort"),
+    "plicp_corr": ("plicp-odometry",),
+    "plicp_nearest": ("scan-match-icp",),
+    "hector_gn": (),
+}
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -928,12 +965,11 @@ def segment_distance(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
     return np.concatenate(out) if out else np.zeros(0)
 
 
-def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
-    """Phase 4i: ``occupancy_grid()`` of a mapper, timed between two
-    synchronizes; at least ``MAP_NEAR_SHARE`` of its occupied cells must lie
-    within ``MAP_NEAR_M`` of a segment of the world."""
-    (spec, img), secs = _timed(m.occupancy_grid, m.device.type == "cuda")
-    a = img.cpu().numpy()
+def wall_check(spec, a: np.ndarray, segs, tag: str, card: str,
+               secs: float, scans: int) -> dict:
+    """An int8 map ``a`` on ``spec``: at least ``MAP_NEAR_SHARE`` of its
+    occupied cells must lie within ``MAP_NEAR_M`` of a segment of the
+    world."""
     iy, ix = np.nonzero(a == 100)
     xy = np.stack([spec.origin_x + ix * spec.resolution,
                    spec.origin_y + iy * spec.resolution], 1)
@@ -942,7 +978,7 @@ def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
     out = {"shape": list(a.shape), "resolution": spec.resolution,
            "occupied": int(len(xy)), "free": int((a == 0).sum()),
            "unknown": int((a == -1).sum()), "seconds": secs,
-           "near_share": near, "scans": len(m.records)}
+           "near_share": near, "scans": scans}
     print(f"map {tag}: {a.shape[1]} x {a.shape[0]} cells at "
           f"{spec.resolution} m, {out['occupied']} occupied, {out['free']} "
           f"free, {near:.4f} of the occupied within {MAP_NEAR_M} m of a "
@@ -951,7 +987,15 @@ def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
     if not near >= MAP_NEAR_SHARE or not out["occupied"]:
         raise RuntimeError(f"map {tag}: {near} of the occupied cells near a "
                            f"wall < {MAP_NEAR_SHARE}")
-    return out, a
+    return out
+
+
+def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
+    """Phase 4i: ``occupancy_grid()`` of a mapper, timed between two
+    synchronizes, through ``wall_check``."""
+    (spec, img), secs = _timed(m.occupancy_grid, m.device.type == "cuda")
+    a = img.cpu().numpy()
+    return wall_check(spec, a, segs, tag, card, secs, len(m.records)), a
 
 
 def endurance_cfg(nb: int):
@@ -1071,6 +1115,55 @@ def plain_path():
         (match_c.patch_sums, match_c.patch_sums_stride2,
          ops_f.find_valid_points, ops_p.correspondences,
          ops_p.nearest, ops_h.match_level_kernel) = saved
+
+
+@contextlib.contextmanager
+def held_path(seen: dict, fvp_per_shape: int = 1):
+    """Hold the matcher's kernels against their plain versions on the very
+    inputs the path gives them: every patch-sum call (stride 1 and 2) and
+    the first ``fvp_per_shape`` FindValidPoints calls of each shape (the
+    plain walk takes ~0.4 s at 1081 beams).  Raises on the first call that
+    differs.  ``seen`` maps "kernel shape" to [calls, calls held]; the
+    plain versions launch no kernel, so the counters see the path's own."""
+    from tpuslam_torch.match import correlative as match_c
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+
+    saved = (match_c.patch_sums, match_c.patch_sums_stride2,
+             ops_f.find_valid_points)
+
+    def held(name, kern, plain, shape, cap):
+        def call(*args):
+            got = kern(*args)
+            key = f"{name} {shape(*args)}"
+            n = seen.setdefault(key, [0, 0])
+            n[0] += 1
+            if cap is None or n[1] < cap:
+                if not torch.equal(got, plain(*args)):
+                    raise RuntimeError(f"{key}: kernel != plain on the "
+                                       f"path's inputs (call {n[0]})")
+                n[1] += 1
+            return got
+        return call
+
+    match_c.patch_sums = held(
+        "patch_sums", saved[0], ops_c.patch_sums_plain,
+        lambda q, ay, ax, ok, s: f"G={q.shape[0]} S={s} nA={ay.shape[0]} "
+                                 f"B={ay.shape[1]}", None)
+    match_c.patch_sums_stride2 = held(
+        "patch_sums_stride2", saved[1],
+        functools.partial(ops_c.patch_sums_plain, stride=2),
+        lambda q, ay, ax, ok, s2: f"G={q.shape[0]} s2={s2} "
+                                  f"nA={ay.shape[0]} B={ay.shape[1]}", None)
+    ops_f.find_valid_points = held(
+        "fvp", saved[2], ops_f.find_valid_points_plain,
+        lambda pts, valid, vp: f"S={pts.shape[0]} B={pts.shape[1]}",
+        fvp_per_shape)
+    try:
+        yield
+    finally:
+        (match_c.patch_sums, match_c.patch_sums_stride2,
+         ops_f.find_valid_points) = saved
 
 
 def odometry_stream(device, num_beams: int, n_scans: int = 320):
@@ -1554,6 +1647,229 @@ def _report(tag, s, card):
         raise RuntimeError(f"{tag}: ATE {s['ate_m']} >= {s['ate_bound_m']}")
 
 
+def write_log_bag(path, log) -> None:
+    """A ROS1 bag of ``log`` through the port's ``io.rosbag.write_bag``: a
+    LaserScan, an Odometry and an Imu message at each scan's stamp."""
+    from tpuslam_torch.io import rosbag
+
+    msgs = []
+    for i in range(len(log)):
+        t = float(log.stamps[i])
+        msgs += [
+            ("/scan", "sensor_msgs/LaserScan", t, rosbag.serialize_laser_scan(
+                t, log.ranges[i], log.angle_min, log.angle_increment,
+                range_min=log.range_min, range_max=log.range_max,
+                time_increment=log.time_increment)),
+            ("/odom", "nav_msgs/Odometry", t,
+             rosbag.serialize_odometry(t, log.odom[i])),
+            ("/imu", "sensor_msgs/Imu", t,
+             rosbag.serialize_imu(t, [0.0, 0.0, float(log.imu_wz[i])])),
+        ]
+    rosbag.write_bag(path, msgs)
+
+
+def run_cli(cmd: str, args: list, device: str, card: str, scans: int,
+            note: str = "") -> dict:
+    """``tpuslam_torch.cli.main`` in this process, its standard output
+    captured: the JSON line it must print, the wall seconds (ending in a
+    synchronize on the card), scans/s, and each kernel's launches (the
+    counters set to 0 just before the command and read just after).
+    ``note`` follows the command's name in the printed line."""
+    import io
+
+    from tpuslam_torch import cli
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.ops import hector as ops_h
+    from tpuslam_torch.ops import plicp as ops_p
+
+    counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_p.LAUNCHES,
+                ops_h.LAUNCHES)
+    argv = [cmd, *args, "--device", device]
+    buf = io.StringIO()
+    _reset(*counters)
+    with contextlib.redirect_stdout(buf):
+        _, wall = _timed(lambda: cli.main(argv),
+                         torch.device(device).type == "cuda")
+    launches = {k: v for c in counters for k, v in c.items()}
+    lines = buf.getvalue().strip().splitlines()
+    if not lines:
+        raise RuntimeError(f"cli {cmd}: no JSON line")
+    fired = {k: v for k, v in launches.items() if v}
+    print(f"cli {cmd}{note} ({device}): {scans} scans in {wall:.2f} s = "
+          f"{scans / wall:.2f} scans/s, launches {fired or 'none'}; "
+          f"{lines[-1][:200]} [{card}]", flush=True)
+    return {"argv": argv, "result": json.loads(lines[-1]), "seconds": wall,
+            "scans": scans, "scans_per_s": scans / wall,
+            "launches": launches}
+
+
+def feature_diffs(log, masks: list, devices) -> dict:
+    """Beams whose corner mask (the CLI's saved ``corner_masks``) or whose
+    curvature differs between ``devices``.  The window sums add in one
+    fixed order on every device (``core/xla_cpu.py``), so both must be 0."""
+    from tpuslam_torch.core.config import FeatureConfig
+    from tpuslam_torch.ops.features import extract_features
+
+    curv = [extract_features(FeatureConfig(), log.scans_batched(device=d))
+            .curvature.cpu() for d in devices]
+    return {"mask_diffs": int((masks[0] != masks[1]).sum()),
+            "curvature_diffs": int((curv[0] != curv[1]).sum())}
+
+
+def gmapping_mismatches(log, poses, devices) -> dict:
+    """GMapping's counters of ``log`` at ``poses`` with occupancy-map's
+    configuration on two devices: cells whose hits or visits differ, and
+    the cells either visited."""
+    from tpuslam_torch import cli
+    from tpuslam_torch.models import gmapping
+
+    cfg = cli.occupancy_config(log, poses)
+    c = [gmapping.map_from_scans(
+        cfg, torch.as_tensor(poses, dtype=torch.float32, device=d),
+        log.scans_batched(device=d)) for d in devices]
+    a, b = ([t.cpu() for t in x] for x in c)
+    visited = int(((a[1] > 0) | (b[1] > 0)).sum())
+    differ = int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+    return {"differing_cells": differ, "visited_cells": visited,
+            "share": differ / max(visited, 1)}
+
+
+def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
+                  beams: int = CLI_BEAMS, scans: int = CLI_SCANS) -> dict:
+    """Phase 4k: ``python -m tpuslam_torch.cli`` (in process) over a ROS1
+    bag of ``bag.synthesize``'s distorted laps: scan-info, pointcloud,
+    features, undistort, plicp-odometry, scan-match-icp, karto without and
+    with ``--undistort``, occupancy-map from the synthetic truth poses,
+    synth and scan-info of its .tslg.  Raises on any failed requirement
+    (see the constants of phase 4k); features, undistort and the GMapping
+    counters also run on the CPU for the comparison."""
+    from tpuslam_torch import cli
+    from tpuslam_torch.io import bag
+    from tpuslam_torch.io.simulate import world_with_boxes
+    from tpuslam_torch.models import gmapping
+
+    log, true = bag.synthesize(num_beams=beams, num_scans=scans,
+                               poses_per_rev=40, distorted=True, seed=0)
+    path = workdir / "laps.bag"
+    write_log_bag(path, log)
+    lg = ["--log", str(path)]
+    runs = {}
+
+    def run(tag, cmd, args, n=scans, dev=device, save=False):
+        if save:
+            args = [*args, "--save", str(workdir / f"{tag}.npz")]
+        runs[tag] = run_cli(cmd, args, dev, card, n)
+        out = runs[tag]["result"]
+        return (out, np.load(workdir / f"{tag}.npz")) if save else out
+
+    info = run("scan-info", "scan-info", lg)
+    if (info["scans"], info["num_beams"]) != (scans, beams):
+        raise RuntimeError(f"cli scan-info of the bag: {info}")
+    _, z = run("pointcloud", "pointcloud", lg, save=True)
+    if z["points"].shape != (scans, beams, 2):
+        raise RuntimeError(f"cli pointcloud: {z['points'].shape}")
+    # features and undistort on the card and on the CPU
+    devices = (device, "cpu")
+    masks = [run(f"features_{d}", "features", lg, dev=d,
+                 save=True)[1]["corner_masks"] for d in devices]
+    feats = feature_diffs(log, masks, devices)
+    pts = [run(f"undistort_{d}", "undistort", lg, scans - 1, dev=d,
+               save=True)[1]["points"] for d in devices]
+    dpts = float(np.abs(pts[0] - pts[1]).max())
+    # the odometry launches the correspondence kernel; ICP's "auto" none
+    run("plicp-odometry", "plicp-odometry", lg)
+    run("scan-match-icp", "scan-match-icp", lg)
+    # karto, raw and undistorted; ATE of the saved poses against the truth
+    ate, held, held_runs = {}, {}, {}
+    for tag, extra in (("karto", []), ("karto_undistort", ["--undistort"])):
+        r, z = run(tag, "karto", lg + extra, save=True)
+        n = r["scans_processed"]
+        if n != scans:
+            raise RuntimeError(f"cli {tag}: {n} of {scans} scans processed")
+        ate[tag] = float(np.hypot(*(z["poses"][:, :2] - true[:n, :2]).T)
+                         .mean())
+        # the same command again, each kernel call held against its plain
+        # version on the path's own inputs; its poses must be the same
+        out_held = workdir / f"{tag}_held.npz"
+        with held_path(held):
+            held_runs[tag] = run_cli(
+                "karto", lg + extra + ["--save", str(out_held)], device, card,
+                scans, note=" (kernels held against plain)")
+        if not np.array_equal(np.load(out_held)["poses"], z["poses"]):
+            raise RuntimeError(f"cli {tag}: the held run's poses differ")
+    # occupancy-map from the truth poses: its map against the world, and
+    # the counters on both devices
+    occ, z = run("occupancy-map", "occupancy-map",
+                 ["--synthetic", "--num-beams", str(beams), "--num-scans",
+                  str(scans), "--poses-per-rev", "40"], save=True)
+    olog, otrue = bag.synthesize(num_beams=beams, num_scans=scans,
+                                 poses_per_rev=40, seed=0)
+    spec = gmapping.make_spec(cli.occupancy_config(olog, otrue))
+    omap = wall_check(spec, z["map"], world_with_boxes(), "4k occupancy-map",
+                      card, runs["occupancy-map"]["seconds"], scans)
+    gm = gmapping_mismatches(olog, otrue, devices)
+    # synth, then scan-info of its .tslg
+    tslg = workdir / "laps.tslg"
+    run("synth", "synth", ["--out", str(tslg), "--num-beams", str(beams),
+                           "--num-scans", str(scans), "--poses-per-rev", "40",
+                           "--synthetic"])
+    info2 = run("scan-info_tslg", "scan-info", ["--log", str(tslg)])
+
+    on_device = {k: r for k, r in runs.items() if r["argv"][-1] == device}
+    launches = {k: sum(r["launches"][k] for r in on_device.values())
+                for k in runs["scan-info"]["launches"]}
+    # the scans of the commands that drive each kernel, for a scan's share
+    launch_scans = {k: sum(runs[t]["scans"] for t in tags)
+                    for k, tags in CLI_KERNEL_COMMANDS.items()}
+    out = {"beams": beams, "scans": scans, "runs": runs, "ate_m": ate,
+           "features_vs_cpu": feats, "undistort_max_diff_m": dpts,
+           "gmapping_vs_cpu": gm, "occupancy_map": omap,
+           "launches": launches, "launch_scans": launch_scans,
+           "held_runs": held_runs, "held_calls": held}
+    kr, kf = runs["karto"]["result"], runs["karto_undistort"]["result"]
+    print(f"cli karto: ATE raw {ate['karto']:.4f} m, --undistort "
+          f"{ate['karto_undistort']:.4f} m (bound {CLI_ATE_BOUND_M}), "
+          f"closures {kr['loop_closures']} / {kf['loop_closures']}; card "
+          f"against CPU: features {feats}, undistort max |diff| {dpts} m, "
+          f"GMapping {gm} [{card}]", flush=True)
+    print("cli karto, both runs again, kernel calls [made, held against "
+          f"plain] by shape: {held}", flush=True)
+    fails = []
+    if info2["scans"] != scans:
+        fails.append(f"scan-info of the synth .tslg: {info2}")
+    for tag in ("karto", "karto_undistort"):
+        got = runs[tag]["launches"]
+        if device != "cpu" and not (got["fvp"] > 0 and got["patch_sums"] > 0):
+            fails.append(f"{tag} launched {got}")
+    if device != "cpu" and runs["plicp-odometry"]["launches"][
+            "plicp_corr"] <= 0:
+        fails.append("plicp-odometry never launched plicp_corr")
+    held_kernels = {k.split()[0] for k in held}
+    if not {"patch_sums", "fvp"} <= held_kernels:
+        fails.append(f"the held karto runs held only {sorted(held_kernels)}")
+    if any(runs["scan-match-icp"]["launches"].values()):
+        fails.append(f"scan-match-icp launched "
+                     f"{runs['scan-match-icp']['launches']}")
+    if not ate["karto_undistort"] < ate["karto"]:
+        fails.append(f"karto --undistort ATE {ate['karto_undistort']} is "
+                     f"not below the raw run's {ate['karto']}")
+    if not ate["karto_undistort"] < CLI_ATE_BOUND_M:
+        fails.append(f"karto --undistort ATE {ate['karto_undistort']} >= "
+                     f"{CLI_ATE_BOUND_M}")
+    if kf["loop_closures"] < 1:
+        fails.append("karto --undistort closed no loop")
+    if feats["mask_diffs"] or feats["curvature_diffs"]:
+        fails.append(f"features: the card and the CPU differ {feats}")
+    if not dpts <= CLI_POINTS_ATOL_M:
+        fails.append(f"undistort points differ by {dpts} m")
+    if not gm["share"] <= CLI_GMAPPING_SHARE:
+        fails.append(f"GMapping counters differ in {gm}")
+    if fails:
+        raise RuntimeError("phase 4k: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1801,6 +2117,12 @@ def main() -> int:
     if not he["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"hector engine ATE RMSE {he['ate_rmse_m']} >= "
                            "0.05 m")
+
+    # 4k. the CLI over a recorded ROS1 bag, each command as a user runs it
+    mark("4k. the CLI from a recorded bag")
+    with tempfile.TemporaryDirectory() as tmp:
+        clir = run_cli_phase(card, Path(tmp))
+    mark("4k done")
     foreign = reference_modules()
     if foreign:
         raise RuntimeError(f"modules of JAX or the JAX package were "
@@ -1820,10 +2142,12 @@ def main() -> int:
         "hector_gn": ("tpuslam_torch/csrc/hector_gn.cu",
                       "tpuslam/ops/pallas_hector.py:220"),
     }
-    # each kernel's count from the path that runs it, and a scan's share:
-    # Karto's over the room and courtyard streams and the sequential batch
-    # run over the courtyard, the odometry's, the
-    # frame-to-frame ICP's, and the batched Hector call's (1024 scans)
+    # each kernel's count from the paths that run it: Karto's over the room
+    # and courtyard streams and the sequential batch run over the
+    # courtyard, the odometry's, the frame-to-frame ICP's and the batched
+    # Hector call's (1024 scans a call), each plus phase 4k's CLI commands
+    # that drive the kernel; a scan's share divides by the scans of the
+    # same runs.  The CLI's own count and share are reported apart too
     karto_runs = (s, sl, batch["sequential"])
     karto_scans = sum(r["scans"] for r in karto_runs)
     launches = {**{k: sum(r["launches"][k] for r in karto_runs)
@@ -1831,13 +2155,14 @@ def main() -> int:
                 **od["launches"],
                 "plicp_nearest": ff["icp"]["launches"]["plicp_nearest"],
                 "hector_gn": hb["launches"]["hector_gn"]}
-    per_scan = {
-        **{k: launches[k] / karto_scans for k in s["launches"]},
-        "plicp_corr": od["launches"]["plicp_corr"] / od["scans"],
-        "plicp_nearest": (ff["icp"]["launches"]["plicp_nearest"]
-                          / ff["icp"]["scans"]),
-        "hector_gn": hb["launches"]["hector_gn"] / (hb["calls"] * hb["scans"]),
-    }
+    path_scans = {**{k: karto_scans for k in s["launches"]},
+                  "plicp_corr": od["scans"],
+                  "plicp_nearest": ff["icp"]["scans"],
+                  "hector_gn": hb["calls"] * hb["scans"]}
+    cli_launches, cli_scans = clir["launches"], clir["launch_scans"]
+    launches = {k: v + cli_launches[k] for k, v in launches.items()}
+    per_scan = {k: launches[k] / (path_scans[k] + cli_scans[k])
+                for k in launches}
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1852,6 +2177,9 @@ def main() -> int:
             "kernel_us": main["kernel_us"],
             "device_ops_a_call": main["device_ops"], "shape": main["shape"],
             "launches_per_scan": per_scan[name],
+            "cli_launches": cli_launches[name],
+            "cli_launches_per_scan": (cli_launches[name] / cli_scans[name]
+                                      if cli_scans[name] else None),
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()
@@ -1865,7 +2193,7 @@ def main() -> int:
         "maps": {**maps, **batch_maps}, "endurance": endu, "odometry": od,
         "odometry_plain_path": odp, "frame_to_frame": ff,
         "batches": batches, "hector_batch": hb, "hector_engine": he,
-        "kernels": kernels}, indent=1))
+        "cli": clir, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

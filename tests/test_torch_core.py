@@ -92,12 +92,20 @@ def test_scan_to_points_matches_jax():
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
 
 
-@pytest.mark.parametrize("make", ["default", "outdoor"])
+_CONFIG_MAKERS = {
+    "default": lambda m: m.KartoConfig(),
+    "outdoor": lambda m: m.outdoor_karto_config(),
+    "features": lambda m: m.FeatureConfig(),
+    "gmapping": lambda m: m.GmappingConfig(),
+    "undistort": lambda m: m.UndistortConfig(),
+}
+
+
+@pytest.mark.parametrize("make", list(_CONFIG_MAKERS))
 def test_karto_config_equals_jax(make):
-    if make == "default":
-        tc, jc = tconfig.KartoConfig(), jconfig.KartoConfig()
-    else:
-        tc, jc = tconfig.outdoor_karto_config(), jconfig.outdoor_karto_config()
+    """Each config copied field for field: the Karto default and outdoor
+    presets, and the lesson1/4/5 configs."""
+    tc, jc = _CONFIG_MAKERS[make](tconfig), _CONFIG_MAKERS[make](jconfig)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     assert [f.name for f in dataclasses.fields(tc)] == [
         f.name for f in dataclasses.fields(jc)
@@ -137,6 +145,25 @@ def test_correlative_spec_rejects_unported_methods():
         with pytest.raises(ValueError, match="not ported"):
             tcorr.CorrelativeSpec(0.05, 0.3, 0.03, 6.0,
                                   response_method=method)
+
+
+@pytest.mark.parametrize("kind", sorted(tconfig._CONFIG_TYPES))
+def test_from_dict_and_from_yaml_equal_jax(kind, tmp_path):
+    """The loaders take the same kinds; unknown keys raise; a YAML file
+    loads to the JAX package's config."""
+    assert set(tconfig._CONFIG_TYPES) == set(jconfig._CONFIG_TYPES)
+    field = dataclasses.fields(tconfig._CONFIG_TYPES[kind])[0]
+    value = (not field.default if isinstance(field.default, bool)
+             else type(field.default)(3))
+    got = tconfig.from_dict(kind, {field.name: value})
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        jconfig.from_dict(kind, {field.name: value}))
+    with pytest.raises(KeyError, match="unknown"):
+        tconfig.from_dict(kind, {field.name + "x": value})
+    p = tmp_path / "c.yaml"
+    p.write_text(f"{field.name}: {str(value).lower()}\n")
+    assert dataclasses.asdict(tconfig.from_yaml(kind, p)) == (
+        dataclasses.asdict(jconfig.from_yaml(kind, p)))
 
 
 def test_port_imports_no_jax():

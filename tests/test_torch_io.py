@@ -2,13 +2,15 @@
 the JAX package, and entry points that run on the card by default.
 
 - ``tpuslam_torch.io.simulate`` is a NumPy copy of the functions of
-  ``tpuslam.io.simulate`` that ``chip_smoke.py`` uses: held bit for bit;
+  ``tpuslam.io.simulate`` that ``chip_smoke.py`` and ``io.bag`` use
+  (``simulate_distorted_scan`` too): held bit for bit;
 - a fresh interpreter that imports every module of ``tpuslam_torch`` (the
-  Karto engine with ``process_batch`` and ``occupancy_grid``,
-  ``ops.counts``, the solver), ``chip_smoke`` and ``compare_port`` holds
-  no ``jax`` and no ``tpuslam``/``tpuslam.*`` module;
+  engines, ``cli``, ``checkpoint``, ``io.bag``, ``io.rosbag``,
+  ``core.frames``, ``utils.*``), ``chip_smoke`` and ``compare_port``
+  holds no ``jax`` and no ``tpuslam``/``tpuslam.*`` module;
 - every entry point that places state on a device defaults to ``"cuda"``
-  (a caller who wants the CPU says so, as these tests do).
+  (a caller who wants the CPU says so, as these tests do), and so does
+  the CLI's ``--device``, which fails without a card.
 """
 
 import inspect
@@ -20,18 +22,22 @@ import numpy as np
 import pytest
 
 from tpuslam.io import simulate as jsim
-from tpuslam_torch import convert
+from tpuslam_torch import cli, convert
 from tpuslam_torch.core import scan as tscan
 from tpuslam_torch.graph import backends
+from tpuslam_torch.io import bag
 from tpuslam_torch.io import simulate as tsim
 from tpuslam_torch.models import (
+    gmapping,
     hector_slam,
     karto,
     plicp_odometry,
     scan_match_icp,
     scan_match_plicp,
+    undistort,
 )
 from tpuslam_torch.ops import counts
+from tpuslam_torch.utils import timing
 
 ROOT = Path(__file__).resolve().parent.parent
 SEGS = jsim.world_with_boxes()
@@ -46,6 +52,9 @@ SIMULATE_CASES = {
     "simulate_scan": lambda m: m.simulate_scan(
         SEGS, POSE, num_beams=361, max_range=20.0, noise_std=0.01,
         rng=np.random.default_rng(3)),
+    "simulate_distorted_scan": lambda m: m.simulate_distorted_scan(
+        SEGS, POSE, np.array([0.6, -0.1, 1.2]), num_beams=181,
+        max_range=9.0, scan_period=0.1),
     "circle_trajectory": lambda m: m.circle_trajectory(
         radius=1.2, num_poses=50, full_turns=0.5),
     "garland_trajectory": lambda m: m.garland_trajectory(
@@ -106,6 +115,26 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     convert.odom_state_from_numpy,
     convert.hector_state_from_numpy,
     convert.frame_state_from_numpy,
+    bag.ScanLog.scan,
+    bag.ScanLog.scans_batched,
+    gmapping.init_counts,
+    undistort.make_imu_buffer,
+    timing.StepTimer,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_defaults_to_the_card_and_fails_without_one(capsys):
+    """``--device`` defaults to cuda; on a machine without a CUDA device a
+    command that runs an engine exits with an error instead of falling
+    back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the command would run")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["features", "--synthetic", "--num-scans", "2",
+                  "--num-beams", "30"])
+    assert e.value.code != 0
+    assert "--device cuda: no CUDA device" in capsys.readouterr().err

@@ -1,8 +1,11 @@
-"""Configs copied field for field from ``tpuslam/core/config.py``.
+"""Configs copied field for field from ``tpuslam/core/config.py``, with
+its ``from_dict`` / ``from_yaml`` loaders.
 
 The port cannot import the original: ``tpuslam/core/__init__.py`` pulls in
-jax.  Names and defaults are the reference's (lesson2 PCL defaults, lesson3
-plicp_odometry.cc:58-186, lesson4 hector_slam.cc:119-160, lesson6
+jax.  Names and defaults are the reference's (lesson1
+feature_detection.cc:23-170, lesson2 PCL defaults, lesson3
+plicp_odometry.cc:58-186, lesson4 gmapping.cc:28-60 and
+hector_slam.cc:119-160, lesson5 lidar_undistortion.cc, lesson6
 mapper_params_outdoor.yaml + Mapper.cpp defaults 1448-1964); a CPU test
 holds ``dataclasses.asdict`` of both against each other.
 """
@@ -23,6 +26,17 @@ def _check_method(method: str) -> None:
             f"correspondence_method {method!r} is not ported; known: "
             f"{CORRESPONDENCE_METHODS}"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureConfig:
+    """Lesson1 curvature feature extraction (feature_detection.cc)."""
+
+    max_scan_count: int = 1500  # feature_detection.cc:23
+    edge_threshold: float = 1.0  # feature_detection.cc:69
+    num_segments: int = 6  # feature_detection.cc:139-150
+    max_corners_per_segment: int = 20  # feature_detection.cc:152-170
+    curvature_halfwin: int = 5  # feature_detection.cc:112-124
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +110,44 @@ class PlicpConfig:
 
     def __post_init__(self):
         _check_method(self.correspondence_method)
+
+
+@dataclasses.dataclass(frozen=True)
+class GmappingConfig:
+    """Lesson4 gmapping grid mapper (gmapping.cc:28-60)."""
+
+    maxRange: float = 30.0 - 0.01  # gmapping.cc:47 (literally 30 - 0.01)
+    maxUrange: float = 25.0  # max_use_range_, gmapping.cc:178
+    xmin: float = -40.0
+    ymin: float = -40.0
+    xmax: float = 40.0
+    ymax: float = 40.0
+    delta: float = 0.05  # resolution
+    occ_thresh: float = 0.25  # export threshold, gmapping.cc:147-157
+    num_beams: int = 1500
+    ray_steps: int = 2048  # static Bresenham step budget per beam
+
+
+@dataclasses.dataclass(frozen=True)
+class UndistortConfig:
+    """Lesson5 motion-distortion correction (lidar_undistortion.cc)."""
+
+    use_imu: bool = True
+    use_odom: bool = True
+    # True = integrate all three gyro axes and apply the full RPY rotation
+    # per beam, as the reference does (lidar_undistortion.cc:213-249 +
+    # ComputeRotation 398-432 + pcl::getTransformation); points come back
+    # [B, 3].  False = yaw-only fast path for level platforms, points [B, 2].
+    three_axis: bool = False
+    # Reference quirk (lidar_undistortion.cc:343 + 388-394): the beam is
+    # transformed as the 3D point (x, y, 1.0), so roll/pitch leak a 1 m
+    # lever arm into the corrected x/y.  False (the default) uses the
+    # planar point (x, y, 0); True reproduces the reference (three_axis
+    # mode only; pure yaw is unaffected either way).
+    pcl_z_quirk: bool = False
+    imu_queue_size: int = 256  # static ring-buffer capacity
+    odom_queue_size: int = 256
+    num_beams: int = 1500
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,3 +297,42 @@ def outdoor_karto_config() -> KartoConfig:
         minimum_distance_penalty=0.5,
         use_response_expansion=True,
     )
+
+
+_CONFIG_TYPES = {
+    "features": FeatureConfig,
+    "icp": IcpConfig,
+    "plicp": PlicpConfig,
+    "gmapping": GmappingConfig,
+    "hector": HectorConfig,
+    "undistort": UndistortConfig,
+    "karto": KartoConfig,
+}
+
+
+def from_dict(kind: str, params: dict):
+    """Build a config from a plain dict of the reference's parameter names.
+
+    Unknown keys raise (catching typos in ported YAML); the reference's
+    ROS-param reader silently defaulted.  ``kind`` is one of: features,
+    icp, plicp, gmapping, hector, undistort, karto."""
+    cls = _CONFIG_TYPES[kind]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(params) - fields
+    if unknown:
+        raise KeyError(
+            f"unknown {kind} parameters {sorted(unknown)}; "
+            f"known: {sorted(fields)}"
+        )
+    return cls(**params)
+
+
+def from_yaml(kind: str, path):
+    """Load a config from a YAML file of reference-named parameters (the
+    lesson*/config/*.yaml format, flattened).  Needs PyYAML, imported
+    here and nowhere else."""
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f) or {}
+    return from_dict(kind, data)

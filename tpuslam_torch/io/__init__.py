@@ -1,1 +1,2 @@
-"""Host-side data for the port (NumPy only)."""
+"""Host-side data for the port: scan logs, ROS1 bags and synthetic worlds
+in NumPy; ``ScanLog`` hands the engines tensors on a device."""

@@ -1,10 +1,11 @@
 """Synthetic 2D laser worlds for the port's end-to-end runs.
 
 A NumPy-only copy of the functions of ``tpuslam/io/simulate.py`` that
-``chip_smoke.py`` drives the port with: segment worlds and exact ray
-casting on the host in float64, so that a run on the card can be held
-against its ground-truth trajectory, and the lossy multi-loop garland
-stream of ``benchmarks/endurance.py``.  The port keeps its own copy so that
+``chip_smoke.py`` and ``io/bag.py::synthesize`` drive the port with:
+segment worlds and exact ray casting on the host in float64, so that a
+run on the card can be held against its ground-truth trajectory, scans
+taken while moving (the distortion lesson5 corrects), and the lossy
+multi-loop garland stream of ``benchmarks/endurance.py``.  The port keeps its own copy so that
 neither it nor ``chip_smoke.py`` imports anything of the JAX package;
 ``tests/test_torch_io.py`` holds each function bit for bit against the
 original.
@@ -116,6 +117,45 @@ def simulate_scan(
         rng = rng or np.random.default_rng(0)
         r = np.where(np.isfinite(r), r + rng.normal(0, noise_std, r.shape), r)
     return r, angle_min, inc
+
+
+def simulate_distorted_scan(
+    segments: np.ndarray,
+    pose0: np.ndarray,
+    twist: np.ndarray,
+    *,
+    num_beams: int = 360,
+    fov: float = 2.0 * np.pi,
+    max_range: float = 30.0,
+    scan_period: float = 0.1,
+) -> tuple[np.ndarray, float, float, np.ndarray]:
+    """One scan acquired while MOVING: beam k is cast from the pose the
+    robot actually occupies at time k/(B-1) * scan_period, integrating a
+    constant body twist (vx, vy, wz) from ``pose0`` — the motion
+    distortion lesson5's node corrects (lidar_undistortion.cc:339-447).
+    Ranges are reported against beam k's NOMINAL angle in the BEAM-0
+    frame, exactly the raw-LaserScan convention.  Returns (ranges,
+    angle_min, angle_increment, end_pose)."""
+    pose0 = np.asarray(pose0, dtype=np.float64)
+    twist = np.asarray(twist, dtype=np.float64)
+    angle_min = -fov / 2.0
+    inc = fov / max(num_beams - 1, 1)
+    ranges = np.empty(num_beams)
+    pose = pose0.copy()
+    dt = scan_period / max(num_beams - 1, 1)
+    for k in range(num_beams):
+        beam_world = pose[2] + angle_min + inc * k
+        ranges[k] = cast_rays(
+            segments, pose[:2], np.array([beam_world]), max_range
+        )[0]
+        # integrate the body twist to the next beam's firing time
+        c, s = np.cos(pose[2]), np.sin(pose[2])
+        pose = np.array([
+            pose[0] + (c * twist[0] - s * twist[1]) * dt,
+            pose[1] + (s * twist[0] + c * twist[1]) * dt,
+            pose[2] + twist[2] * dt,
+        ])
+    return ranges, angle_min, inc, pose
 
 
 def circle_trajectory(

@@ -37,10 +37,7 @@ JAX package has them.  The loop and batch meshes are not ported.
 
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
 import dataclasses
-import functools
 import math
 import time
 from typing import NamedTuple
@@ -52,6 +49,8 @@ from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import KartoConfig
 from tpuslam_torch.core.grid import GridSpec
 from tpuslam_torch.core.scan import Scan, scan_to_points
+from tpuslam_torch.core.xla_cpu import clipped_endpoints as _clipped_endpoints
+from tpuslam_torch.core.xla_cpu import cos_sin_f32 as _cos_sin_f32
 from tpuslam_torch.graph.backends import graph_from_edges, make_solver
 from tpuslam_torch.match.correlative import CorrelativeSpec, match_scan
 from tpuslam_torch.ops import correlative as ops_correlative
@@ -230,53 +229,6 @@ class _Fetch(NamedTuple):
     event: object
 
 
-@functools.lru_cache(maxsize=1)
-def _libm():
-    lib = ctypes.CDLL(ctypes.util.find_library("m"))
-    for name in ("cosf", "sinf"):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [ctypes.c_float], ctypes.c_float
-    return lib
-
-
-def _cos_sin_f32(theta: np.ndarray) -> np.ndarray:
-    """[n, 2] f32 (cos, sin) of f32 headings from the C library's cosf and
-    sinf: the values the jitted JAX package takes on the CPU (XLA calls
-    them there), so that the map export can match it bit for bit."""
-    lib = _libm()
-    return np.array([(lib.cosf(float(t)), lib.sinf(float(t)))
-                     for t in np.asarray(theta, np.float32)],
-                    np.float32).reshape(-1, 2)
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a*b + c`` rounded once, as an FMA: the product is exact in
-    f64, so only a double rounding at an exact f32 tie could differ."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _clipped_endpoints(pts: torch.Tensor, pose: torch.Tensor, thr: float):
-    """Ranges ``|pts|`` and world endpoints of sensor-frame points [k, B, 2]
-    at poses [k, 1, 4] (x, y, cos, sin), over-threshold points clipped to
-    the threshold ray point (Karto.h:5866-5888).  Rounded as jitted XLA
-    rounds ``jnp.linalg.norm`` and ``se2.transform_points`` on the CPU:
-    ``sqrt(fma(y, y, x*x))``, ``fma(c, x, -(s*y)) + px`` and
-    ``fma(s, x, c*y) + py``."""
-    x, y = pts[..., 0], pts[..., 1]
-    # the f32 square root correctly rounded, through f64 (PyTorch's
-    # vectorised f32 sqrt on the CPU is not)
-    r = torch.sqrt(_fma(y, y, x * x).double()).float()
-    # thr / r as one division (a Python scalar over a tensor would take
-    # the reciprocal and multiply)
-    scale = torch.where(
-        r > thr, torch.full_like(r, thr) / r.clamp_min(1e-9), 1.0)
-    xs, ys = x * scale, y * scale
-    c, s = pose[..., 2], pose[..., 3]
-    wx = _fma(c, xs, -(s * ys)) + pose[..., 0]
-    wy = _fma(s, xs, c * ys) + pose[..., 1]
-    return r, torch.stack([wx, wy], -1)
-
-
 class ProcessResult(NamedTuple):
     processed: bool
     pose: np.ndarray  # [3] corrected pose after matching/optimization
@@ -338,7 +290,7 @@ class KartoMapper:
         events=None,
         device="cuda",
     ):
-        """events: optional ``tpuslam.utils.events.EventBus`` (or any object
+        """events: optional ``tpuslam_torch.utils.events.EventBus`` (or any object
         with ``fire(event, **payload)``) — receives the reference's
         MapperListener stream (loop_closure_check, begin/end_loop_closure,
         poses_corrected; Mapper.cpp:2142-2218).
