@@ -7,8 +7,9 @@ line):
 
 1. the card's ``nvidia-smi`` name and power limit; no CUDA device is an
    error;
-2. build the hand-written kernels (``tpuslam_torch/csrc/*.cu``) and print
-   the build time;
+2. build the hand-written kernels (``tpuslam_torch/csrc/*.cu``) and the
+   native ``.tslg`` codec (``tpuslam_torch/csrc/scanlog.cc``, the host
+   C++ compiler) and print the build times;
 3. every kernel against its plain PyTorch version on the card at the
    production sizes (and FindValidPoints' edge cases: one valid point a
    scan, B=1, whole scans inside 0.1 m): bit for bit, except the Hector
@@ -90,16 +91,41 @@ line):
    --undistort closes a loop and beats the raw run's ATE, below
    ``CLI_ATE_BOUND_M``; the occupancy map passes the wall test; features,
    undistort and the GMapping counters agree with the CPU's within the
-   ``CLI_*`` bounds;
+   ``CLI_*`` bounds; the synth log loads alike through both ``.tslg``
+   codecs (each load timed), and each writes it again byte for byte;
+   4o. the card's paths against the f64 oracles of
+   ``tpuslam_torch.oracle`` on the same inputs, each with the bound
+   tests/test_oracle_parity.py holds for the contract (the
+   ``ORACLE_*`` constants), at 1081 beams: (a) ``match_scan`` at the
+   outdoor sequential spec (G=2007, ``fvp`` and stride-1 patch sums) for
+   ``ORACLE_MATCHES`` (K) scans of the room circuit moved off the cell
+   lattice, each against the ``ORACLE_CHAIN`` scans before it, and
+   ``ORACLE_LOOP_MATCHES`` coarse matches at the loop spec (G=1151,
+   stride 2) against ``OracleScanMatcher``; (b) the ``spa_solver`` solve
+   (captured) of 4c's last closure graph against ``OracleSpa2d``; (c)
+   ICP in the kernel's nearest mode against ``OraclePclIcp`` over
+   ``ORACLE_ICP_PAIRS`` pairs of 4d's stream, and ``plicp`` (line mode)
+   against ``OracleCsm`` over the first ``ORACLE_PLICP_PAIRS``; (d)
+   ``hector_gn`` against ``OracleHectorMatcher`` at
+   ``ORACLE_HECTOR_MATCHES`` poses and the engine's log-odds map against
+   ``OracleHectorMap``; (e) GMapping's counters over
+   ``ORACLE_GMAPPING_SCANS`` scans against ``OracleGmappingMap``; (f)
+   ``undistort``'s three cases against ``OracleUndistorter``.  The maps
+   count the cells that differ (the card's ``cosf`` / ``sinf`` are not
+   glibc's) against ``ORACLE_CELL_SHARE``.  Depth is the only cut: the
+   oracles are scalar NumPy on the host (CSM's correspondence search
+   ~13 s a 1081-beam pair), and the phase is kept within 60 s;
 5. the ``{"kernels": [...]}`` table and, last, the ``{"ok": true, ...}``
    line.  A row's ``launches`` counts its paths' runs, phase 4k's CLI
-   commands and phase 4m's sharded runs; ``launches_per_scan`` the paths
-   and the CLI; ``cli_launches`` and ``mesh_launches`` each phase alone.
+   commands, phase 4m's sharded runs and phase 4o's checks;
+   ``launches_per_scan`` the paths and the CLI; ``cli_launches``,
+   ``mesh_launches`` and ``oracle_launches`` each phase alone.
 
 Writes the full results to ``chiprun_out/chip_smoke.json``.  Imports
 nothing of JAX and nothing of the JAX package ``tpuslam``: the synthetic
-worlds come from the port's own copy, ``tpuslam_torch.io.simulate``; the
-run fails if ``jax``, ``tpuslam`` or a ``tpuslam.*`` module was imported.
+worlds come from the port's own copy, ``tpuslam_torch.io.simulate``, and
+the oracles from ``tpuslam_torch.oracle``; the run fails if ``jax``,
+``tpuslam`` or a ``tpuslam.*`` module was imported.
 """
 
 from __future__ import annotations
@@ -764,16 +790,20 @@ def karto_stream(where: str, num_beams: int, device):
 
 
 @contextlib.contextmanager
-def solve_timer():
+def solve_timer(inputs: list | None = None):
     """Time every ``KartoMapper.correct_poses`` (the pose-graph solve of a
     loop closure) on the host clock between two synchronizes; yields the
-    list of seconds."""
+    list of seconds.  With ``inputs``, each solve's graph is appended to
+    it first: (a copy of the poses, the list of edges)."""
     from tpuslam_torch.models.karto import KartoMapper
 
     orig = KartoMapper.correct_poses
     seconds = []
 
     def timed(self):
+        if inputs is not None:
+            n = len(self.records)
+            inputs.append((self.poses[:n].copy(), list(self.edges)))
         on_card = self.device.type == "cuda"
         if on_card:
             torch.cuda.synchronize()
@@ -821,14 +851,16 @@ def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
 
 def run_slice(cfg, device, num_beams: int, where: str = "room",
               max_scans: int = 256, profile: bool = False,
-              mapper_kw: dict | None = None):
+              mapper_kw: dict | None = None,
+              solve_inputs: list | None = None):
     """Phase 4: the Karto path over the circuit of ``world(where)``.
 
     Returns (numbers, mapper); the launch counters are set to 0 just
     before the stream and read just after it.  With ``profile`` (on the
     card), the stream runs again through a fresh mapper under
     ``torch.profiler``: the device busy share and device ms a scan.
-    ``mapper_kw`` goes to ``KartoMapper`` (phase 4m's ``loop_mesh``)."""
+    ``mapper_kw`` goes to ``KartoMapper`` (phase 4m's ``loop_mesh``);
+    ``solve_inputs`` to ``solve_timer`` (phase 4o's graph)."""
     from tpuslam_torch.models.karto import KartoMapper
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
@@ -839,7 +871,7 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
     on_card = torch.device(device).type == "cuda"
     _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
     results = []
-    with solve_timer() as solves:
+    with solve_timer(solve_inputs) as solves:
         if on_card:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2031,6 +2063,37 @@ def gmapping_mismatches(log, poses, devices) -> dict:
             "share": differ / max(visited, 1)}
 
 
+def tslg_codecs(path: Path, workdir: Path, runs: int = 20) -> dict:
+    """Phase 4k's ``.tslg`` check on the log that ``synth`` wrote (with
+    the record-array codec, the default): loads by both codecs, each timed
+    as the mean of ``runs`` loads, must hold equal arrays; the log written
+    again by each codec must give the synth file's bytes."""
+    from tpuslam_torch.io import bag
+
+    want = path.read_bytes()
+    out, logs = {"file_bytes": len(want)}, {}
+    for codec in bag.CODECS:
+        bag.load_tslg(path, codec=codec)
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            logs[codec] = bag.load_tslg(path, codec=codec)
+        out[f"{codec}_load_ms"] = (time.perf_counter() - t0) * 1e3 / runs
+    same = []
+    for codec in bag.CODECS:
+        again = workdir / f"again_{codec}.tslg"
+        bag.save_tslg(again, logs["native"], codec=codec)
+        same.append(again.read_bytes() == want)
+    a, b = (logs[c] for c in bag.CODECS)
+    out["loads_equal"] = (
+        all(np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)
+            for f in ("ranges", "stamps", "odom", "imu_wz"))
+        and all(getattr(a, f) == getattr(b, f)
+                for f in ("angle_min", "angle_increment", "range_min",
+                          "range_max", "time_increment")))
+    out["same_bytes"] = all(same)
+    return out
+
+
 def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
                   beams: int = CLI_BEAMS, scans: int = CLI_SCANS) -> dict:
     """Phase 4k: ``python -m tpuslam_torch.cli`` (in process) over a ROS1
@@ -2111,6 +2174,8 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
                            "--num-scans", str(scans), "--poses-per-rev", "40",
                            "--synthetic"])
     info2 = run("scan-info_tslg", "scan-info", ["--log", str(tslg)])
+    codecs = tslg_codecs(tslg, workdir)
+    print(f"cli .tslg codecs: {codecs} [{card}]", flush=True)
 
     on_device = {k: r for k, r in runs.items() if r["argv"][-1] == device}
     launches = {k: sum(r["launches"][k] for r in on_device.values())
@@ -2122,7 +2187,7 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
            "features_vs_cpu": feats, "undistort_max_diff_m": dpts,
            "gmapping_vs_cpu": gm, "occupancy_map": omap,
            "launches": launches, "launch_scans": launch_scans,
-           "held_runs": held_runs, "held_calls": held}
+           "held_runs": held_runs, "held_calls": held, "tslg": codecs}
     kr, kf = runs["karto"]["result"], runs["karto_undistort"]["result"]
     print(f"cli karto: ATE raw {ate['karto']:.4f} m, --undistort "
           f"{ate['karto_undistort']:.4f} m (bound {CLI_ATE_BOUND_M}), "
@@ -2134,6 +2199,8 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
     fails = []
     if info2["scans"] != scans:
         fails.append(f"scan-info of the synth .tslg: {info2}")
+    if not (codecs["loads_equal"] and codecs["same_bytes"]):
+        fails.append(f"the .tslg codecs disagree: {codecs}")
     for tag in ("karto", "karto_undistort"):
         got = runs[tag]["launches"]
         if device != "cpu" and not (got["fvp"] > 0 and got["patch_sums"] > 0):
@@ -2166,6 +2233,678 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
     return out
 
 
+# phase 4o: the card's paths against the f64 oracles of
+# ``tpuslam_torch.oracle`` on the same inputs, each with the bound that
+# tests/test_oracle_parity.py (or the test named) holds for the contract.
+# Karto's clean-scan bounds (test_matcher_parity_clean_scans): response,
+# metres, radians, covariance rtol (atol 1e-6 on the xy block, 1e-8 on
+# the heading).  They assume what that test's 120-beam fixture has: no
+# point within f32 rounding of a cell edge.  At 1081 beams x 8 base scans
+# (~8,500 stamped points a match) one does land there now and then, and
+# the f32 grid then stamps it a cell from the f64 one ("a flip").  So the
+# pose bounds hold against the oracle for every match, and the response
+# and covariance bounds for every match whose two grids are equal cell
+# for cell.  A match whose grids differ ("flagged") must owe it to flips
+# (``stamp_parity``: the same beams stamped, compared beam by beam; at
+# most two smear kernels of cells a flip), at most ORACLE_KARTO_FLAGGED of
+# them a run, and the oracle's search on the card's own grid
+# (``_match_on_grid``) must then meet every bound: the matcher is exact,
+# only the stamp moved
+ORACLE_KARTO_BOUNDS = {"response": 2e-5, "xy": 1e-4, "theta": 1e-4,
+                       "cov_rtol": 2e-3}
+ORACLE_KARTO_FLAGGED = 1
+ORACLE_SPA_BOUND = 5e-4  # test_spa2d_oracle_matches_tpu_solver
+# test_torch_plicp.py::test_plicp_matches_f64_oracle; ICP's clean pair
+# (TestPclIcpOracleParity)
+ORACLE_PLICP_BOUND = 1.5e-3
+ORACLE_ICP_BOUND = 2e-3
+# test_hector_gn_oracle_parity: cells, radians, H rtol
+ORACLE_HECTOR_BOUNDS = {"xy": 5e-3, "yaw": 5e-5, "h_rtol": 5e-4}
+# test_hector_map_update_oracle_parity's log-odds atol; a cell further
+# off counts as differing
+ORACLE_LOG_ODDS_ATOL = 2e-5
+ORACLE_UNDISTORT_ATOL_M = 5e-5  # TestUndistortOracleParity
+# the card's cosf / sinf are not glibc's: GMapping's counters and Hector's
+# map may differ in this share of the touched cells, as in phase 4k
+ORACLE_CELL_SHARE = CLI_GMAPPING_SHARE
+# depth, the only cut (the oracles are scalar NumPy on the host): K
+# sequential matches, each against the ORACLE_CHAIN scans before it, then
+# loop-scale matches; ICP pairs of phase 4d's stream and the first of
+# them for PL-ICP (CSM's correspondence search walks every point in
+# Python: ~13 s a pair at 1081 beams on an 8-core x86 host); Hector GN
+# matches; GMapping scans.  The width is the production one throughout
+ORACLE_MATCHES = 12
+ORACLE_CHAIN = 8
+ORACLE_LOOP_MATCHES = 2
+ORACLE_PLICP_PAIRS = 1
+ORACLE_ICP_PAIRS = 4
+ORACLE_HECTOR_MATCHES = 3
+ORACLE_GMAPPING_SCANS = 3
+
+
+def oracle_world() -> np.ndarray:
+    """The room of ``world("room")`` moved off the cell lattice (walls at
+    +-12.01535 / +-9.03505 m, boxes shifted by odd millimetres): the f32
+    matcher and the f64 oracle quantize alike only where points do not
+    land on cell edges (tests/test_oracle_parity.py)."""
+    from tpuslam_torch.io.simulate import rect_room
+
+    boxes = [(-6.013, -3.007), (5.011, 2.509), (-2.003, 4.517),
+             (7.019, -2.489)]
+    return np.concatenate([rect_room(24.0307, 18.0701)]
+                          + [_box_segs(c, half=0.6007) for c in boxes])
+
+
+def _synced(fn, device):
+    """(fn(), host seconds), synchronized on the card."""
+    return _timed(fn, torch.device(device).type == "cuda")
+
+
+def _cov_excess(ct, co, rtol) -> float:
+    """How far a covariance misses test_matcher_parity_clean_scans'
+    tolerance (<= 0 passes): the xy block within rtol and atol 1e-6, the
+    heading within rtol and atol 1e-8."""
+    xy = np.abs(ct[:2, :2] - co[:2, :2]) - (1e-6 + rtol * np.abs(co[:2, :2]))
+    th = abs(ct[2, 2] - co[2, 2]) - max(1e-8, rtol * abs(co[2, 2]))
+    return float(max(xy.max(), th))
+
+
+def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
+                 chain: int = ORACLE_CHAIN,
+                 loops: int = ORACLE_LOOP_MATCHES, seed: int = 5) -> dict:
+    """(a) ``match_scan`` at ``cfg``'s sequential spec for ``k`` scans of
+    the room circuit in ``oracle_world``, each against the ``chain`` scans
+    before it at their true poses, from a centre off the truth by
+    test_matcher_parity_clean_scans' noise (penalize and refine on, as
+    ``_fused_seq_step``); then ``loops`` coarse matches of the last scans
+    at the loop spec (penalize and refine off, as the loop search calls
+    it).  The same ranges, base poses and centre go to
+    ``OracleScanMatcher.match_scan``; the card's inputs are staged as
+    test_oracle_parity.py stages them (unfiltered: valid and r > 0)."""
+    from tpuslam_torch.core import se2
+    from tpuslam_torch.core.scan import make_scan, scan_to_points
+    from tpuslam_torch.io.simulate import simulate_scan
+    from tpuslam_torch.match.correlative import match_scan
+    from tpuslam_torch.models.karto import _spec
+    from tpuslam_torch.oracle import OracleScan, OracleScanMatcher
+
+    segs, nb = oracle_world(), cfg.num_beams
+    stream = []
+    for true, _ in circuit(-7.0, 7.0, -4.0, 4.0):
+        stream.append((true, *simulate_scan(segs, true, num_beams=nb,
+                                            max_range=30.0)))
+        if len(stream) == chain + k:
+            break
+    staged = []
+    for _, r, amin, ainc in stream:
+        sc = make_scan(r, angle_min=amin, angle_increment=ainc,
+                       range_min=0.1, range_max=30.0, num_beams=nb,
+                       device=device)
+        pts, valid = scan_to_points(sc)
+        staged.append((pts, valid & (sc.ranges > 0.0)))
+    specs = {
+        "sequential": (cfg.correlation_search_space_dimension,
+                       cfg.correlation_search_space_resolution,
+                       cfg.correlation_search_space_smear_deviation),
+        "loop": (cfg.loop_search_space_dimension,
+                 cfg.loop_search_space_resolution,
+                 cfg.loop_search_space_smear_deviation),
+    }
+    matchers = {kind: (_spec(cfg, res, dim, smear),
+                       OracleScanMatcher(dim, res, smear, cfg.use_scan_range,
+                                         cfg))
+                for kind, (dim, res, smear) in specs.items()}
+    rng = np.random.default_rng(seed)
+    cases = ([("sequential", i, True, [0.04, 0.04, 0.02])
+              for i in range(chain, chain + k)]
+             + [("loop", chain + k - 1 - j, False, [0.4, 0.4, 0.1])
+                for j in range(loops)])
+
+    def oscan(i, pose):
+        _, r, amin, ainc = stream[i]
+        return OracleScan(r, amin, ainc, range_threshold=cfg.use_scan_range,
+                          minimum_range=0.1, odom_pose=pose)
+
+    rows, card_s, oracle_s = [], 0.0, 0.0
+    for kind, i, on, sd in cases:
+        spec, om = matchers[kind]
+        center = stream[i][0] + rng.normal(0, sd)
+        bases = range(i - chain, i)
+        wpts = torch.stack([se2.transform_points(
+            torch.tensor(np.float32(stream[j][0]), device=device),
+            staged[j][0]) for j in bases])
+        wvalid = torch.stack([staged[j][1] for j in bases])
+        res, dt = _synced(lambda: match_scan(
+            spec, torch.tensor(np.float32(center), device=device),
+            *staged[i], wpts, wvalid, penalize=on, refine=on), device)
+        card_s += dt
+        obases = [oscan(j, stream[j][0]) for j in bases]
+        t0 = time.perf_counter()
+        want = om.match_scan(oscan(i, center), obases, penalize=on,
+                             refine=on)
+        oracle_s += time.perf_counter() - t0
+        row = {"kind": kind, "scan": i,
+               **_karto_deviation(res, *want),
+               "oracle_response": float(want[0])}
+        parity, grid = stamp_parity(spec, om, center, wpts, wvalid, obases)
+        row.update(parity)
+        if row["grid_cells_differing"]:
+            t0 = time.perf_counter()
+            witness = _match_on_grid(om, grid, oscan(i, center), obases, on)
+            oracle_s += time.perf_counter() - t0
+            row["on_card_grid"] = _karto_deviation(res, *witness)
+        rows.append(row)
+    # the response and covariance are held to the oracle where the grids
+    # are equal, to the oracle's search on the card's grid where not
+    held = [r.get("on_card_grid", r) for r in rows]
+    worst = {key: max(r[key] for r in rows) for key in ("xy", "theta")}
+    worst.update({key: max(r[key] for r in held)
+                  for key in ("response", "cov_excess")})
+    return {"matches": k, "loop_matches": loops, "chain": chain,
+            "beams": nb, "grids": {kind: m[0].grid_size
+                                   for kind, m in matchers.items()},
+            "flagged": sum(1 for r in rows if r["grid_cells_differing"]),
+            "rows": rows, "worst": worst, "card_s": card_s,
+            "oracle_s": oracle_s}
+
+
+def _karto_deviation(res, ro, po, co) -> dict:
+    """How far a card ``MatchResult`` is from an oracle's (response, pose,
+    covariance)."""
+    pt = res.pose.cpu().numpy().astype(np.float64)
+    ct = res.covariance.cpu().numpy().astype(np.float64)
+    return {"response": abs(float(res.response) - ro),
+            "xy": float(np.abs(pt[:2] - po[:2]).max()),
+            "theta": abs(math.remainder(pt[2] - po[2], 2 * math.pi)),
+            "cov_excess": _cov_excess(ct, co,
+                                      ORACLE_KARTO_BOUNDS["cov_rtol"])}
+
+
+def _match_on_grid(om, grid, scan, base_scans, on: bool):
+    """``om.match_scan`` with its correlation grid's region of interest
+    replaced by ``grid`` (the card's, in the oracle's cell values): the
+    reference's search over the very grid the card searched."""
+    stamp = om.add_scans
+
+    def add_scans(scans, viewpoint):
+        stamp(scans, viewpoint)
+        b, g = om.roi_xy, om.roi_size
+        om.data[b:b + g, b:b + g] = grid
+
+    om.add_scans = add_scans
+    try:
+        return om.match_scan(scan, base_scans, penalize=on, refine=on)
+    finally:
+        del om.add_scans
+
+
+def stamp_parity(spec, om, center, wpts, wvalid, oracle_bases):
+    """How the card's correlation grid of one match compares with the one
+    ``om`` (an ``OracleScanMatcher`` just after its ``match_scan``)
+    stamped.  Returns (the comparison, the card's grid as int64 [G, G]).
+
+    The comparison: the FindValidPoints counts of each, whether both kept
+    the same beams of the same base scans, the cells whose value differs,
+    and, beam by beam, the stamped points whose f32 cell (the port's
+    ``_cell`` on its f32 world points) is not the f64 cell the oracle
+    computes ("flips": a point within f32 rounding of a cell edge).  A
+    flip moves one smear kernel by one cell, so it changes at most two
+    kernels' cells (``max_cells``)."""
+    from tpuslam_torch.match import correlative as tc
+    from tpuslam_torch.ops import fvp
+    from tpuslam_torch.ops.correlative import byte_grid
+
+    g, res = spec.grid_size, spec.resolution
+    c32 = torch.tensor(np.float32(center), device=wpts.device)
+    vp = fvp.find_valid_points(wpts, wvalid, c32[:2])
+    q = byte_grid(tc.build_correlation_grid(spec, c32[:2], wpts, vp))
+    q = q.cpu().numpy().astype(np.int64)
+    b = om.roi_xy
+    want = om.data[b:b + g, b:b + g].astype(np.int64)
+    cells = tc._cell(wpts[vp] - (c32[:2] - 0.5 * (g - 1) * res), res)
+    card_beams = [tuple(ix) for ix in torch.nonzero(vp).cpu().tolist()]
+    pts, beams = [], []
+    for s_i, sc in enumerate(oracle_bases):
+        points = sc.unfiltered_points
+        kept = om.find_valid_points(points, center[:2])
+        pts += kept
+        beams += [(s_i, b_i) for b_i in _rows_of(points, kept)]
+    kernel = (2 * om.half_kernel + 1) ** 2
+    out = {"fvp_card": int(vp.sum()), "fvp_oracle": len(pts),
+           "same_points": beams == card_beams,
+           "grid_cells_differing": int((q != want).sum())}
+    flips = 0
+    if out["same_points"] and pts:
+        ocells = om._world_to_grid(np.stack(pts))
+        flips = int((cells.cpu().numpy() != ocells).any(axis=1).sum())
+    out.update(stamp_flips=flips, max_cells=2 * kernel * flips)
+    return out, q
+
+
+def _rows_of(points: np.ndarray, kept: list) -> list:
+    """The row index in ``points`` of each row ``find_valid_points``
+    returned: it returns views of the rows, so the index is the view's
+    offset.  Checked against the values."""
+    base, step = points.ctypes.data, points.strides[0]
+    rows = [(r.ctypes.data - base) // step for r in kept]
+    for r, v in zip(rows, kept):
+        if not np.array_equal(points[r], v, equal_nan=True):
+            raise RuntimeError("find_valid_points returned a copy, not a "
+                               "view of its input's rows")
+    return rows
+
+
+def oracle_spa(poses, edges, device) -> dict:
+    """(b) the ``spa_solver`` backend (on the card, the captured LM
+    iteration) and ``OracleSpa2d.do_spa`` on one pose graph: the nodes in
+    the mapper's order and ids, each edge's relative-pose mean and 3x3
+    precision, the first node fixed in both."""
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+    from tpuslam_torch.oracle import OracleSpa2d
+
+    def card():
+        g = graph_from_edges(poses, edges, device=device)
+        return make_solver("spa_solver").compute(g)
+
+    (got, stats), card_s = _synced(card, device)
+    got = got.cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    spa = OracleSpa2d()
+    for i, p in enumerate(poses):
+        spa.add_node(p, i)
+    for i, j, mean, prec in edges:
+        spa.add_constraint(i, j, mean, prec)
+    iters = spa.do_spa(40)
+    want = np.stack([spa.get_poses()[i] for i in range(len(poses))])
+    oracle_s = time.perf_counter() - t0
+    dth = np.abs(np.remainder(got[:, 2] - want[:, 2] + math.pi, 2 * math.pi)
+                 - math.pi)
+    return {"nodes": len(poses), "edges": len(edges),
+            "xy": float(np.abs(got[:, :2] - want[:, :2]).max()),
+            "theta": float(dth.max()), "oracle_good_iters": iters,
+            "initial_cost": float(stats.initial_cost),
+            "final_cost": float(stats.final_cost),
+            "moved_m": float(np.abs(want[:, :2] - np.asarray(poses)[:, :2])
+                             .max()),
+            "card_s": card_s, "oracle_s": oracle_s}
+
+
+def oracle_scan_pairs(device, num_beams: int = 1081,
+                      pairs: int = ORACLE_ICP_PAIRS,
+                      plicp_pairs: int = ORACLE_PLICP_PAIRS) -> dict:
+    """(c) ``pairs`` consecutive pairs spread over phase 4d's stream: ICP
+    in the kernel's nearest mode (PCL's default 10 iterations) against
+    ``OraclePclIcp.align`` on the node's clouds (invalid beams at the
+    origin, all points valid), and for the first ``plicp_pairs`` of them
+    ``plicp`` (the kernel's line mode on the card) against
+    ``OracleCsm.sm_icp``; each from a zero guess on the ranges the card
+    sees."""
+    from tpuslam_torch.core.config import IcpConfig, PlicpConfig
+    from tpuslam_torch.core.scan import scan_to_points
+    from tpuslam_torch.match.icp import icp
+    from tpuslam_torch.match.plicp import plicp
+    from tpuslam_torch.oracle import OracleCsm, OracleLdp, OraclePclIcp
+    from tpuslam_torch.oracle.icp_pcl import convert_scan_to_cloud
+
+    rmin, rmax = 0.05, 19.0
+    _, _, scans = odometry_stream(device, num_beams, 320)
+    amin = float(scans[0].angles[0])
+    ainc = float(scans[0].angles[1] - scans[0].angles[0])
+    pcfg = PlicpConfig(num_beams=num_beams)
+    icfg = IcpConfig(num_beams=num_beams, correspondence_method="kernel")
+    allv = torch.ones(num_beams, dtype=torch.bool, device=device)
+    step = (len(scans) - 1) // pairs
+    rows, card_s, oracle_s = [], 0.0, 0.0
+    for n, i in enumerate(range(0, step * pairs, step)):
+        s0, s1 = scans[i], scans[i + 1]
+        r0, r1 = (s.ranges.cpu().numpy().astype(np.float64)
+                  for s in (s0, s1))
+        p0, v0 = scan_to_points(s0)
+        p1, v1 = scan_to_points(s1)
+        c0, c1 = (convert_scan_to_cloud(r, amin, ainc, rmin, rmax)
+                  for r in (r0, r1))
+        q0, q1 = (torch.tensor(c, dtype=torch.float32, device=device)
+                  for c in (c0, c1))
+        ti, dt = _synced(lambda: icp(icfg, q0, allv, q1, allv), device)
+        card_s += dt
+        t0 = time.perf_counter()
+        oi = OraclePclIcp().align(c0, c1)
+        oracle_s += time.perf_counter() - t0
+        row = {"pair": i,
+               "icp_converged": [bool(ti.converged), bool(oi.converged)],
+               "icp": float(np.abs(ti.pose.cpu().numpy() - oi.x).max())}
+        if n < plicp_pairs:
+            tp, dt = _synced(lambda: plicp(pcfg, p1, v1, p0, v0), device)
+            card_s += dt
+            t0 = time.perf_counter()
+            op = OracleCsm(min_reading=rmin, max_reading=rmax).sm_icp(
+                OracleLdp.from_scan(r0, amin, ainc, rmin, rmax),
+                OracleLdp.from_scan(r1, amin, ainc, rmin, rmax), np.zeros(3))
+            oracle_s += time.perf_counter() - t0
+            row.update(plicp_valid=[bool(tp.valid), bool(op.valid)],
+                       plicp=float(np.abs(tp.pose.cpu().numpy() - op.x)
+                                   .max()))
+        rows.append(row)
+    return {"pairs": pairs, "plicp_pairs": plicp_pairs, "beams": num_beams,
+            "rows": rows,
+            "worst": {key: max(r[key] for r in rows if key in r)
+                      for key in ("plicp", "icp")},
+            "card_s": card_s, "oracle_s": oracle_s}
+
+
+def oracle_hector(device, num_beams: int = 1081,
+                  matches: int = ORACLE_HECTOR_MATCHES) -> dict:
+    """(d) test_hector_gn_oracle_parity's fixture at ``num_beams``: the
+    engine maps three scans of the off-lattice 8.06 x 6.14 m room into a
+    256-cell map at 0.05 m (``map_without_matching``), its log-odds level
+    0 against ``OracleHectorMap.update_by_scan`` on the same points and
+    map poses (cells beyond ``ORACLE_LOG_ODDS_ATOL`` counted); then
+    ``ops.hector.match_level_kernel`` (``hector_gn``, 6 iterations, the
+    whole map as its window) from a guess off the truth against
+    ``OracleHectorMatcher.match`` (5 + 1 iterations) on the grid the
+    kernel reads (the probabilities rounded to bf16), at ``matches``
+    poses: the test's and two more."""
+    from tpuslam_torch.core.config import HectorConfig
+    from tpuslam_torch.core.scan import make_scan, scan_to_points
+    from tpuslam_torch.io.simulate import rect_room, simulate_scan
+    from tpuslam_torch.models import hector_slam
+    from tpuslam_torch.ops.bilinear import prob_from_log_odds
+    from tpuslam_torch.ops.hector import match_level_kernel
+    from tpuslam_torch.oracle import OracleHectorMap, OracleHectorMatcher
+
+    cfg = HectorConfig(map_size=256, map_resolution=0.05,
+                       num_beams=num_beams, ray_steps=256)
+    segs = rect_room(8.0614, 6.1402)
+
+    def scan_at(pose):
+        r, amin, ainc = simulate_scan(
+            segs, pose, num_beams=num_beams, max_range=20.0,
+            noise_std=0.004, rng=np.random.default_rng(17))
+        return make_scan(r, angle_min=amin, angle_increment=ainc,
+                         range_min=0.1, range_max=20.0, num_beams=num_beams,
+                         device=device)
+
+    spec = hector_slam.make_specs(cfg)[0]
+    res = np.float32(cfg.map_resolution)
+    seeds = [np.zeros(3), np.array([0.25, 0.15, 0.2]),
+             np.array([-0.25, -0.15, -0.2])]
+
+    def build():
+        st, mapped = hector_slam.init_state(cfg, device=device), []
+        for p in seeds:
+            st = st._replace(pose=torch.tensor(p, dtype=torch.float32,
+                                               device=device))
+            n = int(st.num_updates)
+            st, _ = hector_slam.step(cfg, st, scan_at(p),
+                                     map_without_matching=True)
+            if int(st.num_updates) > n:  # the engine's update gate passed
+                mapped.append(p)
+        return st, mapped
+
+    (st, mapped), card_s = _synced(build, device)
+    t0 = time.perf_counter()
+    omap = OracleHectorMap(cfg.map_size, cfg.map_size,
+                           cfg.update_factor_free, cfg.update_factor_occupied)
+    for p in mapped:
+        pts, valid = hector_slam.gated_points(cfg, scan_at(p))
+        pm = spec.world_pose_to_map(torch.tensor(p, dtype=torch.float32))
+        omap.update_by_scan((pts[valid].cpu().numpy() / res),
+                            pm.numpy().astype(np.float64))
+    oracle_s = time.perf_counter() - t0
+    lo = st.log_odds[0].cpu().numpy().astype(np.float64)
+    want = omap.grid()
+    touched = int(((lo != 0) | (want != 0)).sum())
+    differ = int((np.abs(lo - want) > ORACLE_LOG_ODDS_ATOL).sum())
+    out = {"beams": num_beams, "map": cfg.map_size,
+           "map_update": {"scans": len(mapped), "differing_cells": differ,
+                          "touched_cells": touched,
+                          "share": differ / max(touched, 1),
+                          "max_abs": float(np.abs(lo - want).max())}}
+    grid = prob_from_log_odds(st.log_odds[0])
+    grid_bf = grid.to(torch.bfloat16).float().cpu().numpy()
+    truths = [np.array([0.07, -0.05, 0.06]), np.array([-0.11, 0.08, -0.04]),
+              np.array([0.15, 0.12, 0.1])][:matches]
+    rows = []
+    for true in truths:
+        pts, valid = scan_to_points(scan_at(true))
+        pts_map = pts / res
+        pose0 = spec.world_pose_to_map(torch.tensor(
+            true + [0.03, -0.02, 0.025], dtype=torch.float32, device=device))
+        (gp, gh, _), dt = _synced(lambda: match_level_kernel(
+            grid, pts_map[None], valid[None], pose0[None],
+            window=cfg.map_size, num_iters=6), device)
+        card_s += dt
+        t0 = time.perf_counter()
+        wp, wh = OracleHectorMatcher(grid_bf).match(
+            pose0.cpu().numpy().astype(np.float64),
+            pts_map[valid].cpu().numpy(), max_iterations=5)
+        oracle_s += time.perf_counter() - t0
+        gp = gp[0].cpu().numpy().astype(np.float64)
+        gh = gh[0].cpu().numpy().astype(np.float64)
+        rows.append({"truth": true.tolist(),
+                     "xy": float(np.abs(gp[:2] - wp[:2]).max()),
+                     "yaw": abs(float(gp[2] - wp[2])),
+                     "h_rel": float((np.abs(gh - wh)
+                                     / np.maximum(np.abs(wh), 1e-30)).max())})
+    out.update(rows=rows, worst={key: max(r[key] for r in rows)
+                                 for key in ("xy", "yaw", "h_rel")},
+               card_s=card_s, oracle_s=oracle_s)
+    return out
+
+
+def oracle_gmapping(device, num_beams: int = 1081,
+                    scans: int = ORACLE_GMAPPING_SCANS) -> dict:
+    """(e) test_gmapping_oracle_parity's fixture at ``num_beams`` (random
+    ranges of 0.5-11.5 m, a zero, a NaN, one beyond maxRange and one at
+    maxUrange exactly) at the origin, then at ``scans - 1`` more poses:
+    ``map_from_scans``' counters on the card against
+    ``OracleGmappingMap.compute_map`` (the laser at the pose, the beam
+    angles turned by its heading).  Returns the cells whose hits or visits
+    differ."""
+    from tpuslam_torch.core.config import GmappingConfig
+    from tpuslam_torch.core.scan import make_scan
+    from tpuslam_torch.models import gmapping
+    from tpuslam_torch.oracle import OracleGmappingMap
+
+    cfg = GmappingConfig(xmin=-10.0, xmax=10.0, ymin=-10.0, ymax=10.0,
+                         delta=0.05, maxRange=12.0, maxUrange=6.0,
+                         num_beams=num_beams, ray_steps=512)
+    rng = np.random.default_rng(7)
+    angles = np.linspace(-np.pi, np.pi, num_beams, endpoint=False) + 0.0113
+    ranges = rng.uniform(0.5, 11.5, (scans, num_beams))
+    ranges[0, 3:7] = [0.0, np.nan, 12.7, 6.0]
+    poses = np.array([[0.0, 0.0, 0.0], [1.2307, -0.8113, 0.4],
+                      [-0.9511, 1.0733, -1.1]])[:scans]
+    sc = make_scan(ranges, angle_min=float(angles[0]),
+                   angle_increment=float(angles[1] - angles[0]),
+                   range_min=0.0, range_max=np.inf, num_beams=num_beams,
+                   device=device)
+    counts, card_s = _synced(lambda: gmapping.map_from_scans(
+        cfg, torch.tensor(poses, dtype=torch.float32, device=device), sc),
+        device)
+    t0 = time.perf_counter()
+    spec = gmapping.make_spec(cfg)
+    om = OracleGmappingMap(spec.size_x, spec.size_y, cfg.delta,
+                           (cfg.xmin + cfg.xmax) / 2,
+                           (cfg.ymin + cfg.ymax) / 2)
+    for p, r in zip(poses, ranges):
+        om.compute_map(r, np.cos(p[2] + angles), np.sin(p[2] + angles),
+                       lp=(p[0], p[1]), max_range=cfg.maxRange,
+                       max_use_range=cfg.maxUrange)
+    oracle_s = time.perf_counter() - t0
+    hits = counts.hits.cpu().numpy().astype(np.int64)
+    visits = counts.visits.cpu().numpy().astype(np.int64)
+    visited = int(((visits > 0) | (om.visits > 0)).sum())
+    differ = int(((hits != om.n) | (visits != om.visits)).sum())
+    return {"beams": num_beams, "scans": scans, "differing_cells": differ,
+            "visited_cells": visited, "share": differ / max(visited, 1),
+            "oracle_hits": int(om.n.sum()),
+            "oracle_visits": int(om.visits.sum()),
+            "card_s": card_s, "oracle_s": oracle_s}
+
+
+def oracle_undistort(device, num_beams: int = 1081) -> dict:
+    """(f) TestUndistortOracleParity's three cases at ``num_beams``: a
+    scan taken while yawing (and rolling / pitching) and translating, gyro
+    samples bracketing it, odometry at its span; ``undistort`` on the card
+    against ``OracleUndistorter``: yaw only (the validity masks equal),
+    three axes with the reference's z quirk, three axes without it (the
+    oracle's ``point_z=0``).  Largest point difference of each."""
+    from tpuslam_torch.core.config import UndistortConfig
+    from tpuslam_torch.core.scan import make_scan
+    from tpuslam_torch.models.undistort import make_imu_buffer, undistort
+    from tpuslam_torch.oracle import OracleUndistorter
+
+    n, period = num_beams, 0.1
+    t0, t1, tinc = 0.0, period, period / n
+    rows, card_s, oracle_s = {}, 0.0, 0.0
+    for case, (wx, wy), point_z, kw in (
+        ("yaw_only", (0.0, 0.0), 1.0, {}),
+        ("three_axis_quirk", (0.3, -0.2), 1.0,
+         {"three_axis": True, "pcl_z_quirk": True}),
+        ("three_axis", (0.3, -0.2), 0.0, {"three_axis": True}),
+    ):
+        wz, vel = 0.6, (0.8, -0.4)
+        rng = np.random.default_rng(5)
+        ranges = rng.uniform(2.0, 6.0, n)
+        ranges[[3, 70]] = np.nan
+        amin, inc = -np.pi / 2, np.pi / (n - 1)
+        imu_t = np.concatenate([[t0 - 1e-5], np.linspace(t0, t1, 17)[1:],
+                                [t1 + 0.01]])
+        imu_w = np.tile([wx, wy, wz], (len(imu_t), 1))
+        odom_t = [t0, t1, t1 + 0.02]
+        odom_p = np.zeros((3, 6))
+        for i, t in enumerate(odom_t):
+            odom_p[i, :2] = np.asarray(vel) * (t - t0)
+            odom_p[i, 5] = wz * period * (t - t0) / period
+        odom_rel = np.array([vel[0] * period, vel[1] * period, wz * period])
+
+        def card():
+            sc = make_scan(ranges, angle_min=amin, angle_increment=inc,
+                           range_min=0.1, range_max=30.0,
+                           time_increment=tinc, device=device)
+            imu = make_imu_buffer(imu_t, imu_w[:, 2], capacity=64,
+                                  wx=imu_w[:, 0], wy=imu_w[:, 1],
+                                  device=device)
+            return undistort(UndistortConfig(num_beams=n, **kw), sc, imu,
+                             torch.tensor(odom_rel, dtype=torch.float32,
+                                          device=device), t0, t1)
+
+        (got, gvalid), dt = _synced(card, device)
+        card_s += dt
+        t_o = time.perf_counter()
+        orc = OracleUndistorter(point_z=point_z)
+        orc.prune_imu(imu_t, imu_w, t0, t1)
+        orc.prune_odom(odom_t, odom_p, t0, t1)
+        want, wvalid = orc.correct(ranges, amin + np.arange(n) * inc, 0.1,
+                                   30.0, t0, tinc)
+        oracle_s += time.perf_counter() - t_o
+        got = got.cpu().numpy().astype(np.float64)
+        m = gvalid.cpu().numpy()
+        d = got.shape[1]
+        rows[case] = {"max_abs_m": float(np.abs(got[m] - want[m][:, :d])
+                                         .max()),
+                      "masks_equal": bool(np.array_equal(m, wvalid))}
+    return {"beams": n, "cases": rows, "card_s": card_s,
+            "oracle_s": oracle_s}
+
+
+def run_oracle_phase(cfg, device, card: str, graph,
+                     num_beams: int = 1081, k: int = ORACLE_MATCHES) -> dict:
+    """Phase 4o: (a)-(f) above at ``num_beams``; ``graph`` is the
+    (poses, edges) of a Karto closure's solve (phase 4c's last).  The
+    launch counters are set to 0 just before and read just after.  Each
+    sub-phase prints its largest deviations and its seconds (the card's
+    calls and the oracle's host time apart); any miss of a bound raises."""
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.ops import hector as ops_h
+    from tpuslam_torch.ops import plicp as ops_p
+
+    counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_p.LAUNCHES,
+                ops_h.LAUNCHES)
+    t_phase = time.perf_counter()
+    _reset(*counters)
+    out, fails = {}, []
+
+    def sub(tag, fn, *args, **kw):
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        r["seconds"] = time.perf_counter() - t0
+        out[tag] = r
+        shown = {key: v for key, v in r.items()
+                 if key not in ("rows", "card_s", "oracle_s", "seconds")}
+        print(f"4o {tag}: {shown}; card {r['card_s']:.2f} s, oracle "
+              f"{r['oracle_s']:.2f} s, {r['seconds']:.2f} s in all "
+              f"[{card}]", flush=True)
+        return r
+
+    a = sub("karto", oracle_karto, cfg, device, k=k)
+    for key, bnd in ORACLE_KARTO_BOUNDS.items():
+        got = a["worst"]["cov_excess" if key == "cov_rtol" else key]
+        if not got <= (0.0 if key == "cov_rtol" else bnd):
+            fails.append(f"karto {key}: {got} against {bnd}")
+    for r in a["rows"]:
+        if not r["same_points"]:
+            fails.append(f"karto: the card and the oracle stamp different "
+                         f"beams: {r}")
+        elif r["grid_cells_differing"] > r["max_cells"]:
+            fails.append(f"karto grids differ beyond f32 rounding: {r}")
+        elif r["grid_cells_differing"]:
+            print(f"  4o karto {r['kind']} scan {r['scan']}: "
+                  f"{r['stamp_flips']} stamped point(s) within f32 "
+                  f"rounding of a cell edge, {r['grid_cells_differing']} "
+                  f"grid cells differ (at most {r['max_cells']}); response "
+                  f"off the oracle's by {r['response']}, off the oracle's "
+                  f"on the card's grid by {r['on_card_grid']['response']}",
+                  flush=True)
+    if a["flagged"] > ORACLE_KARTO_FLAGGED:
+        fails.append(f"karto: {a['flagged']} matches with differing grids, "
+                     f"more than {ORACLE_KARTO_FLAGGED}")
+    b = sub("spa", oracle_spa, *graph, device)
+    if not max(b["xy"], b["theta"]) < ORACLE_SPA_BOUND:
+        fails.append(f"SPA solve: {b['xy']} m / {b['theta']} rad against "
+                     f"{ORACLE_SPA_BOUND}")
+    c = sub("pairs", oracle_scan_pairs, device, num_beams)
+    if not all(all(r.get("plicp_valid", [True])) and all(r["icp_converged"])
+               for r in c["rows"]):
+        fails.append(f"a pair did not converge in both: {c['rows']}")
+    if not c["worst"]["plicp"] <= ORACLE_PLICP_BOUND:
+        fails.append(f"PL-ICP {c['worst']['plicp']} against "
+                     f"{ORACLE_PLICP_BOUND}")
+    if not c["worst"]["icp"] <= ORACLE_ICP_BOUND:
+        fails.append(f"ICP {c['worst']['icp']} against {ORACLE_ICP_BOUND}")
+    d = sub("hector", oracle_hector, device, num_beams)
+    hb = ORACLE_HECTOR_BOUNDS
+    if not (d["worst"]["xy"] <= hb["xy"] and d["worst"]["yaw"] < hb["yaw"]
+            and d["worst"]["h_rel"] <= hb["h_rtol"]):
+        fails.append(f"hector_gn: {d['worst']} against {hb}")
+    if not d["map_update"]["share"] <= ORACLE_CELL_SHARE:
+        fails.append(f"Hector map update: {d['map_update']}")
+    e = sub("gmapping", oracle_gmapping, device, num_beams)
+    if not e["share"] <= ORACLE_CELL_SHARE:
+        fails.append(f"GMapping counters: {e}")
+    if not e["oracle_hits"] > 100:
+        fails.append(f"GMapping: the fixture painted nothing {e}")
+    f = sub("undistort", oracle_undistort, device, num_beams)
+    for case, r in f["cases"].items():
+        if not r["max_abs_m"] <= ORACLE_UNDISTORT_ATOL_M:
+            fails.append(f"undistort {case}: {r}")
+    if not f["cases"]["yaw_only"]["masks_equal"]:
+        fails.append("undistort: the validity masks differ")
+    launches = {key: v for cnt in counters for key, v in cnt.items()}
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    print(f"4o: K={k} matches, launches {launches}, "
+          f"{out['seconds']:.2f} s [{card}]", flush=True)
+    if torch.device(device).type == "cuda":
+        idle = [key for key, v in launches.items() if v <= 0]
+        if idle:
+            fails.append(f"kernels never launched in phase 4o: {idle}")
+    if fails:
+        raise RuntimeError("phase 4o: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2190,6 +2929,12 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    from tpuslam_torch.io import _native
+
+    _native.load()
+    codec = dict(_native.BUILD_INFO)
+    print(f"native .tslg codec: {codec['seconds']:.2f} s "
+          f"(compiled={codec['compiled']}) {codec['path']}", flush=True)
 
     # ---- 3. kernels == plain at production sizes
     mark(f"3. kernels vs plain, {TIMED_RUNS} calls a timing")
@@ -2235,7 +2980,9 @@ def main() -> int:
     # courtyard built for this operating point separates the trajectory by
     # more than 15 m, and its circuit is longer than the running window
     mark("4c. Karto, courtyard")
-    sl, ml = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True)
+    graphs = []  # each closure's graph as its solve met it (phase 4o)
+    sl, ml = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True,
+                       solve_inputs=graphs)
     _report("slice (outdoor, courtyard)", sl, card)
     print(f"  correct_poses synced seconds {sl['solve_seconds']} (the first "
           f"captures its bucket's LM iteration) [{card}]", flush=True)
@@ -2429,6 +3176,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         clir = run_cli_phase(card, Path(tmp))
     mark("4k done")
+
+    # 4o. the card's paths against the f64 oracles at production width
+    mark("4o. the oracles on the card")
+    orc = run_oracle_phase(cfg, "cuda", card, graphs[-1])
+    mark(f"4o done in {orc['seconds']:.1f} s")
     foreign = reference_modules()
     if foreign:
         raise RuntimeError(f"modules of JAX or the JAX package were "
@@ -2469,9 +3221,12 @@ def main() -> int:
     launches = {k: v + cli_launches[k] for k, v in launches.items()}
     per_scan = {k: launches[k] / (path_scans[k] + cli_scans[k])
                 for k in launches}
-    # phase 4m's sharded runs join the count, not the share a scan
+    # phase 4m's sharded runs and phase 4o's checks join the count, not
+    # the share a scan
     mesh_launches = {k: mesh_r["launches"].get(k, 0) for k in launches}
-    launches = {k: v + mesh_launches[k] for k, v in launches.items()}
+    oracle_launches = {k: orc["launches"].get(k, 0) for k in launches}
+    launches = {k: v + mesh_launches[k] + oracle_launches[k]
+                for k, v in launches.items()}
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -2490,6 +3245,7 @@ def main() -> int:
             "cli_launches_per_scan": (cli_launches[name] / cli_scans[name]
                                       if cli_scans[name] else None),
             "mesh_launches": mesh_launches[name],
+            "oracle_launches": oracle_launches[name],
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()
@@ -2503,7 +3259,8 @@ def main() -> int:
         "maps": {**maps, **batch_maps}, "endurance": endu, "odometry": od,
         "odometry_plain_path": odp, "frame_to_frame": ff,
         "batches": batches, "hector_batch": hb, "hector_engine": he,
-        "cli": clir, "mesh": mesh_r, "kernels": kernels}, indent=1))
+        "cli": clir, "mesh": mesh_r, "oracle": orc, "codec": codec,
+        "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

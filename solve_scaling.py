@@ -1,0 +1,165 @@
+"""Seconds and memory of the pose-graph solve (``tpuslam_torch/graph/
+solver.py``: LM with a dense float64 Cholesky step) by graph size on one
+CUDA card, and the endurance stream's whole run through it.
+
+    python3 solve_scaling.py [--nodes 256,1024,2048,4096,8192]
+                             [--oracle-max 2048] [--endurance 1536]
+
+For each node count, a garland graph: laps of 64 poses on a 6 m circle,
+an odometry edge between consecutive poses (noisy), and every 8th pose
+tied to the pose one lap back by a loop edge (exact), from a noisy
+dead-reckoned start.  The ``spa_solver`` preset solves it on the card:
+
+- ``first_s``: the first call, synced (it captures the bucket's LM
+  iteration as a CUDA graph);
+- ``replay_s``: the median of 3 later calls, synced (copy in, 40
+  replays);
+- ``peak_bytes``: ``torch.cuda.max_memory_allocated`` over those calls,
+  from a reset just before (the captured graph's pool included);
+- the cost before and after, and for counts up to ``--oracle-max`` the
+  largest distance of a pose from ``OracleSpa2d``'s (xy and heading).
+
+A count whose bucket exceeds ``solver.MAX_NODES`` is expected to raise
+``ValueError``, and is reported so.  Then ``chip_smoke.run_endurance``
+over ``--endurance`` scans of the lossy garland stream (0 skips it):
+scans/s, the closures' solves and their seconds.  Prints one line a
+measurement, with the card's name and power limit, and writes
+``chiprun_out/solve_scaling.json``.  Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "solve_scaling.json"
+LAP = 64
+
+
+def garland(n: int, seed: int = 0):
+    """(initial poses [n, 3], edges [(i, j, mean, precision)])."""
+    from tpuslam_torch.models.karto import _np_compose
+
+    rng = np.random.default_rng(seed)
+    step = np.array([2 * math.pi * 6.0 / LAP, 0.0, 2 * math.pi / LAP])
+    true = np.zeros((n, 3))
+    for i in range(1, n):
+        true[i] = _np_compose(true[i - 1], step)
+        true[i, :2] += [0.0, 0.02 * (i // LAP)]  # laps drift apart
+
+    def rel(a, b):
+        c, s = math.cos(a[2]), math.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                         math.remainder(b[2] - a[2], 2 * math.pi)])
+
+    prec = np.array([[400.0, 10.0, 0.0], [10.0, 300.0, 0.0],
+                     [0.0, 0.0, 2000.0]])
+    edges, init = [], true.copy()
+    for i in range(n - 1):
+        meas = rel(true[i], true[i + 1]) + rng.normal(0, [0.02, 0.02, 0.004])
+        edges.append((i, i + 1, meas, prec))
+        init[i + 1] = _np_compose(init[i], meas)
+    for i in range(LAP, n, 8):
+        edges.append((i - LAP, i, rel(true[i - LAP], true[i]), 2 * prec))
+    return init, edges
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def oracle_poses(poses, edges) -> np.ndarray:
+    from tpuslam_torch.oracle import OracleSpa2d
+
+    spa = OracleSpa2d()
+    for i, p in enumerate(poses):
+        spa.add_node(p, i)
+    for i, j, mean, prec in edges:
+        spa.add_constraint(i, j, mean, prec)
+    spa.do_spa(40)
+    got = spa.get_poses()
+    return np.stack([got[i] for i in range(len(poses))])
+
+
+def measure(n: int, oracle_max: int) -> dict:
+    from tpuslam_torch.graph import solver
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+
+    poses, edges = garland(n)
+    row = {"nodes": n, "edges": len(edges),
+           "bucket": solver._pow2(n, 256)}
+    g = graph_from_edges(poses, edges, device="cuda")
+    solve = make_solver("spa_solver").compute
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        (got, stats), row["first_s"] = _synced(lambda: solve(g))
+    except ValueError as err:  # past MAX_NODES
+        row["refused"] = str(err)
+        return row
+    times = [_synced(lambda: solve(g))[1] for _ in range(3)]
+    row.update(replay_s=statistics.median(times), replays_s=times,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               initial_cost=float(stats.initial_cost),
+               final_cost=float(stats.final_cost),
+               good_iters=int(stats.good_iters))
+    if n <= oracle_max:
+        t0 = time.perf_counter()
+        want = oracle_poses(poses, edges)
+        row["oracle_s"] = time.perf_counter() - t0
+        got = got.cpu().numpy().astype(np.float64)
+        row["oracle_xy"] = float(np.abs(got[:, :2] - want[:, :2]).max())
+        row["oracle_theta"] = float(np.abs(np.remainder(
+            got[:, 2] - want[:, 2] + math.pi, 2 * math.pi) - math.pi).max())
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nodes", default="256,1024,2048,4096,8192")
+    ap.add_argument("--oracle-max", type=int, default=2048)
+    ap.add_argument("--endurance", type=int, default=1536)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("solve_scaling: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    out = {"card": card, "solves": []}
+    for n in (int(v) for v in args.nodes.split(",")):
+        row = measure(n, args.oracle_max)
+        out["solves"].append(row)
+        print(json.dumps(row), f"[{card}]", flush=True)
+    if args.endurance:
+        from tpuslam_torch.ops import _build
+
+        _build.load()
+        endu = chip_smoke.run_endurance("cuda", args.endurance)
+        out["endurance"] = endu
+        shown = {k: v for k, v in endu.items()
+                 if k not in ("closure_events", "launches")}
+        print("endurance", json.dumps(shown), f"[{card}]", flush=True)
+    OUT.parent.mkdir(exist_ok=True)
+    OUT.write_text(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

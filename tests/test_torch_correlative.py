@@ -149,13 +149,22 @@ def test_match_scan_matches_jax(kw, base, start, penalize, refine):
 
 def test_match_scan_blind_scan_expansion_retry():
     """A base with no points in view gives a zero coarse response: both
-    sides retry the +20/40/60 deg windows and end at the same result."""
+    sides retry the +20/40/60 deg windows and end at the same result, but
+    for the heading variance of no response.  The reference
+    (Mapper.cpp:641-692) and the f64 oracle put it at 1000 x the square of
+    the fine sweep's resolution; the JAX package takes the coarse
+    resolution there (ROADMAP C.7), the port the reference's."""
     kw = dict(SEQ, use_response_expansion=True)
     center, lp, lv, wp, bv = _fixture(np.zeros(3), [0.1, -0.08, 0.1])
     bv = np.zeros_like(bv)
     rj, rt = _match_both(kw, center, lp, lv, wp, bv)
     assert float(rj.response) == 0.0
-    _assert_results_close(rj, rt)
+    spec = _specs(kw)[1]
+    want = np.array(rj.covariance)
+    assert want[2, 2] == pytest.approx(
+        1000.0 * spec.coarse_angle_resolution**2, rel=1e-6)
+    want[2, 2] = np.float32(1000.0 * spec.fine_angle_offset**2)
+    _assert_results_close(rj._replace(covariance=want), rt)
 
 
 @pytest.mark.parametrize("count_invalid", [True, False])

@@ -6,8 +6,10 @@ the JAX package, and entry points that run on the card by default.
   (``simulate_distorted_scan`` too): held bit for bit;
 - a fresh interpreter that imports every module of ``tpuslam_torch`` (the
   engines, ``cli``, ``checkpoint``, ``io.bag``, ``io.rosbag``,
-  ``core.frames``, ``utils.*``), ``chip_smoke`` and ``compare_port``
-  holds no ``jax`` and no ``tpuslam``/``tpuslam.*`` module;
+  ``core.frames``, ``utils.*``, the f64 oracles ``oracle.*``), loads the
+  native ``.tslg`` codec and writes and reads a log through it, then
+  imports ``chip_smoke`` and ``compare_port``, holds no ``jax`` and no
+  ``tpuslam``/``tpuslam.*`` module;
 - every entry point that places state on a device defaults to ``"cuda"``
   (a caller who wants the CPU says so, as these tests do), and so does
   the CLI's ``--device``, which fails without a card.
@@ -86,11 +88,19 @@ def test_simulate_copy_bit_exact(name):
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, sys, tempfile\n"
         "import tpuslam_torch\n"
         "for m in pkgutil.walk_packages(tpuslam_torch.__path__, "
         "'tpuslam_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import tpuslam_torch.oracle\n"
+        "from tpuslam_torch.io import _native, bag\n"
+        "_native.load()\n"
+        "log, _ = bag.synthesize(num_beams=90, num_scans=4)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    bag.save_tslg(d + '/a.tslg', log, codec='native')\n"
+        "    a = bag.load_tslg(d + '/a.tslg', codec='native')\n"
+        "    assert a.ranges.shape == (4, 90)\n"
         "import chip_smoke\n"
         "import compare_port\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -1,4 +1,4 @@
-"""tpuslam_torch.graph against tpuslam.graph: LM + PCG and the presets.
+"""tpuslam_torch.graph against tpuslam.graph: LM and the presets.
 
 Both sides solve in float32 from the same numpy graph.  Sums are reduced
 in another order (the port's per-node pairwise tree vs XLA scatter-add),
@@ -6,9 +6,14 @@ so poses are held to atol 1e-4 and costs to rtol 1e-4.  The JAX side pads
 the graph to power-of-two capacities; padding is masked and changes no
 result.
 
+The port solves each LM step exactly (a dense f64 Cholesky factor) where
+the JAX package runs a block-Jacobi PCG of 60 iterations; on these small
+graphs the PCG converges, so both reach the same poses.
+
 The port's own contract: the fixed-count form reads no tensor, equals the
-CPU's early-exit form bit for bit and repeats itself bit for bit, and its
-per-node sums take the order that ``node_edge_index`` writes down.
+CPU's early-exit form bit for bit and repeats itself bit for bit, its
+per-node sums take the order that ``node_edge_index`` writes down, and its
+H is the f64 sum of the edges' blocks in edge order.
 """
 
 import inspect
@@ -94,12 +99,16 @@ def test_residuals_cost_and_system_match_jax():
     np.testing.assert_allclose(st.diag.numpy(), np.asarray(sj.diag)[:n],
                                atol=1e-3, rtol=1e-5)
     np.testing.assert_array_equal(st.free.numpy(), np.asarray(sj.free)[:n])
+    # the port's dense H (undamped) times x against the JAX package's
+    # matrix-free H x, with x zero at the fixed node
     x = np.random.default_rng(0).normal(0, 1, (n, 3)).astype(np.float32)
+    x[0] = 0.0
     xj = np.zeros((gj.poses.shape[0], 3), np.float32)
     xj[:n] = x
-    hj = np.asarray(js._hvp(gj, sj, np.float32(1e-3), xj))[:n]
-    ht = ts._hvp(gt, st, torch.tensor(1e-3), torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(ht, hj, atol=1e-2, rtol=1e-5)
+    hj = np.asarray(js._hvp(gj, sj, np.float32(0.0), xj))[:n]
+    h = ts._normal_matrix(gt, st, torch.tensor(0.0))
+    ht = (h @ torch.from_numpy(x).double().reshape(-1)).reshape(n, 3)
+    np.testing.assert_allclose(ht.numpy(), hj, atol=1e-2, rtol=1e-5)
 
 
 def test_optimize_matches_jax_on_noisy_graph():
@@ -181,8 +190,8 @@ SETTINGS = {  # the presets' LM / GN settings (graph.backends._REGISTRY)
 
 def _solve(graph, early_exit, **kw):
     kw = {"num_iters": 40, "init_lambda": 1e-4, "gauss_newton": False, **kw}
-    return ts._solve(graph, kw["num_iters"], 1, 60, 1e-6,
-                     kw["init_lambda"], kw["gauss_newton"], early_exit)
+    return ts._solve(graph, kw["num_iters"], 1, kw["init_lambda"],
+                     kw["gauss_newton"], early_exit)
 
 
 def _raise(*args, **kw):
@@ -210,7 +219,7 @@ def test_early_exit_and_fixed_count_forms_agree_bit_for_bit(preset, problem):
                    else bad_init_problem())
     g = tb.graph_from_edges(init, edges, device="cpu")
     # optimize on the CPU is the early-exit form
-    early = ts.optimize(g, cg_iters=60, **SETTINGS[preset])
+    early = ts.optimize(g, **SETTINGS[preset])
     fixed = _solve(g, False, **SETTINGS[preset])
     runs = [fixed]
     if preset == "spa_solver":  # and a second solve repeats the first
@@ -259,13 +268,52 @@ def test_node_sums_take_the_written_order():
         np.testing.assert_array_equal(got, _tree_sum_numpy(index, t_i, t_j))
 
 
+def _normal_matrix_numpy(graph, sys, lam):
+    """_normal_matrix written out in NumPy f64: each live edge between free
+    nodes adds J0^T P J1 at (i, j), in edge order, then each edge's
+    transpose at (j, i), in edge order; the diagonal blocks; the damping;
+    identity rows at fixed nodes."""
+    n = sys.g.shape[0]
+    free = sys.free.numpy()
+    j0, lj1 = sys.j0.numpy().astype(np.float64), sys.lj1.numpy().astype(
+        np.float64)
+    ei, ej = graph.edge_i.numpy(), graph.edge_j.numpy()
+    keep = graph.edge_mask.numpy() & free[ei] & free[ej]
+    h = np.zeros((3 * n, 3 * n))
+    offs = [j0[k].T @ lj1[k] if keep[k] else np.zeros((3, 3))
+            for k in range(len(ei))]
+    for k, off in enumerate(offs):
+        h[3 * ei[k]:3 * ei[k] + 3, 3 * ej[k]:3 * ej[k] + 3] += off
+    for k, off in enumerate(offs):
+        h[3 * ej[k]:3 * ej[k] + 3, 3 * ei[k]:3 * ei[k] + 3] += off.T
+    for v in range(n):
+        if free[v]:
+            h[3 * v:3 * v + 3, 3 * v:3 * v + 3] += sys.diag[v].numpy()
+    d = np.diagonal(h).copy()
+    np.fill_diagonal(h, d + d * lam + (1.0 - np.repeat(free, 3)))
+    return h
+
+
 def test_block_inverse_and_no_float_scatter():
-    rng = np.random.default_rng(1)
-    a = rng.normal(0, 1, (64, 3, 3)).astype(np.float32)
-    spd = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32)
-    got = ts._inv3(torch.from_numpy(spd)).numpy()
-    np.testing.assert_allclose(got, np.linalg.inv(spd.astype(np.float64)),
-                               rtol=1e-4, atol=1e-4)
+    """The step solve's H and its inverse: H equals the NumPy f64 sum of
+    the edges' blocks in edge order bit for bit, with a hub of six edge
+    ends and two pairs joined twice (one of them in both directions); the
+    step is H^-1 (-g); no float scatter or explicit inverse in the
+    module."""
+    init, edges = noisy_loop_graph(n=12, seed=7)
+    edges = edges + [(5, j, edges[0][2], edges[0][3]) for j in (0, 1, 2, 8)]
+    edges = edges + [(8, 5, edges[1][2], edges[1][3]),
+                     (3, 4, edges[2][2], 2.0 * edges[2][3])]
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    sys = ts._build_system(g, g.poses, 1)
+    lam = float(np.float32(1e-3))  # lambda is an f32 tensor in the solve
+    h = ts._normal_matrix(g, sys, torch.tensor(lam)).numpy()
+    np.testing.assert_array_equal(h, _normal_matrix_numpy(g, sys, lam))
+    rhs = -(sys.g.numpy().astype(np.float64) * sys.free.numpy()[:, None])
+    want = np.linalg.solve(h, rhs.reshape(-1)).reshape(-1, 3)
+    got = ts._step(g, sys, torch.tensor(lam)).numpy()
+    np.testing.assert_allclose(got, want.astype(np.float32), rtol=1e-5,
+                               atol=1e-9)
     src = inspect.getsource(ts)
     for op in (".index_add", ".scatter_add", "linalg.inv"):
         assert op not in src, op

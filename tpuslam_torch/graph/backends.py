@@ -4,7 +4,8 @@
 The reference ships four backends behind ``karto::ScanSolver``
 (Mapper.h:825-891), selected by ``solver_type`` (karto_slam.cc:254-284).
 They minimise the same residual and differ in iteration strategy, so one
-engine (``graph/solver.py``) serves them all:
+engine (``graph/solver.py``) serves them all, each step solved exactly
+by a Cholesky factorization as the reference's backends factor theirs:
 
 - ``spa_solver``:   LM, 40 iterations (spa_solver.cc:43-61),
 - ``ceres_solver``: LM with a tiny initial lambda, 100 iterations
@@ -40,13 +41,11 @@ class LmSolver:
     def __init__(
         self,
         num_iters: int = 40,
-        cg_iters: int = 60,
         init_lambda: float = 1e-4,
         n_fixed: int = 1,
         gauss_newton: bool = False,
     ):
         self.num_iters = num_iters
-        self.cg_iters = cg_iters
         self.init_lambda = init_lambda
         self.n_fixed = n_fixed
         self.gauss_newton = gauss_newton
@@ -55,7 +54,6 @@ class LmSolver:
         return optimize(
             graph,
             num_iters=self.num_iters,
-            cg_iters=self.cg_iters,
             init_lambda=self.init_lambda,
             n_fixed=self.n_fixed,
             gauss_newton=self.gauss_newton,

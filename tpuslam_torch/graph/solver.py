@@ -1,4 +1,4 @@
-"""Sparse 2D pose-graph optimizer: Levenberg-Marquardt + block-Jacobi PCG
+"""2D pose-graph optimizer: Levenberg-Marquardt with an exact step solve
 (counterpart of ``tpuslam/graph/solver.py``).
 
 The residual model of the reference's SPA2d backend
@@ -8,26 +8,35 @@ The residual model of the reference's SPA2d backend
   precision per edge (calcErr, spa2d.cpp:148-159),
 - analytic Jacobians ``J0 = [-R0^T, dR0^T/dth (t1-t0); 0, -1]``,
   ``J1 = [R0^T, 0; 0, 1]`` (setJacobians, spa2d.cpp:86-142),
-- LM: solve ``(H + lambda*D) dx = -g``, accept if the cost drops
+- LM: solve ``(H + lambda*diag(H)) dx = -g``, accept if the cost drops
   (lambda *= 0.5) else reject (lambda *= laminc, laminc *= 2),
   spa2d.cpp:555-582; converged when ``|dx|^2 < 1e-16``; the gauge is fixed
   by the first ``n_fixed`` nodes.
 
-``H x`` is matrix-free: two gathers and two 3x3 matvecs per edge, solved
-by conjugate gradients preconditioned with the inverse diagonal blocks.
-Plain PyTorch, no kernel: the JAX solver has no Pallas kernel either.
+Each step's normal system is solved exactly, as SPA's CSparse Cholesky
+does (spa2d.cpp:258-323): H is assembled dense in float64 from the f32
+Jacobians and factored by Cholesky (:func:`_normal_matrix`, :func:`_step`).  The JAX package
+solves it by a block-Jacobi PCG capped at 60 iterations, which stops
+short on a long loop: 1.3 mm from the optimum of a 134-node closure,
+where the f64 oracle converges in 9 steps.  A dense factor costs
+O(N^2) memory and O(N^3) time, so a graph is held to ``MAX_NODES``
+(its padded bucket on the card; ``solve_scaling.py`` measures the
+buckets).  Plain PyTorch, no kernel: the JAX solver has no Pallas kernel
+either.
 
-Every per-node sum (g, the diagonal blocks, each ``H x``) is a gather of
-the per-edge-end terms through the graph's ``node_edges`` index followed
-by a pairwise tree over its padded width (:func:`segment_sum`): a fixed
-order, so a solve repeats itself bit for bit on the card, where a float
-``index_add_`` adds through atomics in an order that changes from run to
-run.
+Every per-node sum (g, the diagonal blocks) is a gather of the
+per-edge-end terms through the graph's ``node_edges`` index followed by a
+pairwise tree over its padded width (:func:`segment_sum`), and each edge's
+off-diagonal block goes into H by one accumulating ``index_put_`` in edge
+order: a fixed order, so a solve repeats itself bit for bit on the card,
+where a float ``index_add_`` adds through atomics in an order that
+changes from run to run.
 
-The loops are the reference's masked fixed-count form: PCG and LM carry
-``done`` flags on the device and freeze their state once done, and no
-value is read back to the host.  On a CUDA device one LM iteration (with
-its ``cg_iters`` PCG iterations) is captured once as a CUDA graph for each
+The loop is the reference's masked fixed-count form: LM carries a
+``done`` flag on the device and freezes its state once done, and no value
+is read back to the host (a factorization that fails gives a zero step,
+which ends the solve as the reference's loop ends on a failed solve).  On
+a CUDA device one LM iteration is captured once as a CUDA graph for each
 padded (nodes, edges, node width) bucket and replayed ``num_iters`` times
 (:class:`_CudaSolve`).  On the CPU the same iteration runs eagerly and
 stops at ``done``, where a read costs nothing and the frozen iterations
@@ -159,88 +168,48 @@ def _build_system(graph: PoseGraph, poses: torch.Tensor, n_fixed: int) -> _Syste
     return _System(j0, j1, lj0, lj1, g, diag, free)
 
 
-def _hvp(graph: PoseGraph, sys: _System, lam, x: torch.Tensor) -> torch.Tensor:
-    """(H + lam * blockdiag(H)) x, matrix-free over edges."""
-    x = torch.where(sys.free[:, None], x, 0.0)
-    xi = x[graph.edge_i]
-    xj = x[graph.edge_j]
-    # prec @ (J0 xi + J1 xj)
-    ljx = torch.einsum("eab,eb->ea", sys.lj0, xi) + torch.einsum(
-        "eab,eb->ea", sys.lj1, xj
-    )
-    out = segment_sum(graph.node_edges, torch.einsum("eba,eb->ea", sys.j0, ljx),
-                      torch.einsum("eba,eb->ea", sys.j1, ljx))
-    out = out + lam * torch.einsum("nab,nb->na", sys.diag, x)
-    return torch.where(sys.free[:, None], out, 0.0)
+def _normal_matrix(graph: PoseGraph, sys: _System, lam) -> torch.Tensor:
+    """[3N, 3N] float64: H with its diagonal times (1 + lam) (setupSys,
+    spa2d.cpp:258-323).  The diagonal blocks are the per-node sums of
+    ``_build_system``; each live edge between free nodes puts
+    ``J0^T P J1`` at (i, j) and its transpose at (j, i), added in edge
+    order.  Fixed and padded nodes get identity rows."""
+    f64 = torch.float64
+    n = sys.g.shape[0]
+    dev = sys.g.device
+    free = sys.free
+    keep = graph.edge_mask & free[graph.edge_i] & free[graph.edge_j]
+    off = torch.einsum("eba,ebc->eac", sys.j0.to(f64), sys.lj1.to(f64))
+    off = torch.where(keep[:, None, None], off, 0.0)
+    k = torch.arange(3, device=dev)
+    rows = (3 * graph.edge_i[:, None, None] + k[:, None]).expand_as(off)
+    cols = (3 * graph.edge_j[:, None, None] + k).expand_as(off)
+    h = torch.zeros((3 * n, 3 * n), dtype=f64, device=dev)
+    h.index_put_((torch.cat([rows.reshape(-1), cols.reshape(-1)]),
+                  torch.cat([cols.reshape(-1), rows.reshape(-1)])),
+                 torch.cat([off.reshape(-1), off.reshape(-1)]),
+                 accumulate=True)
+    blocks = h.view(n, 3, n, 3).diagonal(dim1=0, dim2=2)  # [3, 3, N]
+    diag = torch.where(free[:, None, None], sys.diag, 0.0).to(f64)
+    blocks.add_(diag.permute(1, 2, 0))
+    d = h.diagonal()
+    d.add_(d * lam + (1.0 - free.repeat_interleave(3).to(f64)))
+    return h
 
 
-def _inv3(d: torch.Tensor) -> torch.Tensor:
-    """Inverses of [N, 3, 3] blocks by the adjugate: elementwise only, so
-    no pivoting, no solver library and no host check of the result (the
-    blocks are symmetric positive definite, or the identity)."""
-    a, b, c = d[:, 0, 0], d[:, 0, 1], d[:, 0, 2]
-    e, f, g = d[:, 1, 0], d[:, 1, 1], d[:, 1, 2]
-    h, i, k = d[:, 2, 0], d[:, 2, 1], d[:, 2, 2]
-    c00 = f * k - g * i
-    c01 = g * h - e * k
-    c02 = e * i - f * h
-    det = a * c00 + b * c01 + c * c02
-    adj = torch.stack([
-        torch.stack([c00, c * i - b * k, b * g - c * f], dim=-1),
-        torch.stack([c01, a * k - c * h, c * e - a * g], dim=-1),
-        torch.stack([c02, b * h - a * i, a * f - b * e], dim=-1),
-    ], dim=-2)
-    return adj / det[:, None, None]
-
-
-def _block_inv(diag: torch.Tensor, free: torch.Tensor, lam) -> torch.Tensor:
-    """Inverse of (1+lam)-augmented diagonal blocks; identity on fixed."""
-    d = diag * (1.0 + lam)
-    eye = torch.eye(3, dtype=diag.dtype, device=diag.device)
-    d = torch.where(free[:, None, None], d + 1e-8 * eye, eye)
-    return _inv3(d)
-
-
-def _pcg(
-    graph: PoseGraph,
-    sys: _System,
-    lam,
-    rhs: torch.Tensor,
-    num_iters: int,
-    tol: float,
-    early_exit: bool,
-) -> torch.Tensor:
-    """Block-Jacobi PCG for (H + lam D) x = rhs (bpcg/bpcg.h:178-330 role):
-    ``num_iters`` masked iterations that freeze once the residual is
-    below ``tol`` of the right-hand side's; with ``early_exit`` the loop
-    reads ``done`` and stops there instead."""
-    minv = _block_inv(sys.diag, sys.free, lam)
-    rhs = torch.where(sys.free[:, None], rhs, 0.0)
-    x = torch.zeros_like(rhs)
-    r = rhs
-    z = torch.einsum("nab,nb->na", minv, r)
-    p = z
-    rz = torch.sum(r * z)
-    stop = tol * tol * torch.sum(rhs * rhs)
-    done = torch.zeros((), dtype=torch.bool, device=rhs.device)
-    for _ in range(num_iters):
-        hp = _hvp(graph, sys, lam, p)
-        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
-        xn = x + alpha * p
-        rn = r - alpha * hp
-        zn = torch.einsum("nab,nb->na", minv, rn)
-        rzn = torch.sum(rn * zn)
-        beta = rzn / torch.clamp_min(rz, 1e-30)
-        pn = zn + beta * p
-        new_done = done | (torch.sum(rn * rn) < stop)
-        x = torch.where(done, x, xn)
-        r = torch.where(done, r, rn)
-        p = torch.where(done, p, pn)
-        rz = torch.where(done, rz, rzn)
-        done = new_done
-        if early_exit and bool(done):
-            break
-    return x
+def _step(graph: PoseGraph, sys: _System, lam) -> torch.Tensor:
+    """dx of ``_normal_matrix`` dx = -g, exactly: a Cholesky factor and two
+    triangular solves in float64 (doSPA's CSparse solve, spa2d.cpp:
+    425-609).  No value is read back: a factorization that fails leaves
+    dx at 0."""
+    n = sys.g.shape[0]
+    h = _normal_matrix(graph, sys, lam)
+    rhs = -(sys.g.to(h.dtype) * sys.free[:, None]).reshape(3 * n, 1)
+    chol, info = torch.linalg.cholesky_ex(h)
+    y = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    x = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+    x = torch.where(info == 0, x, 0.0)
+    return x.reshape(n, 3).to(sys.g.dtype)
 
 
 class SolveStats(NamedTuple):
@@ -275,15 +244,12 @@ def _lm_step(
     graph: PoseGraph,
     st: _LmState,
     n_fixed: int,
-    cg_iters: int,
-    cg_tol: float,
     gauss_newton: bool,
-    early_exit: bool,
 ) -> _LmState:
     """One masked LM iteration (doSPA's loop body, spa2d.cpp:425-609):
     every update is ``torch.where``-selected and frozen once ``done``."""
     sys = _build_system(graph, st.poses, n_fixed)
-    dx = _pcg(graph, sys, st.lam, -sys.g, cg_iters, cg_tol, early_exit)
+    dx = _step(graph, sys, st.lam)
     converged = torch.sum(dx * dx) < 1e-16
     new_poses = st.poses + dx
     new_poses = torch.cat(
@@ -315,8 +281,6 @@ def _solve(
     graph: PoseGraph,
     num_iters: int,
     n_fixed: int,
-    cg_iters: int,
-    cg_tol: float,
     init_lambda: float,
     gauss_newton: bool,
     early_exit: bool,
@@ -327,8 +291,7 @@ def _solve(
     st = _init_state(graph, init_lambda)
     cost0 = st.cost
     for _ in range(num_iters):
-        st = _lm_step(graph, st, n_fixed, cg_iters, cg_tol, gauss_newton,
-                      early_exit)
+        st = _lm_step(graph, st, n_fixed, gauss_newton)
         if early_exit and bool(st.done):
             break
     return st.poses, SolveStats(cost0, st.cost, st.good, st.lam)
@@ -348,8 +311,7 @@ class _CudaSolve:
     the buffers, sets the LM state and replays the graph ``num_iters``
     times; the captured iteration writes its new state over the old."""
 
-    def __init__(self, cap_n, cap_e, width, device, n_fixed, cg_iters,
-                 cg_tol, gauss_newton):
+    def __init__(self, cap_n, cap_e, width, device, n_fixed, gauss_newton):
         f32 = dict(dtype=torch.float32, device=device)
         self.graph = PoseGraph(
             poses=torch.zeros((cap_n, 3), **f32),
@@ -363,7 +325,7 @@ class _CudaSolve:
                                    device=device),
         )
         self.state = _init_state(self.graph, 0.0)
-        args = (n_fixed, cg_iters, cg_tol, gauss_newton, False)
+        args = (n_fixed, gauss_newton)
 
         def step():
             new = _lm_step(self.graph, self.state, *args)
@@ -408,14 +370,16 @@ class _CudaSolve:
 # meets a handful of buckets as its graph grows
 _CUDA_SOLVES: dict[tuple, _CudaSolve] = {}
 
+# the most nodes a solve takes (on the card, its padded bucket): the dense
+# f64 H and its factor take 144 N^2 bytes, 9.7 GB at 8192 nodes
+MAX_NODES = 8192
+
 
 def optimize(
     graph: PoseGraph,
     *,
     num_iters: int = 40,
     n_fixed: int = 1,
-    cg_iters: int = 50,
-    cg_tol: float = 1e-6,
     init_lambda: float = 1e-4,
     gauss_newton: bool = False,
 ) -> tuple[torch.Tensor, SolveStats]:
@@ -428,14 +392,20 @@ def optimize(
 
     On a CUDA device the solve replays the captured LM iteration of the
     graph's bucket and reads nothing back; on the CPU it runs eagerly and
-    stops at convergence."""
+    stops at convergence.  A graph of more than ``MAX_NODES`` nodes (on
+    the card, whose bucket holds more) raises ``ValueError``."""
     dev = graph.poses.device
-    if dev.type != "cuda":
-        return _solve(graph, num_iters, n_fixed, cg_iters, cg_tol,
-                      init_lambda, gauss_newton, early_exit=True)
     n, e = graph.poses.shape[0], graph.edge_i.shape[0]
+    cap = _pow2(n, 256) if dev.type == "cuda" else n
+    if cap > MAX_NODES:
+        raise ValueError(
+            f"a pose graph of {n} nodes: the dense step solve holds at most "
+            f"MAX_NODES={MAX_NODES} ({cap} here)")
+    if dev.type != "cuda":
+        return _solve(graph, num_iters, n_fixed, init_lambda, gauss_newton,
+                      True)
     key = (str(dev), _pow2(n, 256), _pow2(e, 512), graph.node_edges.shape[1],
-           n_fixed, cg_iters, cg_tol, gauss_newton)
+           n_fixed, gauss_newton)
     solve = _CUDA_SOLVES.get(key)
     if solve is None:
         solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:4], dev, *key[4:])

@@ -8,14 +8,19 @@ binary format, the ``.npz`` interchange format, a ROS1 ``.bag``
 (``io/rosbag.py``) or the synthetic-world generator, so every workload
 runs without an external dataset.
 
-The ``.tslg`` codec here is the JAX package's pure-Python one, written
-with NumPy record arrays: the same bytes as its native C++ codec
-(``csrc/scanlog.cc``), which the port does not build.  Files written by
-either package load in the other.
+The ``.tslg`` codec reads and writes NumPy record arrays
+(``codec="python"``, the default).  The native C++ codec
+(``codec="native"``: ``tpuslam_torch/csrc/scanlog.cc``, built at first use
+with the host C++ compiler by ``io/_native.py``; a failed build raises)
+writes the same bytes; it loads a 160 x 1081 log in 3.1-4.0 ms against the
+record arrays' 0.49-0.59 ms (it reads a field at a time; PERF.md), so it
+is the choice only where a caller wants the reference's C++ path.  Files
+written by either codec, or by the JAX package, load in the others.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 import struct
@@ -94,16 +99,45 @@ def _record_dtype(b: int) -> np.dtype:
                      ("wz", "<f4"), ("ranges", "<f4", (b,))])
 
 
-def save_tslg(path: str | os.PathLike, log: ScanLog) -> None:
-    """Write a .tslg binary log."""
+CODECS = ("native", "python")
+
+
+def _check_codec(codec: str) -> None:
+    if codec not in CODECS:
+        raise ValueError(f"unknown .tslg codec {codec!r}; known: {CODECS}")
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def save_tslg(path: str | os.PathLike, log: ScanLog,
+              codec: str = "python") -> None:
+    """Write a .tslg binary log with NumPy record arrays or the native
+    codec (``codec="native"``): the same bytes."""
+    _check_codec(codec)
     t, b = log.ranges.shape
-    rec = np.empty(t, _record_dtype(b))
-    rec["stamp"] = log.stamps
-    rec["odom"] = log.odom
-    rec["wz"] = log.imu_wz
+    stamps = np.ascontiguousarray(log.stamps, np.float64)
+    odom = np.ascontiguousarray(log.odom, np.float32)
+    wz = np.ascontiguousarray(log.imu_wz, np.float32)
     # NaN/inf beams are the documented invalid encoding and round-trip
     # verbatim — f32 represents them exactly
-    rec["ranges"] = log.ranges
+    ranges = np.ascontiguousarray(log.ranges, np.float32)
+    if codec == "native":
+        from tpuslam_torch.io import _native
+
+        rc = _native.load().tslg_write(
+            os.fsencode(path), b, t, log.angle_min, log.angle_increment,
+            log.range_min, log.range_max, log.time_increment,
+            _ptr(stamps), _ptr(odom), _ptr(wz), _ptr(ranges))
+        if rc != 0:
+            raise IOError(f"tslg_write failed ({rc}) for {path}")
+        return
+    rec = np.empty(t, _record_dtype(b))
+    rec["stamp"] = stamps
+    rec["odom"] = odom
+    rec["wz"] = wz
+    rec["ranges"] = ranges
     with open(path, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack(_HEADER, _VERSION, b, t, log.angle_min,
@@ -112,13 +146,47 @@ def save_tslg(path: str | os.PathLike, log: ScanLog) -> None:
         f.write(rec.tobytes())
 
 
-def load_tslg(path: str | os.PathLike) -> ScanLog:
-    """Read a .tslg binary log."""
+def _load_native(path) -> ScanLog:
+    from tpuslam_torch.io import _native
+
+    lib = _native.load()
+    meta = np.zeros(5, np.float64)
+    counts = np.zeros(2, np.int64)
+    h = lib.tslg_open(os.fsencode(path), _ptr(meta), _ptr(counts))
+    if not h:
+        raise IOError(f"tslg_open failed for {path} (missing, bad magic "
+                      "or version, or a short header)")
+    try:
+        b, t = int(counts[0]), int(counts[1])
+        stamps = np.empty(t, np.float64)
+        odom = np.empty((t, 3), np.float32)
+        wz = np.empty(t, np.float32)
+        ranges = np.empty((t, b), np.float32)
+        rc = lib.tslg_read(h, 0, t, _ptr(stamps), _ptr(odom), _ptr(wz),
+                           _ptr(ranges))
+        if rc != 0:
+            raise IOError(f"tslg_read failed ({rc}) for {path}: truncated "
+                          "file")
+    finally:
+        lib.tslg_close(h)
+    return ScanLog(ranges, stamps, odom, wz, *(float(m) for m in meta))
+
+
+def load_tslg(path: str | os.PathLike, codec: str = "python") -> ScanLog:
+    """Read a .tslg binary log with NumPy record arrays or the native
+    codec (``codec="native"``); a bad magic number, another version or a
+    truncated file raises ``IOError`` in both."""
+    _check_codec(codec)
+    if codec == "native":
+        return _load_native(path)
     with open(path, "rb") as f:
         if f.read(4) != _MAGIC:
             raise IOError(f"bad magic in {path}")
+        header = f.read(struct.calcsize(_HEADER))
+        if len(header) != struct.calcsize(_HEADER):
+            raise IOError(f"truncated tslg header in {path}")
         ver, b, t, amin, ainc, rmin, rmax, tinc = struct.unpack(
-            _HEADER, f.read(struct.calcsize(_HEADER)))
+            _HEADER, header)
         if ver != _VERSION:
             raise IOError(f"unsupported tslg version {ver}")
         dt = _record_dtype(b)

@@ -489,7 +489,12 @@ def _angular_covariance(
     angle_offsets,
     surface=None,
 ) -> torch.Tensor:
-    """Mapper.cpp:641-692: angle response sweep at the best position."""
+    """Mapper.cpp:641-692: angle response sweep at the best position.
+
+    The variance's floor and its no-response value are in units of the
+    sweep's own resolution (``searchAngleResolution``: the fine pass's
+    ``fine_angle_offset``), as the reference and the f64 oracle compute
+    them."""
     resp, _, _ = _correlate(
         spec,
         q,
@@ -509,11 +514,11 @@ def _angular_covariance(
     w = torch.where(r >= best - 0.1, r, 0.0)
     norm = torch.sum(w)
     acc = torch.sum((angs - best_angle) ** 2 * w)
-    car2 = spec.coarse_angle_resolution**2
+    res2 = spec.fine_angle_offset**2
     return torch.where(
         norm > 1e-6,
-        torch.where(acc < 1e-6, car2, acc) / torch.clamp_min(norm, 1e-9),
-        1000.0 * car2,
+        torch.where(acc < 1e-6, res2, acc) / torch.clamp_min(norm, 1e-9),
+        1000.0 * res2,
     )
 
 

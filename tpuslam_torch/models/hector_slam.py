@@ -61,6 +61,23 @@ def _ray_budget(cfg: HectorConfig, level: int) -> int:
     return max(32, cfg.ray_steps >> level)
 
 
+def gated_points(cfg: HectorConfig, scan: Scan):
+    """The scan's sensor-frame points and the beams the engine uses
+    (hector_slam.cc:336-356): the STRICT dist window, the mounting-shadow
+    filter (near points behind the laser, x < 0 and dist^2 < 0.5), and
+    the independent use_max_scan_range cap."""
+    pts, valid = scan_to_points(scan)
+    r2 = scan.ranges * scan.ranges
+    valid = (
+        valid
+        & (scan.ranges > cfg.laser_min_dist)
+        & (scan.ranges < cfg.laser_max_dist)
+        & ~((pts[..., 0] < 0.0) & (r2 < 0.5))
+        & (r2 <= cfg.use_max_scan_range * cfg.use_max_scan_range)
+    )
+    return pts, valid
+
+
 def step(
     cfg: HectorConfig,
     state: HectorState,
@@ -71,18 +88,7 @@ def step(
     """Process one scan: match against the pyramid, then the gated map
     update (HectorSlamProcessor::update, HectorSlamProcessor.h:81-108)."""
     specs = make_specs(cfg)
-    pts, valid = scan_to_points(scan)
-    # beam gating (hector_slam.cc:336-356): STRICT dist window, the
-    # mounting-shadow filter (near points behind the laser, x < 0 and
-    # dist^2 < 0.5), and the independent use_max_scan_range cap
-    r2 = scan.ranges * scan.ranges
-    valid = (
-        valid
-        & (scan.ranges > cfg.laser_min_dist)
-        & (scan.ranges < cfg.laser_max_dist)
-        & ~((pts[..., 0] < 0.0) & (r2 < 0.5))
-        & (r2 <= cfg.use_max_scan_range * cfg.use_max_scan_range)
-    )
+    pts, valid = gated_points(cfg, scan)
 
     if map_without_matching:
         result = MatchResult(
