@@ -34,7 +34,12 @@ line):
    must repeat the first bit for bit (the pose-graph solve sums in a fixed
    order); the solve of one ``correct_poses`` runs under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host read), timed, with
-   its count of LM graph replays.  Each map (``occupancy_grid``) must put
+   its count of LM graph replays; so does the solve of a
+   ``GARLAND_NODES`` (16,384) garland of ``solve_scaling.py``, past the
+   dense step's limit (the PCG step), which must repeat itself bit for
+   bit and lower the cost, its seconds and peak memory printed, and at
+   ``GARLAND_PCG_NODES`` the PCG (the limit lowered) must land where the
+   host's does.  Each map (``occupancy_grid``) must put
    ``MAP_NEAR_SHARE`` of its occupied cells within ``MAP_NEAR_M`` of a
    wall;
    4h. ``process_batch`` (16 scans a flush) over the courtyard in each of
@@ -84,8 +89,11 @@ line):
    bag written by the port's ``write_bag`` from ``bag.synthesize``'s 160
    motion-distorted scans of 1081 beams (four laps of the boxes world):
    scan-info, pointcloud, features, undistort, plicp-odometry,
-   scan-match-icp, karto without and with ``--undistort``, occupancy-map
-   from the truth poses, synth and scan-info of its .tslg; each prints its
+   scan-match-icp, karto without and with ``--undistort``, undistort and
+   karto ``--undistort`` again on the bag stamped in epoch seconds
+   (``CLI_EPOCH_S``), which must give the points and poses of the bag
+   from 0 s within ``CLI_POINTS_ATOL_M``, occupancy-map from the truth
+   poses, synth and scan-info of its .tslg; each prints its
    JSON line and its scans/s; karto launches ``fvp`` and the patch sums,
    plicp-odometry ``plicp_corr``, scan-match-icp nothing; karto
    --undistort closes a loop and beats the raw run's ATE, below
@@ -99,7 +107,8 @@ line):
    ``ORACLE_*`` constants), at 1081 beams: (a) ``match_scan`` at the
    outdoor sequential spec (G=2007, ``fvp`` and stride-1 patch sums) for
    ``ORACLE_MATCHES`` (K) scans of the room circuit moved off the cell
-   lattice, each against the ``ORACLE_CHAIN`` scans before it, and
+   lattice, each against the ``ORACLE_CHAIN`` scans before it, one more
+   with readings below range_min (``ORACLE_NEAR_SHARE``), and
    ``ORACLE_LOOP_MATCHES`` coarse matches at the loop spec (G=1151,
    stride 2) against ``OracleScanMatcher``; (b) the ``spa_solver`` solve
    (captured) of 4c's last closure graph against ``OracleSpa2d``; (c)
@@ -255,13 +264,16 @@ CLI_BEAMS = 1081
 CLI_SCANS = 160
 CLI_ATE_BOUND_M = 0.08
 CLI_POINTS_ATOL_M = 1e-5
+# the bag again with its stamps moved to seconds since 1970 (ROADMAP C.5)
+CLI_EPOCH_S = 1.7e9
 CLI_GMAPPING_SHARE = 1e-3
 # the phase 4k commands that drive each kernel (their scans are a scan's
 # share's denominator); no CLI command runs the Hector GN kernel
 CLI_KERNEL_COMMANDS = {
-    "patch_sums": ("karto", "karto_undistort"),
-    "patch_sums_stride2": ("karto", "karto_undistort"),
-    "fvp": ("karto", "karto_undistort"),
+    "patch_sums": ("karto", "karto_undistort", "karto_undistort_epoch"),
+    "patch_sums_stride2": ("karto", "karto_undistort",
+                           "karto_undistort_epoch"),
+    "fvp": ("karto", "karto_undistort", "karto_undistort_epoch"),
     "plicp_corr": ("plicp-odometry",),
     "plicp_nearest": ("scan-match-icp",),
     "hector_gn": (),
@@ -1942,6 +1954,93 @@ def check_solve(m, card) -> dict:
     return out
 
 
+# past the dense step's limit (graph.solver.MAX_NODES): a garland of
+# solve_scaling.py solved by the JAX package's PCG step (ROADMAP C.11),
+# and at GARLAND_PCG_NODES the PCG on the card against the same PCG on
+# the host (the CPU's, which tests/test_torch_solver.py holds to the JAX
+# package's) within GARLAND_PCG_BOUND_M, that test's margin
+GARLAND_NODES = 16384
+GARLAND_PCG_NODES = 2048
+GARLAND_PCG_BOUND_M = 1e-5
+
+
+def check_garland_solves(card, nodes: int = GARLAND_NODES,
+                         pcg_nodes: int = GARLAND_PCG_NODES) -> dict:
+    """The pose-graph solve past the dense limit: a ``nodes`` garland
+    solved twice on the card, the second under
+    ``torch.cuda.set_sync_debug_mode("error")``, which must raise
+    nothing, repeat the first bit for bit, lower the cost and give finite
+    poses; the seconds of each and the peak memory.  Then ``pcg_nodes``
+    with the limit lowered below it: the card's PCG solve against the
+    host's, and both against the card's dense solve (reported)."""
+    from solve_scaling import garland
+    from tpuslam_torch.graph import solver
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+
+    solve = make_solver("spa_solver").compute
+    init, edges = garland(nodes)
+    g = graph_from_edges(init, edges, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (first, _), first_s = _timed(lambda: solve(g), True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses, stats = solve(g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"nodes": nodes, "edges": len(edges),
+           "dense": solver._dense(nodes), "first_s": first_s,
+           "checked_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "same_as_first": bool(torch.equal(poses, first)),
+           "finite": bool(torch.isfinite(poses).all()),
+           "initial_cost": float(stats.initial_cost),
+           "final_cost": float(stats.final_cost),
+           "good_iters": int(stats.good_iters)}
+    print(f"garland solve past the dense limit: {nodes} nodes, "
+          f"{out['edges']} edges, PCG step {not out['dense']}, first "
+          f"{first_s:.4f} s (captures), under sync debug mode \"error\" "
+          f"{out['checked_s']:.4f} s, peak {out['peak_bytes'] / 2**20:.1f} "
+          f"MiB, cost {out['initial_cost']:.6g} -> {out['final_cost']:.6g}, "
+          f"repeats bit for bit {out['same_as_first']} [{card}]", flush=True)
+    init, edges = garland(pcg_nodes)
+    dense, _ = solve(graph_from_edges(init, edges, device="cuda"))
+    limit = solver.MAX_NODES
+    solver.MAX_NODES = pcg_nodes // 2
+    try:
+        (pcg, pstats), pcg_s = _timed(
+            lambda: solve(graph_from_edges(init, edges, device="cuda")), True)
+        t0 = time.perf_counter()
+        host, _ = solve(graph_from_edges(init, edges, device="cpu"))
+        host_s = time.perf_counter() - t0
+    finally:
+        solver.MAX_NODES = limit
+    pcg, dense = pcg.cpu().numpy(), dense.cpu().numpy()
+    out["pcg"] = {"nodes": pcg_nodes, "card_s": pcg_s, "host_s": host_s,
+                  "vs_host_m": float(np.abs(pcg - host.numpy()).max()),
+                  "vs_dense_m": float(np.abs(pcg[:, :2] - dense[:, :2]).max()),
+                  "final_cost": float(pstats.final_cost)}
+    print(f"  PCG at {pcg_nodes} nodes (limit lowered): card {pcg_s:.4f} s, "
+          f"host {host_s:.2f} s, card vs host {out['pcg']['vs_host_m']:.3g} "
+          f"m (bound {GARLAND_PCG_BOUND_M}), vs the dense step "
+          f"{out['pcg']['vs_dense_m']:.4g} m [{card}]", flush=True)
+    fails = []
+    if out["dense"]:
+        fails.append(f"{nodes} nodes took the dense step")
+    if not (out["same_as_first"] and out["finite"]
+            and out["final_cost"] < out["initial_cost"]):
+        fails.append(f"the {nodes}-node solve: {out}")
+    if not out["pcg"]["vs_host_m"] <= GARLAND_PCG_BOUND_M:
+        fails.append(f"the PCG on the card parts from the host's: "
+                     f"{out['pcg']}")
+    if fails:
+        raise RuntimeError("garland solves: " + "; ".join(fails))
+    return out
+
+
 def _same_graph(a, b) -> bool:
     """Two mappers hold the same poses and edges, bit for bit."""
     n = len(a.records)
@@ -2099,7 +2198,8 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
     """Phase 4k: ``python -m tpuslam_torch.cli`` (in process) over a ROS1
     bag of ``bag.synthesize``'s distorted laps: scan-info, pointcloud,
     features, undistort, plicp-odometry, scan-match-icp, karto without and
-    with ``--undistort``, occupancy-map from the synthetic truth poses,
+    with ``--undistort``, both again on the bag stamped in epoch seconds
+    (``CLI_EPOCH_S``), occupancy-map from the synthetic truth poses,
     synth and scan-info of its .tslg.  Raises on any failed requirement
     (see the constants of phase 4k); features, undistort and the GMapping
     counters also run on the CPU for the comparison."""
@@ -2157,6 +2257,25 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
                 scans, note=" (kernels held against plain)")
         if not np.array_equal(np.load(out_held)["poses"], z["poses"]):
             raise RuntimeError(f"cli {tag}: the held run's poses differ")
+    kz = z  # karto --undistort's, beside the epoch-stamped run below
+    # the same bag stamped in epoch seconds, as a real bag is (ROADMAP
+    # C.5): undistort and karto --undistort must give the points and the
+    # poses of the bag stamped from 0 s
+    epath = workdir / "laps_epoch.bag"
+    write_log_bag(epath, dataclasses.replace(log,
+                                             stamps=log.stamps + CLI_EPOCH_S))
+    elg = ["--log", str(epath)]
+    epts = run("undistort_epoch", "undistort", elg, scans - 1,
+               save=True)[1]["points"]
+    _, ez = run("karto_undistort_epoch", "karto", elg + ["--undistort"],
+                save=True)
+    epoch = {"points_m": float(np.abs(epts - pts[0]).max()),
+             "poses_m": (float(np.abs(ez["poses"] - kz["poses"]).max())
+                         if ez["poses"].shape == kz["poses"].shape
+                         else None)}
+    print(f"cli at epoch stamps (+{CLI_EPOCH_S:.3g} s): undistort points "
+          f"and karto --undistort poses off the stamps-from-0 runs' by "
+          f"{epoch} (bound {CLI_POINTS_ATOL_M} m) [{card}]", flush=True)
     # occupancy-map from the truth poses: its map against the world, and
     # the counters on both devices
     occ, z = run("occupancy-map", "occupancy-map",
@@ -2185,7 +2304,7 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
                     for k, tags in CLI_KERNEL_COMMANDS.items()}
     out = {"beams": beams, "scans": scans, "runs": runs, "ate_m": ate,
            "features_vs_cpu": feats, "undistort_max_diff_m": dpts,
-           "gmapping_vs_cpu": gm, "occupancy_map": omap,
+           "gmapping_vs_cpu": gm, "occupancy_map": omap, "epoch": epoch,
            "launches": launches, "launch_scans": launch_scans,
            "held_runs": held_runs, "held_calls": held, "tslg": codecs}
     kr, kf = runs["karto"]["result"], runs["karto_undistort"]["result"]
@@ -2226,6 +2345,10 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
         fails.append(f"features: the card and the CPU differ {feats}")
     if not dpts <= CLI_POINTS_ATOL_M:
         fails.append(f"undistort points differ by {dpts} m")
+    if not (epoch["points_m"] <= CLI_POINTS_ATOL_M and epoch["poses_m"]
+            is not None and epoch["poses_m"] <= CLI_POINTS_ATOL_M):
+        fails.append(f"the epoch-stamped bag parts from the bag from 0 s: "
+                     f"{epoch}")
     if not gm["share"] <= CLI_GMAPPING_SHARE:
         fails.append(f"GMapping counters differ in {gm}")
     if fails:
@@ -2274,6 +2397,12 @@ ORACLE_CELL_SHARE = CLI_GMAPPING_SHARE
 # Python: ~13 s a pair at 1081 beams on an 8-core x86 host); Hector GN
 # matches; GMapping scans.  The width is the production one throughout
 ORACLE_MATCHES = 12
+# phase 4o(a)'s match with readings below range_min (ROADMAP C.8): the
+# last sequential scan with its first beams (one in ORACLE_NEAR_SHARE, 60
+# of 1081) at ORACLE_NEAR_M, under the 0.1 m range_min (an object at the
+# sensor)
+ORACLE_NEAR_SHARE = 18
+ORACLE_NEAR_M = 0.05
 ORACLE_CHAIN = 8
 ORACLE_LOOP_MATCHES = 2
 ORACLE_PLICP_PAIRS = 1
@@ -2318,14 +2447,17 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
     test_matcher_parity_clean_scans' noise (penalize and refine on, as
     ``_fused_seq_step``); then ``loops`` coarse matches of the last scans
     at the loop spec (penalize and refine off, as the loop search calls
-    it).  The same ranges, base poses and centre go to
-    ``OracleScanMatcher.match_scan``; the card's inputs are staged as
-    test_oracle_parity.py stages them (unfiltered: valid and r > 0)."""
+    it), and one sequential match of the last scan with its first
+    ``nb // ORACLE_NEAR_SHARE`` readings at ``ORACLE_NEAR_M``, below
+    range_min (ROADMAP C.8: both stamp and read them).  The same ranges,
+    base poses and centre go to ``OracleScanMatcher.match_scan``; the
+    card's inputs are staged as Karto stages them (the unfiltered
+    readings, ``models.karto.matcher_points``)."""
     from tpuslam_torch.core import se2
-    from tpuslam_torch.core.scan import make_scan, scan_to_points
+    from tpuslam_torch.core.scan import make_scan
     from tpuslam_torch.io.simulate import simulate_scan
     from tpuslam_torch.match.correlative import match_scan
-    from tpuslam_torch.models.karto import _spec
+    from tpuslam_torch.models.karto import _spec, matcher_points
     from tpuslam_torch.oracle import OracleScan, OracleScanMatcher
 
     segs, nb = oracle_world(), cfg.num_beams
@@ -2335,13 +2467,15 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
                                             max_range=30.0)))
         if len(stream) == chain + k:
             break
-    staged = []
-    for _, r, amin, ainc in stream:
-        sc = make_scan(r, angle_min=amin, angle_increment=ainc,
-                       range_min=0.1, range_max=30.0, num_beams=nb,
-                       device=device)
-        pts, valid = scan_to_points(sc)
-        staged.append((pts, valid & (sc.ranges > 0.0)))
+    def stage(r, amin, ainc):
+        return matcher_points(make_scan(
+            r, angle_min=amin, angle_increment=ainc, range_min=0.1,
+            range_max=30.0, num_beams=nb, device=device))[:2]
+
+    staged = [stage(*x[1:]) for x in stream]
+    near_i = chain + k - 1
+    near_r = stream[near_i][1].copy()
+    near_r[:nb // ORACLE_NEAR_SHARE] = ORACLE_NEAR_M
     specs = {
         "sequential": (cfg.correlation_search_space_dimension,
                        cfg.correlation_search_space_resolution,
@@ -2357,40 +2491,47 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
     rng = np.random.default_rng(seed)
     cases = ([("sequential", i, True, [0.04, 0.04, 0.02])
               for i in range(chain, chain + k)]
+             + [("near", near_i, True, [0.04, 0.04, 0.02])]
              + [("loop", chain + k - 1 - j, False, [0.4, 0.4, 0.1])
                 for j in range(loops)])
 
-    def oscan(i, pose):
+    def oscan(i, pose, near=False):
         _, r, amin, ainc = stream[i]
-        return OracleScan(r, amin, ainc, range_threshold=cfg.use_scan_range,
+        return OracleScan(near_r if near else r, amin, ainc,
+                          range_threshold=cfg.use_scan_range,
                           minimum_range=0.1, odom_pose=pose)
 
     rows, card_s, oracle_s = [], 0.0, 0.0
     for kind, i, on, sd in cases:
-        spec, om = matchers[kind]
+        near = kind == "near"
+        spec, om = matchers["sequential" if near else kind]
         center = stream[i][0] + rng.normal(0, sd)
         bases = range(i - chain, i)
         wpts = torch.stack([se2.transform_points(
             torch.tensor(np.float32(stream[j][0]), device=device),
             staged[j][0]) for j in bases])
         wvalid = torch.stack([staged[j][1] for j in bases])
+        query = stage(near_r, *stream[i][2:]) if near else staged[i]
         res, dt = _synced(lambda: match_scan(
             spec, torch.tensor(np.float32(center), device=device),
-            *staged[i], wpts, wvalid, penalize=on, refine=on), device)
+            *query, wpts, wvalid, penalize=on, refine=on), device)
         card_s += dt
         obases = [oscan(j, stream[j][0]) for j in bases]
         t0 = time.perf_counter()
-        want = om.match_scan(oscan(i, center), obases, penalize=on,
+        want = om.match_scan(oscan(i, center, near), obases, penalize=on,
                              refine=on)
         oracle_s += time.perf_counter() - t0
         row = {"kind": kind, "scan": i,
                **_karto_deviation(res, *want),
                "oracle_response": float(want[0])}
+        if near:
+            row["beams_below_range_min"] = int((near_r < 0.1).sum())
         parity, grid = stamp_parity(spec, om, center, wpts, wvalid, obases)
         row.update(parity)
         if row["grid_cells_differing"]:
             t0 = time.perf_counter()
-            witness = _match_on_grid(om, grid, oscan(i, center), obases, on)
+            witness = _match_on_grid(om, grid, oscan(i, center, near),
+                                     obases, on)
             oracle_s += time.perf_counter() - t0
             row["on_card_grid"] = _karto_deviation(res, *witness)
         rows.append(row)
@@ -2400,7 +2541,8 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
     worst = {key: max(r[key] for r in rows) for key in ("xy", "theta")}
     worst.update({key: max(r[key] for r in held)
                   for key in ("response", "cov_excess")})
-    return {"matches": k, "loop_matches": loops, "chain": chain,
+    return {"matches": k, "near_matches": 1, "loop_matches": loops,
+            "chain": chain,
             "beams": nb, "grids": {kind: m[0].grid_size
                                    for kind, m in matchers.items()},
             "flagged": sum(1 for r in rows if r["grid_cells_differing"]),
@@ -3002,6 +3144,8 @@ def main() -> int:
     if not repeat:
         raise RuntimeError("two courtyard runs differ")
     solve = check_solve(ml, card)
+    mark("4c. pose-graph solves past the dense limit")
+    garlands = check_garland_solves(card)
 
     # 4h. process_batch over the courtyard in its three modes, beside the
     # per-scan run of 4c; the sequential mode's dispatches after the first
@@ -3255,7 +3399,8 @@ def main() -> int:
         k: v for k, v in info.items() if k != "log"},
         "ptxas": info["log"], "kernels_vs_plain": rows, "slice": s,
         "slice_plain_path": sp, "slice_courtyard": sl,
-        "slice_courtyard_repeat": sl2, "solve_check": solve, "batch": batch,
+        "slice_courtyard_repeat": sl2, "solve_check": solve,
+        "garland_solves": garlands, "batch": batch,
         "maps": {**maps, **batch_maps}, "endurance": endu, "odometry": od,
         "odometry_plain_path": odp, "frame_to_frame": ff,
         "batches": batches, "hector_batch": hb, "hector_engine": he,

@@ -1,9 +1,12 @@
 """Seconds and memory of the pose-graph solve (``tpuslam_torch/graph/
-solver.py``: LM with a dense float64 Cholesky step) by graph size on one
-CUDA card, and the endurance stream's whole run through it.
+solver.py``: float64 LM, its step a dense Cholesky factor up to
+``solver.MAX_NODES`` nodes and the JAX package's block-Jacobi PCG past
+it) by graph size on one CUDA card, and the endurance stream's whole run
+through it.
 
-    python3 solve_scaling.py [--nodes 256,1024,2048,4096,8192]
-                             [--oracle-max 2048] [--endurance 1536]
+    python3 solve_scaling.py [--nodes 256,1024,2048,4096,8192,16384,32768]
+                             [--oracle-max 2048] [--dense-check 16384]
+                             [--endurance 1536]
 
 For each node count, a garland graph: laps of 64 poses on a 6 m circle,
 an odometry edge between consecutive poses (noisy), and every 8th pose
@@ -16,15 +19,25 @@ dead-reckoned start.  The ``spa_solver`` preset solves it on the card:
   replays);
 - ``peak_bytes``: ``torch.cuda.max_memory_allocated`` over those calls,
   from a reset just before (the captured graph's pool included);
-- the cost before and after, and for counts up to ``--oracle-max`` the
-  largest distance of a pose from ``OracleSpa2d``'s (xy and heading).
+- the step solve its bucket takes (``dense`` or ``pcg``), the cost
+  before and after, and for counts up to ``--oracle-max`` the largest
+  distance of a pose from ``OracleSpa2d``'s (xy and heading).
 
-A count whose bucket exceeds ``solver.MAX_NODES`` is expected to raise
-``ValueError``, and is reported so.  Then ``chip_smoke.run_endurance``
-over ``--endurance`` scans of the lossy garland stream (0 skips it):
-scans/s, the closures' solves and their seconds.  Prints one line a
-measurement, with the card's name and power limit, and writes
-``chiprun_out/solve_scaling.json``.  Needs a CUDA card; imports no JAX.
+At ``--dense-check`` nodes (0 skips it), a bucket past the dense limit,
+the same garland is solved once more with the limit raised to its bucket,
+so that its steps are exact (a dense factor of 144 N^2 bytes): the PCG's
+largest distance from that optimum (``pcg_vs_dense_xy``, ``_theta``),
+the dense solve's seconds (its first call, the capture included), peak
+memory and final cost.
+
+Then ``chip_smoke.run_endurance`` over ``--endurance`` scans of the lossy
+garland stream (0 skips it): scans/s, the closures' solves and their
+seconds.  Prints one line a measurement, with the card's name and power
+limit, and writes ``chiprun_out/solve_scaling.json``.  Exits 1 if 2048
+poses land farther than ``ORACLE_BOUND`` (test_oracle_parity.py's SPA
+bound) from the oracle's, or the PCG at ``--dense-check`` nodes farther
+than ``PCG_BOUND`` (m, rad) from the dense optimum.  Needs a CUDA card;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +56,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "solve_scaling.json"
 LAP = 64
+ORACLE_BOUND = 5e-4  # m and rad, at ORACLE_CHECK_NODES poses
+ORACLE_CHECK_NODES = 2048
+# the PCG step past the dense limit is inexact (ROADMAP C.12): its largest
+# distance from the exact step's optimum at 16,384 nodes, held to 1.5
+# times its first reading (355.8 m, 0.222 rad on NVIDIA H100 80GB HBM3,
+# 700.00 W), so that the fault cannot grow unseen
+PCG_BOUND = (534.0, 0.333)  # m, rad
 
 
 def garland(n: int, seed: int = 0):
@@ -95,43 +115,73 @@ def oracle_poses(poses, edges) -> np.ndarray:
     return np.stack([got[i] for i in range(len(poses))])
 
 
-def measure(n: int, oracle_max: int) -> dict:
+def measure(n: int, oracle_max: int) -> tuple[dict, np.ndarray]:
     from tpuslam_torch.graph import solver
     from tpuslam_torch.graph.backends import graph_from_edges, make_solver
 
     poses, edges = garland(n)
     row = {"nodes": n, "edges": len(edges),
-           "bucket": solver._pow2(n, 256)}
+           "bucket": solver._pow2(n, 256),
+           "step": "dense" if solver._dense(n) else "pcg"}
     g = graph_from_edges(poses, edges, device="cuda")
     solve = make_solver("spa_solver").compute
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    try:
-        (got, stats), row["first_s"] = _synced(lambda: solve(g))
-    except ValueError as err:  # past MAX_NODES
-        row["refused"] = str(err)
-        return row
+    (got, stats), row["first_s"] = _synced(lambda: solve(g))
     times = [_synced(lambda: solve(g))[1] for _ in range(3)]
     row.update(replay_s=statistics.median(times), replays_s=times,
                peak_bytes=torch.cuda.max_memory_allocated(),
                initial_cost=float(stats.initial_cost),
                final_cost=float(stats.final_cost),
                good_iters=int(stats.good_iters))
+    got = got.cpu().numpy().astype(np.float64)
     if n <= oracle_max:
         t0 = time.perf_counter()
         want = oracle_poses(poses, edges)
         row["oracle_s"] = time.perf_counter() - t0
-        got = got.cpu().numpy().astype(np.float64)
         row["oracle_xy"] = float(np.abs(got[:, :2] - want[:, :2]).max())
         row["oracle_theta"] = float(np.abs(np.remainder(
             got[:, 2] - want[:, 2] + math.pi, 2 * math.pi) - math.pi).max())
-    return row
+    return row, got
+
+
+def dense_check(n: int, pcg: np.ndarray, pcg_row: dict) -> dict:
+    """The ``n``-node garland solved with its steps exact (the dense limit
+    raised to its bucket), against the PCG's poses ``pcg``."""
+    from tpuslam_torch.graph import solver
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+
+    solver._CUDA_SOLVES.clear()  # the smaller buckets' captures
+    torch.cuda.empty_cache()
+    poses, edges = garland(n)
+    limit = solver.MAX_NODES
+    solver.MAX_NODES = solver._pow2(n, 256)
+    try:
+        g = graph_from_edges(poses, edges, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        (want, stats), secs = _synced(
+            lambda: make_solver("spa_solver").compute(g))
+        want = want.cpu().numpy()
+    finally:
+        solver.MAX_NODES = limit
+        solver._CUDA_SOLVES.clear()
+    got = pcg
+    return {"nodes": n, "dense_first_s": secs,
+            "dense_peak_bytes": torch.cuda.max_memory_allocated(),
+            "dense_final_cost": float(stats.final_cost),
+            "pcg_final_cost": pcg_row["final_cost"],
+            "pcg_vs_dense_xy": float(np.abs(got[:, :2] - want[:, :2]).max()),
+            "pcg_vs_dense_theta": float(np.abs(np.remainder(
+                got[:, 2] - want[:, 2] + math.pi, 2 * math.pi)
+                - math.pi).max())}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nodes", default="256,1024,2048,4096,8192")
+    ap.add_argument("--nodes",
+                    default="256,1024,2048,4096,8192,16384,32768")
     ap.add_argument("--oracle-max", type=int, default=2048)
+    ap.add_argument("--dense-check", type=int, default=16384)
     ap.add_argument("--endurance", type=int, default=1536)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -143,10 +193,19 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     out = {"card": card, "solves": []}
+    pcg = None
     for n in (int(v) for v in args.nodes.split(",")):
-        row = measure(n, args.oracle_max)
+        row, poses = measure(n, args.oracle_max)
         out["solves"].append(row)
+        if n == args.dense_check:
+            pcg = (poses, row)
         print(json.dumps(row), f"[{card}]", flush=True)
+    if args.dense_check:
+        if pcg is None:
+            pcg = measure(args.dense_check, 0)[::-1]
+        out["dense_check"] = dense_check(args.dense_check, *pcg)
+        print("dense_check", json.dumps(out["dense_check"]), f"[{card}]",
+              flush=True)
     if args.endurance:
         from tpuslam_torch.ops import _build
 
@@ -158,6 +217,19 @@ def main() -> int:
         print("endurance", json.dumps(shown), f"[{card}]", flush=True)
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(out, indent=1))
+    far = [r for r in out["solves"] if r["nodes"] == ORACLE_CHECK_NODES
+           and max(r.get("oracle_xy", 0.0), r.get("oracle_theta", 0.0))
+           > ORACLE_BOUND]
+    if far:
+        print(f"solve_scaling: {ORACLE_CHECK_NODES} poses land farther than "
+              f"{ORACLE_BOUND} from the oracle's: {far}", file=sys.stderr)
+        return 1
+    dc = out.get("dense_check")
+    if dc and (dc["pcg_vs_dense_xy"] > PCG_BOUND[0]
+               or dc["pcg_vs_dense_theta"] > PCG_BOUND[1]):
+        print(f"solve_scaling: the PCG lands farther than {PCG_BOUND} from "
+              f"the dense optimum: {dc}", file=sys.stderr)
+        return 1
     return 0
 
 

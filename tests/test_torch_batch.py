@@ -6,13 +6,16 @@
   pipeline rejects parallel, and a blind scan fires the host-side
   expansion retry;
 - the port against the JAX package's ``process_batch`` on the circle-loop
-  stream of test_karto.py in each mode: the same processed flags, loop
-  closures, expansion retries and edge keys, and poses within the free-run
-  bound of test_torch_karto.py (a flush resolves its matches in f32 on
+  stream of test_karto.py (its readings below range_min as NaN, which
+  both packages drop; see ROADMAP C.8) in each mode: the same processed
+  flags, loop closures, expansion retries and edge keys, and poses within
+  the free-run bound of test_torch_karto.py (a flush resolves its matches in f32 on
   either side; one argmax a fine cell apart is the PARITY.md class);
-- one flush from a shared state (``convert.karto_state_from_numpy``)
-  against the JAX package's, to the lockstep tolerances of
-  test_torch_karto.py: every decision equal, poses to 1e-3;
+- one flush from a shared state (``convert.karto_state_from_numpy``), on
+  the raw readings, against the JAX package's, to the lockstep tolerances
+  of test_torch_karto.py: every decision equal, poses to 1e-3; where the
+  flush holds readings below range_min, the parting that they alone
+  make;
 - a flush's dispatch reads no tensor back to the host.
 """
 
@@ -63,8 +66,15 @@ def tmake_scan(*args, **kw):
     return _tmake_scan(*args, **kw, device="cpu")
 
 
-def _scan(make, pose):
+def _scan(make, pose, raw=False):
+    """The scan at ``pose``.  Its readings below range_min come as NaN
+    unless ``raw``: the JAX package drops them and the port's matcher
+    stamps and reads them (ROADMAP C.8), so the free runs compare the
+    packages on the readings both take alike; the shared-state flushes
+    take the raw readings and hold the parting."""
     r, amin, ainc = simulate_scan(SEGS, pose, num_beams=180, max_range=30.0)
+    if not raw:
+        r = np.where(r < 0.1, np.nan, r)
     return make(r, angle_min=amin, angle_increment=ainc, range_min=0.1,
                 range_max=30.0, num_beams=180)
 
@@ -217,32 +227,55 @@ def test_stream_matches_jax(mode):
     assert dth.max() <= 2.5 * FINE_ANGLE, dth
 
 
-@pytest.mark.parametrize("start", [16, 32])
+@pytest.mark.parametrize("start", [0, 16, 32, 38])
 def test_one_flush_from_shared_state_matches_jax(start):
     """The JAX mapper runs the stream scan by scan to ``start``; from its
-    state both packages take the next flush of 8 scans.  The flush at 32
-    closes the loop."""
+    state both packages take the next flush of 8 scans, on the raw
+    readings.  The flush at 32 closes the loop.  The flushes at 0 and 38
+    hold the scans with readings below range_min (3-5, 43-45), which the
+    port's matcher stamps and reads and the JAX package's ``make_scan``
+    drops (ROADMAP C.8: the JAX value differs): there the port's flush
+    with those readings as NaN holds the JAX flush, so the parting is
+    theirs alone, and the raw flush keeps the JAX decisions up to the
+    first such scan and parts by more than half a fine cell and at most the
+    sequential search window's half-width (0 and 38: 2 cm)."""
     stream = _circle_stream()
     mj = JaxMapper(JaxConfig(**CFG_KW), max_scans=64)
     for true, odom in stream[:start]:
-        mj.process(_scan(jmake_scan, true), odom, time=0.0)
+        mj.process(_scan(jmake_scan, true, raw=True), odom, time=0.0)
     state = _dump(mj)
-    mt = KartoMapper.from_state(KartoConfig(**CFG_KW), state, device="cpu")
     flush = stream[start: start + 8]
     odoms = [o for _, o in flush]
-    rj = mj.process_batch([_scan(jmake_scan, t) for t, _ in flush], odoms,
-                          batch_size=8)
-    rt = mt.process_batch([_scan(tmake_scan, t) for t, _ in flush], odoms,
-                          batch_size=8)
-    assert [(r.processed, r.loop_closed) for r in rt] == [
-        (r.processed, r.loop_closed) for r in rj]
-    n0 = len(state["edges"])
-    assert _edge_keys(mt, n0) == _edge_keys(mj, n0)
-    for c in ("near_chain_links", "pose_fusions", "loop_closures",
-              "expansion_retries", "fetch_count"):
-        assert mt.stats[c] == mj.stats[c], c
+    rj = mj.process_batch([_scan(jmake_scan, t, raw=True) for t, _ in flush],
+                          odoms, batch_size=8)
     n = len(mj.records)
-    np.testing.assert_allclose(mt.poses[:n], mj.poses[:n], atol=1e-3, rtol=0)
+    near = [k for k, (t, _) in enumerate(flush) if (simulate_scan(
+        SEGS, t, num_beams=180, max_range=30.0)[0] < 0.1).any()]
+    for raw in (True, False):
+        mt = KartoMapper.from_state(KartoConfig(**CFG_KW), state,
+                                    device="cpu")
+        rt = mt.process_batch([_scan(tmake_scan, t, raw=raw)
+                               for t, _ in flush], odoms, batch_size=8)
+        if raw and near:
+            k0 = near[0]
+            assert [(r.processed, r.loop_closed) for r in rt[:k0]] == [
+                (r.processed, r.loop_closed) for r in rj[:k0]]
+            assert len(mt.records) == n
+            parted = np.abs(mt.poses[:n] - mj.poses[:n]).max()
+            half = 0.5 * CFG_KW["correlation_search_space_dimension"]
+            assert 0.5 * FINE < parted <= half, parted
+            continue
+        assert [(r.processed, r.loop_closed) for r in rt] == [
+            (r.processed, r.loop_closed) for r in rj]
+        n0 = len(state["edges"])
+        assert _edge_keys(mt, n0) == _edge_keys(mj, n0)
+        for c in ("near_chain_links", "pose_fusions", "loop_closures",
+                  "expansion_retries", "fetch_count"):
+            assert mt.stats[c] == mj.stats[c], c
+        np.testing.assert_allclose(mt.poses[:n], mj.poses[:n], atol=1e-3,
+                                   rtol=0)
+        break  # no reading below range_min: the raw flush is the flush
+    assert (start in (0, 38)) == bool(near), near
     if start == 32:
         assert any(r.loop_closed for r in rj)
 

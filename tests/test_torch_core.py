@@ -70,6 +70,10 @@ def test_transform_points_matches_jax_batched():
 
 @pytest.mark.parametrize("num_beams", [None, 4, 9])
 def test_make_scan_matches_jax(num_beams):
+    """Every field equal, but for the reading below range_min (0.05 m,
+    beam 3): both mask it, and the port keeps its range for Karto's
+    matcher, marked in ``near``, where the JAX package zeroes it (ROADMAP
+    C.8)."""
     ranges = [1.0, np.nan, np.inf, 0.05, 40.0, 2.0, 0.0]
     kw = dict(angle_min=-1.0, angle_increment=0.1, range_min=0.1,
               range_max=30.0, time_increment=0.01, num_beams=num_beams)
@@ -78,8 +82,19 @@ def test_make_scan_matches_jax(num_beams):
     for f in ("ranges", "angles", "valid", "stamps"):
         got, want = getattr(st, f).numpy(), np.asarray(getattr(sj, f))
         assert got.dtype == want.dtype, f
+        if f == "ranges" and got.shape[0] > 3:
+            assert want[3] == 0.0 and got[3] == np.float32(0.05)
+            assert not st.valid[3]
+            got = np.where(np.arange(got.shape[0]) == 3, want, got)
         np.testing.assert_array_equal(got, want, err_msg=f)
     assert st.num_beams == sj.num_beams
+    beams = np.arange(st.num_beams)
+    np.testing.assert_array_equal(st.near.numpy(), beams == 3)
+    # every other path sees the masked beam at the origin, as in JAX
+    pj, vj = jscan.scan_to_points(sj)
+    pt, vt = tscan.scan_to_points(st)
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert (pt.numpy()[~vt.numpy()] == 0.0).all()
 
 
 def test_scan_to_points_matches_jax():

@@ -1,22 +1,33 @@
 """tpuslam_torch.graph against tpuslam.graph: LM and the presets.
 
-Both sides solve in float32 from the same numpy graph.  Sums are reduced
-in another order (the port's per-node pairwise tree vs XLA scatter-add),
-so poses are held to atol 1e-4 and costs to rtol 1e-4.  The JAX side pads
-the graph to power-of-two capacities; padding is masked and changes no
-result.
+Both sides solve the same numpy graph, the JAX package in float32 and the
+port in float64.  Sums are reduced in another order (the port's per-node
+pairwise tree vs XLA scatter-add), so poses are held to atol 1e-4 and
+costs to rtol 1e-4.  The JAX side pads the graph to power-of-two
+capacities; padding is masked and changes no result.
 
-The port solves each LM step exactly (a dense f64 Cholesky factor) where
-the JAX package runs a block-Jacobi PCG of 60 iterations; on these small
-graphs the PCG converges, so both reach the same poses.
+Up to ``MAX_NODES`` the port solves each LM step exactly (a dense f64
+Cholesky factor) where the JAX package runs a block-Jacobi PCG of 60
+iterations; on these small graphs the PCG converges, so both reach the
+same poses.  Past it the port runs that PCG too.
 
-The port's own contract: the fixed-count form reads no tensor, equals the
+Against ``OracleSpa2d`` (f64): a garland of 512 poses, there and moved
+3e4 m from the origin, lands within test_oracle_parity.py's SPA bound of
+5e-4 m (the f64 LM state; an f32 state rounds the moved poses by ~2e-3
+m), and past the dense limit the PCG step lands as close as the JAX
+package's own.
+
+The port's own contract: under either step solve the fixed-count form
+reads no tensor, equals the
 CPU's early-exit form bit for bit and repeats itself bit for bit, its
 per-node sums take the order that ``node_edge_index`` writes down, and its
 H is the f64 sum of the edges' blocks in edge order.
 """
 
 import inspect
+import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +37,10 @@ from tpuslam.graph import backends as jb
 from tpuslam.graph import solver as js
 from tpuslam_torch.graph import backends as tb
 from tpuslam_torch.graph import solver as ts
+from tpuslam_torch.oracle import OracleSpa2d
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from solve_scaling import garland  # noqa: E402
 
 # tiny tensors: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores
@@ -138,8 +153,12 @@ def test_presets_match_jax(name):
     np.testing.assert_allclose(float(st.final_cost), float(sj.final_cost),
                                rtol=1e-3, atol=1e-5)
     if name == "g2o_solver":
-        assert int(st.good_iters) == int(sj.good_iters)
+        # Gauss-Newton takes every step until |dx|^2 < 1e-16: the JAX
+        # package's f32 state never resolves that and runs all 40; the
+        # port's f64 state gets there in 5 steps, on the f64 optimum
+        assert int(st.good_iters) == 5 and int(sj.good_iters) == 40
         assert float(st.final_lambda) == float(sj.final_lambda) == 0.0
+        assert _oracle_err(pt.numpy(), _oracle_solve(init, edges)) < 1e-8
 
 
 def test_backends_differ_as_the_reference_adapters_would():
@@ -198,11 +217,24 @@ def _raise(*args, **kw):
     raise AssertionError("the solve read a tensor back to the host")
 
 
+def _take_step(step, monkeypatch):
+    """The dense step (the default at these sizes) or the PCG, reached by
+    lowering the dense limit below the smallest bucket (256 nodes)."""
+    if step == "pcg":
+        monkeypatch.setattr(ts, "MAX_NODES", 64)
+
+
+STEPS = ["dense", "pcg"]
+
+
+@pytest.mark.parametrize("step", STEPS)
 @pytest.mark.parametrize("problem", ["noisy_loop", "bad_init"])
-def test_fixed_count_form_reads_no_tensor(problem, monkeypatch):
+def test_fixed_count_form_reads_no_tensor(problem, step, monkeypatch):
     init, edges = (noisy_loop_graph() if problem == "noisy_loop"
                    else bad_init_problem())
     g = tb.graph_from_edges(init, edges, device="cpu")
+    _take_step(step, monkeypatch)
+    assert ts._dense(len(init)) == (step == "dense")
     for name in ("__bool__", "__float__", "__int__", "__index__", "item",
                  "tolist", "cpu", "numpy"):
         monkeypatch.setattr(torch.Tensor, name, _raise)
@@ -212,12 +244,15 @@ def test_fixed_count_form_reads_no_tensor(problem, monkeypatch):
     assert float(stats.final_cost) < float(stats.initial_cost)
 
 
+@pytest.mark.parametrize("step", STEPS)
 @pytest.mark.parametrize("preset", sorted(SETTINGS))
 @pytest.mark.parametrize("problem", ["noisy_loop", "bad_init"])
-def test_early_exit_and_fixed_count_forms_agree_bit_for_bit(preset, problem):
+def test_early_exit_and_fixed_count_forms_agree_bit_for_bit(
+        preset, problem, step, monkeypatch):
     init, edges = (noisy_loop_graph() if problem == "noisy_loop"
                    else bad_init_problem())
     g = tb.graph_from_edges(init, edges, device="cpu")
+    _take_step(step, monkeypatch)
     # optimize on the CPU is the early-exit form
     early = ts.optimize(g, **SETTINGS[preset])
     fixed = _solve(g, False, **SETTINGS[preset])
@@ -230,8 +265,10 @@ def test_early_exit_and_fixed_count_forms_agree_bit_for_bit(preset, problem):
 
 
 def _tree_sum_numpy(index, t_i, t_j):
-    """segment_sum written out in NumPy f32: node n's slots in the order
-    of its row, added pairwise (0+1, 2+3, ...) level by level."""
+    """segment_sum written out in NumPy in the terms' dtype: node n's
+    slots in the order of its row, added pairwise (0+1, 2+3, ...) level by
+    level."""
+    dtype = t_i.dtype.type
     terms = np.concatenate([np.zeros_like(t_i[:1]),
                             np.stack([t_i, t_j], 1).reshape(-1,
                                                             *t_i.shape[1:])])
@@ -239,13 +276,14 @@ def _tree_sum_numpy(index, t_i, t_j):
     for row in index:
         level = [terms[s] for s in row]
         while len(level) > 1:
-            level = [np.float32(a + b) for a, b in zip(level[0::2],
-                                                       level[1::2])]
+            level = [dtype(a + b) for a, b in zip(level[0::2],
+                                                  level[1::2])]
         out.append(level[0])
     return np.stack(out)
 
 
-def test_node_sums_take_the_written_order():
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_node_sums_take_the_written_order(dtype):
     init, edges = noisy_loop_graph(n=12, seed=7)
     # a hub node with more ends than 4, and a repeated pair
     edges = edges + [(5, j, edges[0][2], edges[0][3]) for j in (0, 1, 2, 8)]
@@ -261,8 +299,8 @@ def test_node_sums_take_the_written_order():
         assert row == want + [0] * (index.shape[1] - len(want)), v
     rng = np.random.default_rng(0)
     for shape in ((3,), (3, 3)):
-        t_i = rng.normal(0, 1, (e, *shape)).astype(np.float32)
-        t_j = rng.normal(0, 1, (e, *shape)).astype(np.float32)
+        t_i = rng.normal(0, 1, (e, *shape)).astype(dtype)
+        t_j = rng.normal(0, 1, (e, *shape)).astype(dtype)
         got = ts.segment_sum(torch.from_numpy(index), torch.from_numpy(t_i),
                              torch.from_numpy(t_j)).numpy()
         np.testing.assert_array_equal(got, _tree_sum_numpy(index, t_i, t_j))
@@ -306,14 +344,70 @@ def test_block_inverse_and_no_float_scatter():
                      (3, 4, edges[2][2], 2.0 * edges[2][3])]
     g = tb.graph_from_edges(init, edges, device="cpu")
     sys = ts._build_system(g, g.poses, 1)
-    lam = float(np.float32(1e-3))  # lambda is an f32 tensor in the solve
-    h = ts._normal_matrix(g, sys, torch.tensor(lam)).numpy()
+    # blocks with f32-exact entries: each J0^T P J1 is then exact in f64
+    # (in either BLAS), so the order of the sums alone decides the bits
+    sys = sys._replace(j0=sys.j0.float().double(),
+                       lj1=sys.lj1.float().double())
+    lam = 1e-3
+    h = ts._normal_matrix(g, sys, torch.tensor(lam, dtype=torch.float64)
+                          ).numpy()
     np.testing.assert_array_equal(h, _normal_matrix_numpy(g, sys, lam))
     rhs = -(sys.g.numpy().astype(np.float64) * sys.free.numpy()[:, None])
     want = np.linalg.solve(h, rhs.reshape(-1)).reshape(-1, 3)
-    got = ts._step(g, sys, torch.tensor(lam)).numpy()
+    got = ts._step(g, sys, torch.tensor(lam, dtype=torch.float64)).numpy()
     np.testing.assert_allclose(got, want.astype(np.float32), rtol=1e-5,
                                atol=1e-9)
     src = inspect.getsource(ts)
     for op in (".index_add", ".scatter_add", "linalg.inv"):
         assert op not in src, op
+
+
+def _oracle_solve(poses, edges):
+    spa = OracleSpa2d()
+    for i, p in enumerate(poses):
+        spa.add_node(p, i)
+    for i, j, mean, prec in edges:
+        spa.add_constraint(i, j, mean, prec)
+    spa.do_spa(40)
+    return np.stack([spa.get_poses()[i] for i in range(len(poses))])
+
+
+def _oracle_err(got, want):
+    dth = np.remainder(got[:, 2] - want[:, 2] + math.pi, 2 * math.pi)
+    return max(np.abs(got[:, :2] - want[:, :2]).max(),
+               np.abs(dth - math.pi).max())
+
+
+@pytest.mark.parametrize("moved_m", [0.0, 3e4])
+def test_garland_lands_on_the_oracle(moved_m):
+    """C.9: the f64 LM state takes every decrease of the cost, so 512
+    poses (8 laps of ``solve_scaling.garland``) land within 5e-4 m and rad
+    of the oracle's, and so does the same graph 3e4 m from the origin,
+    where an f32 ulp is ~2e-3 m."""
+    init, edges = garland(512)
+    init = init + np.array([moved_m, moved_m, 0.0])
+    want = _oracle_solve(init, edges)
+    got, stats = tb.make_solver("spa_solver").compute(
+        tb.graph_from_edges(init, edges, device="cpu"))
+    assert got.dtype == torch.float64 and ts._dense(len(init))
+    assert float(stats.final_cost) < float(stats.initial_cost)
+    assert _oracle_err(got.numpy(), want) < 5e-4
+
+
+def test_pcg_past_the_dense_limit_lands_as_the_jax_package(monkeypatch):
+    """C.11: with the dense limit lowered to 64, a 256-node garland takes
+    the PCG step (no ValueError at any size), warns that it stops short
+    of the optimum (C.12), and lands no farther from the oracle than the
+    JAX package's ``optimize``, plus 1e-5 m."""
+    init, edges = garland(256)
+    want = _oracle_solve(init, edges)
+    monkeypatch.setattr(ts, "MAX_NODES", 64)
+    assert not ts._dense(len(init))
+    with pytest.warns(RuntimeWarning, match="C.12"):
+        got, stats = tb.make_solver("spa_solver").compute(
+            tb.graph_from_edges(init, edges, device="cpu"))
+    assert float(stats.final_cost) < float(stats.initial_cost)
+    pj, _ = jb.make_solver("spa_solver").compute(
+        jb.graph_from_edges(init, edges))
+    pj = np.asarray(pj)[:len(init)].astype(np.float64)
+    assert _oracle_err(got.numpy(), want) <= _oracle_err(pj, want) + 1e-5

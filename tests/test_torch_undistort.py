@@ -6,11 +6,16 @@ in every combination of ``three_axis``, ``pcl_z_quirk``, ``use_imu`` and
 ``use_odom`` against jitted JAX, and ``undistorted_scan``: points within
 ATOL_M = 1e-5 m (the port's cos and sin are PyTorch's, not glibc's, an
 ulp apart; ranges of 0.5-8 m), validity masks equal.  Then the wall tests
-of test_undistort.py on the port.
+of test_undistort.py on the port.  Last, a bag stamped in epoch seconds
+against the same bag stamped from 0 s and against OracleUndistorter.
 """
 
 import dataclasses
 import itertools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,13 +26,17 @@ from test_undistort import distorted_scan, wall_x_spread
 from tpuslam.core.config import UndistortConfig as JaxConfig
 from tpuslam.core.scan import make_scan as jmake_scan
 from tpuslam.models import undistort as ju
+import tpuslam_torch.oracle as toracle
+from tpuslam_torch import cli
 from tpuslam_torch.core.config import UndistortConfig
 from tpuslam_torch.core.scan import Scan, scan_to_points
 from tpuslam_torch.core.scan import make_scan as _tmake_scan
+from tpuslam_torch.io import bag
 from tpuslam_torch.models import undistort as tu
 
 torch.set_num_threads(1)
 ATOL_M = 1e-5
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def tmake_scan(*a, **kw):
@@ -121,7 +130,8 @@ def test_undistorted_scan_matches_jax():
 def _port_scan(omega, vel):
     """test_undistort.py's distorted wall scan, rebuilt on the port."""
     sc, period = distorted_scan(omega, vel)
-    return Scan(*(torch.tensor(np.asarray(f)) for f in sc)), period
+    f = [torch.tensor(np.asarray(x)) for x in sc]
+    return Scan(*f, near=torch.zeros_like(f[2])), period
 
 
 @pytest.mark.parametrize("case", ["rotation", "translation", "combined"])
@@ -153,3 +163,78 @@ def test_make_imu_buffer_layout():
     want = ju.make_imu_buffer([0.0, 0.1, 0.2], [1.0, 2.0, 3.0], 5)
     for g, w in zip(imu, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------------------------ epoch time stamps (a real bag)
+
+EPOCH_S = 1.7e9  # a ROS bag's stamps: seconds since 1970
+
+
+def _epoch_logs():
+    """A distorted synthesized bag, and the same bag with its stamps moved
+    to epoch seconds (f64 on the host, as ``io.bag`` holds them)."""
+    log, _ = bag.synthesize(num_scans=4, num_beams=90, distorted=True)
+    return log, dataclasses.replace(log, stamps=log.stamps + EPOCH_S)
+
+
+def _oracle_points(log, i, cfg):
+    """OracleUndistorter (f64) on scan i of ``log`` with the command line's
+    inputs: the yaw rate of sample i + 1 over [stamps[i], stamps[i+1]]
+    (and a sample 1 us before, which the oracle's integration starts
+    from), the odometry at both ends."""
+    t0, t1 = float(log.stamps[i]), float(log.stamps[i + 1])
+    orc = toracle.OracleUndistorter(point_z=1.0, use_imu=cfg.use_imu,
+                                    use_odom=cfg.use_odom)
+    wz = float(log.imu_wz[i + 1])
+    orc.prune_imu([t0 - 1e-6, t1], [[0.0, 0.0, wz]] * 2, t0, t1)
+    odom = np.zeros((2, 6))
+    odom[:, [0, 1, 5]] = log.odom[i:i + 2]
+    orc.prune_odom([t0, t1], odom, t0, t1)
+    n = log.num_beams
+    return orc.correct(log.ranges[i].astype(np.float64),
+                       log.angle_min + np.arange(n) * log.angle_increment,
+                       log.range_min, log.range_max, t0, log.time_increment)
+
+
+def test_epoch_stamps_give_the_points_of_stamps_from_zero(tmp_path):
+    """ROADMAP C.5: a bag stamped in epoch seconds, where an f32 ulp is
+    128 s, gives the points of the same bag stamped from 0 s within 1e-5
+    m, through ``undistort`` with the command line's host-rebased
+    arguments and through ``python -m tpuslam_torch.cli undistort``; and
+    within the oracle's 5e-5 m of OracleUndistorter on the epoch stamps.
+    Epoch times passed to ``undistort`` or ``make_imu_buffer`` raise."""
+    log, moved = _epoch_logs()
+    cfg = UndistortConfig()
+    for i in range(len(log) - 1):
+        sc = log.scan(i, device="cpu")
+        got, gv = tu.undistort(cfg, sc, *cli._undistort_args(moved, i, "cpu"))
+        want, wv = tu.undistort(cfg, sc, *cli._undistort_args(log, i, "cpu"))
+        assert torch.equal(gv, wv) and bool(gv.any())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=ATOL_M)
+        opts, ov = _oracle_points(moved, i, cfg)
+        m = gv.numpy()
+        assert np.array_equal(m, ov)
+        np.testing.assert_allclose(got.numpy()[m], opts[m][:, :2], rtol=0,
+                                   atol=5e-5)
+    t0, t1 = float(moved.stamps[0]), float(moved.stamps[1])
+    imu, rel, _, _ = cli._undistort_args(log, 0, "cpu")
+    with pytest.raises(ValueError, match="relative to the scan"):
+        tu.undistort(cfg, log.scan(0, device="cpu"), imu, rel, t0, t1)
+    with pytest.raises(ValueError, match="relative to the scan"):
+        tu.make_imu_buffer([t0, t1], [0.5, 0.5], 8, device="cpu")
+    out = {}
+    for name, lg in (("zero", log), ("epoch", moved)):
+        path = tmp_path / f"{name}.tslg"
+        bag.save_tslg(path, lg)
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        res = subprocess.run(
+            [sys.executable, "-m", "tpuslam_torch.cli", "undistort", "--log",
+             str(path), "--save", str(tmp_path / f"{name}.npz"), "--device",
+             "cpu"], capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=env)
+        assert res.returncode == 0, res.stderr[-2000:]
+        out[name] = np.load(tmp_path / f"{name}.npz")["points"]
+    assert out["epoch"].shape == (len(log) - 1, 90, 2)
+    np.testing.assert_allclose(out["epoch"], out["zero"], rtol=0,
+                               atol=ATOL_M)

@@ -143,7 +143,10 @@ def save_karto(path: str | os.PathLike, mapper) -> None:
     np.savez_compressed(
         path,
         pts=_to_numpy(mapper._pts[:n]),
-        valid=_to_numpy(mapper._valid[:n]),
+        # the JAX package's mask (readings in range), and apart from it
+        # the readings below range_min that the port's matcher also takes
+        valid=_to_numpy(mapper._valid[:n] & ~mapper._near[:n]),
+        near=_to_numpy(mapper._near[:n]),
         poses=mapper.poses[:n],
         odom=np.stack([r.odom_pose for r in mapper.records])
         if n
@@ -175,7 +178,11 @@ def load_karto(path: str | os.PathLike, mapper) -> None:
         raise ValueError("checkpoint larger than mapper capacity")
     meta = json.loads(bytes(z["meta"]).decode())
     mapper._pts[:n] = torch.as_tensor(z["pts"], device=mapper.device)
-    mapper._valid[:n] = torch.as_tensor(z["valid"], device=mapper.device)
+    valid = torch.as_tensor(z["valid"], device=mapper.device)
+    near = (torch.as_tensor(z["near"], device=mapper.device)
+            if "near" in z.files else torch.zeros_like(valid))
+    mapper._valid[:n] = valid | near
+    mapper._near[:n] = near
     mapper.poses[:n] = z["poses"]
     mapper.mean_locals[:n] = z["mean_local"]
     mapper.records = [

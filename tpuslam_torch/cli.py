@@ -126,16 +126,20 @@ def _undistort_args(log, i: int, device):
     i's beams sweep forward from its stamp (beam-0 frame = the pose at
     stamps[i]), so the bracket is the next sample's (offline replay has
     it; the reference node buffers until TF covers the sweep,
-    lidar_undistortion.cc:250-312)."""
+    lidar_undistortion.cc:250-312).
+
+    The times are rebased on scan i's stamp here, in f64, before any f32
+    cast: (t0, t1) = (0, stamps[i+1] - stamps[i]).  A bag stamps in
+    seconds since 1970, where f32 would round every beam time to t0."""
     from tpuslam_torch.models.undistort import make_imu_buffer
 
-    t0, t1 = float(log.stamps[i]), float(log.stamps[i + 1])
-    imu = make_imu_buffer(np.array([t0, t1]),
+    t1 = float(log.stamps[i + 1]) - float(log.stamps[i])
+    imu = make_imu_buffer(np.array([0.0, t1]),
                           np.array([log.imu_wz[i + 1]] * 2), 64,
                           device=device)
     rel = torch.as_tensor(_odom_rel(log, i), dtype=torch.float32,
                           device=device)
-    return imu, rel, t0, t1
+    return imu, rel, 0.0, t1
 
 
 def _make_undistorter(args, log):

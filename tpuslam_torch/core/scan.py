@@ -1,7 +1,11 @@
 """Fixed-shape laser-scan containers (counterpart of ``tpuslam/core/scan.py``).
 
 Invalid beams (NaN/inf, outside [range_min, range_max]) are masked, not
-dropped, so a scan is always ``[B]`` tensors plus a validity mask.
+dropped, so a scan is always ``[B]`` tensors plus a validity mask.  A
+finite reading below ``range_min`` keeps its range, masked from ``valid``
+and marked in ``near``: Karto's matcher stamps and reads it
+(``models.karto.matcher_points``); every other path takes ``valid`` (and
+:func:`scan_to_points` puts masked beams at the origin).
 """
 
 from __future__ import annotations
@@ -15,16 +19,20 @@ import torch
 class Scan(NamedTuple):
     """A (batch of) laser scan(s) with static beam count.
 
-    ranges: [..., B] float32 — raw range per beam (masked-out beams hold 0)
+    ranges: [..., B] float32 — raw range per beam (masked-out beams hold 0,
+        but for the ``near`` readings, which keep theirs)
     angles: [..., B] float32 — beam angle in the sensor frame
     valid:  [..., B] bool    — beam validity mask
     stamps: [..., B] float32 — per-beam relative time (s) from scan start
+    near:   [..., B] bool    — finite readings in (0, range_min): not
+        ``valid``, taken by Karto's matcher alone
     """
 
     ranges: torch.Tensor
     angles: torch.Tensor
     valid: torch.Tensor
     stamps: torch.Tensor
+    near: torch.Tensor
 
     @property
     def num_beams(self) -> int:
@@ -48,7 +56,10 @@ def make_scan(
 
     Host arithmetic is float64 and the result float32, as in the
     reference: ``!std::isfinite`` skip and ``range_min <= r <= range_max``
-    gating; pads/truncates to ``num_beams`` when given."""
+    gating; pads/truncates to ``num_beams`` when given.  A finite reading
+    in (0, range_min) keeps its range in ``ranges``, with ``valid`` False
+    and ``near`` True (LocalizedRangeScan keeps it among the unfiltered
+    readings)."""
     r = np.asarray(ranges, dtype=np.float64)
     n = r.shape[-1]
     idx = np.arange(n, dtype=np.float64)
@@ -57,11 +68,12 @@ def make_scan(
     finite = np.isfinite(r)
     rr = np.where(finite, r, 0.0)
     valid = finite & (rr >= range_min) & (rr <= range_max) & (rr > 0.0)
+    near = finite & (rr > 0.0) & (rr < range_min)
 
     if num_beams is not None:
         if n >= num_beams:
-            rr, ang, valid, stamps = (
-                a[..., :num_beams] for a in (rr, ang, valid, stamps)
+            rr, ang, valid, near, stamps = (
+                a[..., :num_beams] for a in (rr, ang, valid, near, stamps)
             )
         else:
             pad = num_beams - n
@@ -69,6 +81,7 @@ def make_scan(
             rr = np.pad(rr, pw)
             ang = np.pad(ang, [(0, pad)], mode="edge")
             valid = np.pad(valid, pw, constant_values=False)
+            near = np.pad(near, pw, constant_values=False)
             stamps = np.pad(stamps, [(0, pad)], mode="edge")
 
     def f32(a):
@@ -78,15 +91,18 @@ def make_scan(
         )
 
     return Scan(
-        ranges=f32(np.where(valid, rr, 0.0)),
+        ranges=f32(np.where(valid | near, rr, 0.0)),
         angles=f32(ang),
         valid=torch.as_tensor(np.ascontiguousarray(valid), device=device),
         stamps=f32(stamps),
+        near=torch.as_tensor(np.ascontiguousarray(near), device=device),
     )
 
 
 def scan_to_points(scan: Scan) -> tuple[torch.Tensor, torch.Tensor]:
-    """Polar → Cartesian (sensor frame): (points [..., B, 2], valid)."""
-    x = scan.ranges * torch.cos(scan.angles)
-    y = scan.ranges * torch.sin(scan.angles)
+    """Polar → Cartesian (sensor frame): (points [..., B, 2], valid), the
+    masked beams at the origin."""
+    r = torch.where(scan.valid, scan.ranges, 0.0)
+    x = r * torch.cos(scan.angles)
+    y = r * torch.sin(scan.angles)
     return torch.stack([x, y], dim=-1), scan.valid

@@ -5,9 +5,10 @@ contracts ``a*b + c`` into FMAs, takes glibc's ``cosf``/``sinf`` for
 ``jnp.cos``/``jnp.sin`` (elementwise, vectorised or not), and rewrites a
 cumulative sum into a blocked scan.  Where the port must equal the JAX
 package bit for bit (the Karto map, the GMapping counters, the feature
-curvature), it spells out the same arithmetic with these helpers.  Each
-is exact f32 arithmetic that gives the same bits on every device, except
-:func:`cos_sin`, which takes glibc's values only for a CPU tensor.
+curvature, the correlative matcher's points), it spells out the same
+arithmetic with these helpers.  Each is exact f32 arithmetic that gives
+the same bits on every device, except :func:`cos_sin` and :func:`rotate`,
+which take XLA's CPU arithmetic only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -60,6 +61,18 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """f32 ``a*b + c`` rounded once, as an FMA: the product is exact in
     f64, so only a double rounding at an exact f32 tie could differ."""
     return (a.double() * b.double() + c.double()).float()
+
+
+def rotate(c: torch.Tensor, s: torch.Tensor, x: torch.Tensor,
+           y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(c*x - s*y, s*x + c*y)``: with jitted XLA's FMAs for CPU tensors
+    (``fma(c, x, -(s*y))``, ``fma(s, x, c*y)``), the JAX package's bits
+    there; the plain products on another device, whose cos and sin are
+    its own (:func:`cos_sin`), so that no parity is to be had and the
+    FMA's route through f64 would only add operations."""
+    if c.device.type != "cpu":
+        return c * x - s * y, s * x + c * y
+    return fma(c, x, -(s * y)), fma(s, x, c * y)
 
 
 def clipped_endpoints(pts: torch.Tensor, pose: torch.Tensor, thr: float):

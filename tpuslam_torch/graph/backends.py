@@ -4,8 +4,10 @@
 The reference ships four backends behind ``karto::ScanSolver``
 (Mapper.h:825-891), selected by ``solver_type`` (karto_slam.cc:254-284).
 They minimise the same residual and differ in iteration strategy, so one
-engine (``graph/solver.py``) serves them all, each step solved exactly
-by a Cholesky factorization as the reference's backends factor theirs:
+float64 engine (``graph/solver.py``) serves them all, each step solved
+exactly by a Cholesky factorization as the reference's backends factor
+theirs, up to ``solver.MAX_NODES`` nodes, and by the JAX package's
+block-Jacobi PCG past it:
 
 - ``spa_solver``:   LM, 40 iterations (spa_solver.cc:43-61),
 - ``ceres_solver``: LM with a tiny initial lambda, 100 iterations
@@ -111,7 +113,7 @@ def graph_from_edges(
     edges: list[tuple[int, int, np.ndarray, np.ndarray]],
     device="cuda",
 ) -> PoseGraph:
-    """A float32 PoseGraph on ``device`` from host-side pose/edge lists,
+    """A float64 PoseGraph on ``device`` from host-side pose/edge lists,
     with each node's edge ends (:func:`node_edge_index`) built once here
     on the host.
 
@@ -121,11 +123,11 @@ def graph_from_edges(
     padding, as the JAX version pads), so that the captured LM iteration
     of that bucket serves every graph in it."""
     n, e = len(poses), len(edges)
-    p = np.asarray(poses[:n], np.float32).reshape(n, 3)
+    p = np.asarray(poses[:n], np.float64).reshape(n, 3)
     edge_i = np.asarray([x[0] for x in edges], np.int64)
     edge_j = np.asarray([x[1] for x in edges], np.int64)
-    meas = np.asarray([x[2] for x in edges], np.float32).reshape(e, 3)
-    prec = np.asarray([x[3] for x in edges], np.float32).reshape(e, 3, 3)
+    meas = np.asarray([x[2] for x in edges], np.float64).reshape(e, 3)
+    prec = np.asarray([x[3] for x in edges], np.float64).reshape(e, 3, 3)
 
     def dev(a):
         return torch.as_tensor(a, device=device)

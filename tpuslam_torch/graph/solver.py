@@ -1,4 +1,4 @@
-"""2D pose-graph optimizer: Levenberg-Marquardt with an exact step solve
+"""2D pose-graph optimizer: Levenberg-Marquardt in float64
 (counterpart of ``tpuslam/graph/solver.py``).
 
 The residual model of the reference's SPA2d backend
@@ -13,38 +13,53 @@ The residual model of the reference's SPA2d backend
   spa2d.cpp:555-582; converged when ``|dx|^2 < 1e-16``; the gauge is fixed
   by the first ``n_fixed`` nodes.
 
-Each step's normal system is solved exactly, as SPA's CSparse Cholesky
-does (spa2d.cpp:258-323): H is assembled dense in float64 from the f32
-Jacobians and factored by Cholesky (:func:`_normal_matrix`, :func:`_step`).  The JAX package
-solves it by a block-Jacobi PCG capped at 60 iterations, which stops
-short on a long loop: 1.3 mm from the optimum of a 134-node closure,
-where the f64 oracle converges in 9 steps.  A dense factor costs
-O(N^2) memory and O(N^3) time, so a graph is held to ``MAX_NODES``
-(its padded bucket on the card; ``solve_scaling.py`` measures the
-buckets).  Plain PyTorch, no kernel: the JAX solver has no Pallas kernel
-either.
+The whole solve is float64, as SPA's: the graph (poses, measurements,
+precisions), the Jacobians, the LM state (poses, cost, lambda) and the
+accept test, so that a cost decrease below f32 resolution is still taken
+and a graph far from the origin keeps its sub-millimetre steps.
 
-Every per-node sum (g, the diagonal blocks) is a gather of the
-per-edge-end terms through the graph's ``node_edges`` index followed by a
-pairwise tree over its padded width (:func:`segment_sum`), and each edge's
-off-diagonal block goes into H by one accumulating ``index_put_`` in edge
-order: a fixed order, so a solve repeats itself bit for bit on the card,
-where a float ``index_add_`` adds through atomics in an order that
-changes from run to run.
+Each step's normal system is solved by one of two methods, chosen from
+the graph's padded node bucket (:func:`_pow2`) alike on every device:
 
-The loop is the reference's masked fixed-count form: LM carries a
-``done`` flag on the device and freezes its state once done, and no value
-is read back to the host (a factorization that fails gives a zero step,
-which ends the solve as the reference's loop ends on a failed solve).  On
-a CUDA device one LM iteration is captured once as a CUDA graph for each
-padded (nodes, edges, node width) bucket and replayed ``num_iters`` times
-(:class:`_CudaSolve`).  On the CPU the same iteration runs eagerly and
-stops at ``done``, where a read costs nothing and the frozen iterations
-would change no value.
+- up to ``MAX_NODES``, exactly, as SPA's CSparse Cholesky does
+  (spa2d.cpp:258-323): H is assembled dense and factored by Cholesky
+  (:func:`_normal_matrix`, :func:`_step`).  The JAX package's PCG stops
+  short on a long loop: 1.3 mm from the optimum of a 134-node closure,
+  where the f64 oracle converges in 9 steps.  A dense factor costs
+  O(N^2) memory and O(N^3) time (``solve_scaling.py`` measures the
+  buckets);
+- past it, by the JAX package's own step: a matrix-free block-Jacobi PCG
+  of ``CG_ITERS`` iterations to a relative residual of ``CG_TOL``
+  (:func:`_pcg`), in O(E) memory, so that every graph the JAX package
+  solves is solved, as it solves it.  Its 60 iterations stop short of
+  the optimum on a long chain (ROADMAP C.12; ``solve_scaling.py
+  --dense-check`` measures how far), and ``optimize`` warns when it is
+  taken.
+
+Plain PyTorch, no kernel: the JAX solver has no Pallas kernel either.
+
+Every per-node sum (g, the diagonal blocks, the PCG's ``H x``) is a
+gather of the per-edge-end terms through the graph's ``node_edges`` index
+followed by a pairwise tree over its padded width (:func:`segment_sum`),
+and each edge's off-diagonal block goes into the dense H by one
+accumulating ``index_put_`` in edge order: a fixed order, so a solve
+repeats itself bit for bit on the card, where a float ``index_add_`` adds
+through atomics in an order that changes from run to run.
+
+The loop is the reference's masked fixed-count form: LM (and the PCG
+inside it) carries a ``done`` flag on the device and freezes its state
+once done, and no value is read back to the host (a factorization that
+fails gives a zero step, which ends the solve as the reference's loop
+ends on a failed solve).  On a CUDA device one LM iteration is captured
+once as a CUDA graph for each padded (nodes, edges, node width) bucket
+and replayed ``num_iters`` times (:class:`_CudaSolve`).  On the CPU the
+same iteration runs eagerly and stops at ``done``, where a read costs
+nothing and the frozen iterations would change no value.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -129,8 +144,9 @@ def segment_sum(
     ``t_i`` / ``t_j`` [E, ...] are each edge's terms at its i and j end.
     Node n's sum is over the slots ``node_edges[n]`` (``1 + 2k + end``,
     slot 0 reads zero), added as a pairwise tree: slots (0, 1), (2, 3), ...
-    first, then their sums pairwise, down to one.  Every add is an f32
-    elementwise add, so the result is the same on any device."""
+    first, then their sums pairwise, down to one.  Every add is an
+    elementwise add in the terms' dtype (f64 in the solve), so the result
+    is the same on any device."""
     terms = torch.stack([t_i, t_j], dim=1).reshape(-1, *t_i.shape[1:])
     terms = torch.cat([torch.zeros_like(terms[:1]), terms])
     out = terms[node_edges]  # [N, D, ...]
@@ -174,42 +190,113 @@ def _normal_matrix(graph: PoseGraph, sys: _System, lam) -> torch.Tensor:
     ``_build_system``; each live edge between free nodes puts
     ``J0^T P J1`` at (i, j) and its transpose at (j, i), added in edge
     order.  Fixed and padded nodes get identity rows."""
-    f64 = torch.float64
     n = sys.g.shape[0]
     dev = sys.g.device
     free = sys.free
     keep = graph.edge_mask & free[graph.edge_i] & free[graph.edge_j]
-    off = torch.einsum("eba,ebc->eac", sys.j0.to(f64), sys.lj1.to(f64))
+    off = torch.einsum("eba,ebc->eac", sys.j0, sys.lj1)
     off = torch.where(keep[:, None, None], off, 0.0)
     k = torch.arange(3, device=dev)
     rows = (3 * graph.edge_i[:, None, None] + k[:, None]).expand_as(off)
     cols = (3 * graph.edge_j[:, None, None] + k).expand_as(off)
-    h = torch.zeros((3 * n, 3 * n), dtype=f64, device=dev)
+    h = torch.zeros((3 * n, 3 * n), dtype=sys.g.dtype, device=dev)
     h.index_put_((torch.cat([rows.reshape(-1), cols.reshape(-1)]),
                   torch.cat([cols.reshape(-1), rows.reshape(-1)])),
                  torch.cat([off.reshape(-1), off.reshape(-1)]),
                  accumulate=True)
     blocks = h.view(n, 3, n, 3).diagonal(dim1=0, dim2=2)  # [3, 3, N]
-    diag = torch.where(free[:, None, None], sys.diag, 0.0).to(f64)
+    diag = torch.where(free[:, None, None], sys.diag, 0.0)
     blocks.add_(diag.permute(1, 2, 0))
     d = h.diagonal()
-    d.add_(d * lam + (1.0 - free.repeat_interleave(3).to(f64)))
+    d.add_(d * lam + (1.0 - free.repeat_interleave(3).to(h.dtype)))
     return h
 
 
 def _step(graph: PoseGraph, sys: _System, lam) -> torch.Tensor:
     """dx of ``_normal_matrix`` dx = -g, exactly: a Cholesky factor and two
-    triangular solves in float64 (doSPA's CSparse solve, spa2d.cpp:
-    425-609).  No value is read back: a factorization that fails leaves
-    dx at 0."""
+    triangular solves (doSPA's CSparse solve, spa2d.cpp:425-609).  No
+    value is read back: a factorization that fails leaves dx at 0."""
     n = sys.g.shape[0]
     h = _normal_matrix(graph, sys, lam)
-    rhs = -(sys.g.to(h.dtype) * sys.free[:, None]).reshape(3 * n, 1)
+    rhs = -(sys.g * sys.free[:, None]).reshape(3 * n, 1)
     chol, info = torch.linalg.cholesky_ex(h)
     y = torch.linalg.solve_triangular(chol, rhs, upper=False)
     x = torch.linalg.solve_triangular(chol.mT, y, upper=True)
     x = torch.where(info == 0, x, 0.0)
-    return x.reshape(n, 3).to(sys.g.dtype)
+    return x.reshape(n, 3)
+
+
+def _hvp(graph: PoseGraph, sys: _System, lam, x: torch.Tensor) -> torch.Tensor:
+    """(H + lam * blockdiag(H)) x, matrix-free over edges (the JAX
+    package's ``_hvp``), its per-node sums by ``segment_sum``."""
+    x = torch.where(sys.free[:, None], x, 0.0)
+    xi = x[graph.edge_i]
+    xj = x[graph.edge_j]
+    # prec @ (J0 xi + J1 xj)
+    ljx = (torch.einsum("eab,eb->ea", sys.lj0, xi)
+           + torch.einsum("eab,eb->ea", sys.lj1, xj))
+    out = segment_sum(graph.node_edges,
+                      torch.einsum("eba,eb->ea", sys.j0, ljx),
+                      torch.einsum("eba,eb->ea", sys.j1, ljx))
+    out = out + lam * torch.einsum("nab,nb->na", sys.diag, x)
+    return torch.where(sys.free[:, None], out, 0.0)
+
+
+def _inv3(d: torch.Tensor) -> torch.Tensor:
+    """Inverses of [N, 3, 3] blocks by the adjugate: elementwise only, so
+    no pivoting, no solver library and no host check of the result (the
+    blocks are symmetric positive definite, or the identity)."""
+    a, b, c = d[:, 0, 0], d[:, 0, 1], d[:, 0, 2]
+    e, f, g = d[:, 1, 0], d[:, 1, 1], d[:, 1, 2]
+    h, i, k = d[:, 2, 0], d[:, 2, 1], d[:, 2, 2]
+    c00 = f * k - g * i
+    c01 = g * h - e * k
+    c02 = e * i - f * h
+    det = a * c00 + b * c01 + c * c02
+    adj = torch.stack([
+        torch.stack([c00, c * i - b * k, b * g - c * f], dim=-1),
+        torch.stack([c01, a * k - c * h, c * e - a * g], dim=-1),
+        torch.stack([c02, b * h - a * i, a * f - b * e], dim=-1),
+    ], dim=-2)
+    return adj / det[:, None, None]
+
+
+def _pcg(graph: PoseGraph, sys: _System, lam, early_exit: bool
+         ) -> torch.Tensor:
+    """dx of (H + lam D) dx = -g by block-Jacobi PCG (the JAX package's
+    ``_pcg``, the role of bpcg/bpcg.h:178-330): ``CG_ITERS`` masked
+    iterations that freeze once the residual is below ``CG_TOL`` of the
+    right-hand side's; with ``early_exit`` the loop reads ``done`` and
+    stops there instead, which changes no value."""
+    eye = torch.eye(3, dtype=sys.diag.dtype, device=sys.diag.device)
+    minv = _inv3(torch.where(sys.free[:, None, None],
+                             sys.diag * (1.0 + lam) + 1e-8 * eye, eye))
+    rhs = torch.where(sys.free[:, None], -sys.g, 0.0)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = torch.einsum("nab,nb->na", minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    stop = CG_TOL * CG_TOL * torch.sum(rhs * rhs)
+    done = torch.zeros((), dtype=torch.bool, device=rhs.device)
+    for _ in range(CG_ITERS):
+        hp = _hvp(graph, sys, lam, p)
+        alpha = rz / torch.clamp_min(torch.sum(p * hp), 1e-30)
+        xn = x + alpha * p
+        rn = r - alpha * hp
+        zn = torch.einsum("nab,nb->na", minv, rn)
+        rzn = torch.sum(rn * zn)
+        beta = rzn / torch.clamp_min(rz, 1e-30)
+        pn = zn + beta * p
+        new_done = done | (torch.sum(rn * rn) < stop)
+        x = torch.where(done, x, xn)
+        r = torch.where(done, r, rn)
+        p = torch.where(done, p, pn)
+        rz = torch.where(done, rz, rzn)
+        done = new_done
+        if early_exit and bool(done):
+            break
+    return x
 
 
 class SolveStats(NamedTuple):
@@ -220,10 +307,10 @@ class SolveStats(NamedTuple):
 
 
 class _LmState(NamedTuple):
-    poses: torch.Tensor  # [N, 3]
-    cost: torch.Tensor  # []
-    lam: torch.Tensor  # []
-    laminc: torch.Tensor  # []
+    poses: torch.Tensor  # [N, 3] float64
+    cost: torch.Tensor  # [] float64
+    lam: torch.Tensor  # [] float64
+    laminc: torch.Tensor  # [] float64
     good: torch.Tensor  # [] int32
     done: torch.Tensor  # [] bool
 
@@ -245,11 +332,16 @@ def _lm_step(
     st: _LmState,
     n_fixed: int,
     gauss_newton: bool,
+    dense: bool,
+    early_exit: bool = False,
 ) -> _LmState:
     """One masked LM iteration (doSPA's loop body, spa2d.cpp:425-609):
-    every update is ``torch.where``-selected and frozen once ``done``."""
+    every update is ``torch.where``-selected and frozen once ``done``.
+    ``dense`` picks the exact step (:func:`_step`) over the PCG
+    (:func:`_pcg`, which ``early_exit`` lets stop at its ``done``)."""
     sys = _build_system(graph, st.poses, n_fixed)
-    dx = _step(graph, sys, st.lam)
+    dx = (_step(graph, sys, st.lam) if dense
+          else _pcg(graph, sys, st.lam, early_exit))
     converged = torch.sum(dx * dx) < 1e-16
     new_poses = st.poses + dx
     new_poses = torch.cat(
@@ -285,13 +377,15 @@ def _solve(
     gauss_newton: bool,
     early_exit: bool,
 ) -> tuple[torch.Tensor, SolveStats]:
-    """The LM loop run eagerly on the graph's device; ``early_exit`` reads
-    the ``done`` flags and stops at them (the CPU's form), otherwise every
-    iteration runs, masked, with no host read."""
+    """The LM loop run eagerly on the graph's device, with the step solve
+    of its bucket (:func:`_dense`); ``early_exit`` reads the ``done``
+    flags and stops at them (the CPU's form), otherwise every iteration
+    runs, masked, with no host read."""
+    dense = _dense(graph.poses.shape[0])
     st = _init_state(graph, init_lambda)
     cost0 = st.cost
     for _ in range(num_iters):
-        st = _lm_step(graph, st, n_fixed, gauss_newton)
+        st = _lm_step(graph, st, n_fixed, gauss_newton, dense, early_exit)
         if early_exit and bool(st.done):
             break
     return st.poses, SolveStats(cost0, st.cost, st.good, st.lam)
@@ -299,6 +393,23 @@ def _solve(
 
 def _pow2(n: int, floor: int) -> int:
     return max(floor, 1 << max(0, (max(n, 1) - 1).bit_length()))
+
+
+# the largest padded node bucket whose steps are solved exactly: the dense
+# f64 H and its factor take 144 N^2 bytes, 9.7 GB at 8192 nodes; a larger
+# bucket takes the JAX package's PCG step, O(E) in memory
+MAX_NODES = 8192
+# that PCG's iterations and relative residual (the JAX presets' cg_iters,
+# tpuslam/graph/backends.py, and optimize's cg_tol)
+CG_ITERS = 60
+CG_TOL = 1e-6
+
+
+def _dense(n: int) -> bool:
+    """Whether a graph of ``n`` nodes takes the exact step: its padded
+    bucket (the card's capture bucket, at least 256 nodes) is at most
+    ``MAX_NODES``.  Both devices decide alike."""
+    return _pow2(n, 256) <= MAX_NODES
 
 
 class _CudaSolve:
@@ -311,21 +422,22 @@ class _CudaSolve:
     the buffers, sets the LM state and replays the graph ``num_iters``
     times; the captured iteration writes its new state over the old."""
 
-    def __init__(self, cap_n, cap_e, width, device, n_fixed, gauss_newton):
-        f32 = dict(dtype=torch.float32, device=device)
+    def __init__(self, cap_n, cap_e, width, dense, device, n_fixed,
+                 gauss_newton):
+        f64 = dict(dtype=torch.float64, device=device)
         self.graph = PoseGraph(
-            poses=torch.zeros((cap_n, 3), **f32),
+            poses=torch.zeros((cap_n, 3), **f64),
             node_mask=torch.zeros(cap_n, dtype=torch.bool, device=device),
             edge_i=torch.zeros(cap_e, dtype=torch.int64, device=device),
             edge_j=torch.zeros(cap_e, dtype=torch.int64, device=device),
-            measurements=torch.zeros((cap_e, 3), **f32),
-            precisions=torch.zeros((cap_e, 3, 3), **f32),
+            measurements=torch.zeros((cap_e, 3), **f64),
+            precisions=torch.zeros((cap_e, 3, 3), **f64),
             edge_mask=torch.zeros(cap_e, dtype=torch.bool, device=device),
             node_edges=torch.zeros((cap_n, width), dtype=torch.int64,
                                    device=device),
         )
         self.state = _init_state(self.graph, 0.0)
-        args = (n_fixed, gauss_newton)
+        args = (n_fixed, gauss_newton, dense)
 
         def step():
             new = _lm_step(self.graph, self.state, *args)
@@ -366,13 +478,9 @@ class _CudaSolve:
             cost0, st.cost.clone(), st.good.clone(), st.lam.clone())
 
 
-# captured solves by (device, bucket, solver settings): a mapping session
-# meets a handful of buckets as its graph grows
+# captured solves by (device, bucket, step solve, solver settings): a
+# mapping session meets a handful of buckets as its graph grows
 _CUDA_SOLVES: dict[tuple, _CudaSolve] = {}
-
-# the most nodes a solve takes (on the card, its padded bucket): the dense
-# f64 H and its factor take 144 N^2 bytes, 9.7 GB at 8192 nodes
-MAX_NODES = 8192
 
 
 def optimize(
@@ -390,23 +498,25 @@ def optimize(
     OptimizationAlgorithmGaussNewton, g2o_solver.cc:42-138), which can
     diverge where LM's reject/escalate recovers.
 
+    Returns float64 poses.  The step solve follows the graph's padded
+    bucket (:func:`_dense`): exact up to ``MAX_NODES``, the PCG past it,
+    which stops short of the optimum (a ``RuntimeWarning`` says so).
     On a CUDA device the solve replays the captured LM iteration of the
     graph's bucket and reads nothing back; on the CPU it runs eagerly and
-    stops at convergence.  A graph of more than ``MAX_NODES`` nodes (on
-    the card, whose bucket holds more) raises ``ValueError``."""
+    stops at convergence."""
     dev = graph.poses.device
     n, e = graph.poses.shape[0], graph.edge_i.shape[0]
-    cap = _pow2(n, 256) if dev.type == "cuda" else n
-    if cap > MAX_NODES:
-        raise ValueError(
-            f"a pose graph of {n} nodes: the dense step solve holds at most "
-            f"MAX_NODES={MAX_NODES} ({cap} here)")
+    if not _dense(n):
+        warnings.warn(
+            "a pose graph past graph.solver.MAX_NODES takes the PCG step, "
+            "which stops short of the optimum (ROADMAP C.12)",
+            RuntimeWarning, stacklevel=2)
     if dev.type != "cuda":
         return _solve(graph, num_iters, n_fixed, init_lambda, gauss_newton,
                       True)
     key = (str(dev), _pow2(n, 256), _pow2(e, 512), graph.node_edges.shape[1],
-           n_fixed, gauss_newton)
+           _dense(n), n_fixed, gauss_newton)
     solve = _CUDA_SOLVES.get(key)
     if solve is None:
-        solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:4], dev, *key[4:])
+        solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:5], dev, *key[5:])
     return solve.run(graph, num_iters, init_lambda)

@@ -40,6 +40,7 @@ import torch
 
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.grid import recip
+from tpuslam_torch.core.xla_cpu import rotate
 from tpuslam_torch.ops import fvp
 from tpuslam_torch.ops.correlative import (
     byte_grid,
@@ -341,15 +342,19 @@ def _surface(
     c: torch.Tensor,  # [nA] cos of each candidate angle
     s: torch.Tensor,  # [nA] sin
 ) -> torch.Tensor:
-    """The normalized response surface [nA, nY, nX]: for every integer
-    (y, x) shift the sum of the grid's s x s patches at each rotated point
-    (Karto.h:6473-6495 offsets), read out at the candidate lattice.  Each
-    angle's slice depends on that angle alone."""
+    """The response surface [nA, nY, nX] before its normalization: for
+    every integer (y, x) shift the sum of the grid's s x s patches at each
+    rotated point (Karto.h:6473-6495 offsets), read out at the candidate
+    lattice, times 0.01 (the x100 integer sums as responses).  Each
+    angle's slice depends on that angle alone.
+
+    On the CPU the rotation takes jitted XLA's FMAs
+    (``core.xla_cpu.rotate``), so that the points' cells and the x100 sums
+    are the JAX package's bit for bit."""
     g = q.shape[0]
     half, size = lat.half, lat.size
-    px, py = local_pts[:, 0], local_pts[:, 1]
-    rx = c[:, None] * px[None, :] - s[:, None] * py[None, :]  # [nA, B]
-    ry = s[:, None] * px[None, :] + c[:, None] * py[None, :]
+    px, py = local_pts[None, :, 0], local_pts[None, :, 1]
+    rx, ry = rotate(c[:, None], s[:, None], px, py)  # [nA, B]
     ox = _cell(rx, lat.res)
     oy = _cell(ry, lat.res)
     ay = (lat.base_y + oy - half).contiguous()  # [nA, B] patch top-left
@@ -361,12 +366,12 @@ def _surface(
     if lat.stride2:
         p2 = patch_sums_stride2(q, ay + lat.dyc[0], ax + lat.dxc[0], ok,
                                 lat.dyc.shape[0])
-        return p2 * 0.01 / lat.denom
+        return p2 * 0.01
     patches = patch_sums(q, ay, ax, ok, size) * 0.01
     # out-of-range readouts clamp, as the JAX gather does
     iy = lat.dyc.clamp(0, size - 1).long()
     ix = lat.dxc.clamp(0, size - 1).long()
-    return patches[:, iy[:, None], ix[None, :]] / lat.denom
+    return patches[:, iy[:, None], ix[None, :]]
 
 
 def _surfaces(q: torch.Tensor):
@@ -394,21 +399,32 @@ def _correlate(
     angs = center_pose[2] + _f32(angle_offsets, center_pose.device)  # [nA]
     surface = surface or _surfaces(q)
     resp = surface(lat, local_pts, valid, torch.cos(angs), torch.sin(angs))
-    return _finish_correlate(spec, resp, center_pose, lat.xs, angs,
-                             angle_offsets, penalize)
+    return _finish_correlate(spec, resp, lat.denom, center_pose, lat.xs,
+                             angs, angle_offsets, penalize)
 
 
 def _finish_correlate(
     spec: CorrelativeSpec,
-    resp: torch.Tensor,  # [nA, nY, nX] normalized responses
+    sums: torch.Tensor,  # [nA, nY, nX] responses before normalization
+    denom,  # the normalization: a float constant or a [] tensor
     center_pose: torch.Tensor,
     xs: torch.Tensor,  # [nXY] candidate offsets (meters)
     angs: torch.Tensor,  # [nA] absolute candidate angles
     angle_offsets,
     penalize: bool,
 ):
-    """Penalties + tie-averaged best pose (Mapper.cpp:399-487)."""
-    resp = torch.movedim(resp, 0, -1)  # [nY, nX, nA]
+    """Normalization, penalties + tie-averaged best pose
+    (Mapper.cpp:399-487).
+
+    A constant denominator (the beam count) is taken as its f32
+    reciprocal.  On the CPU the penalized responses are rounded as jitted
+    XLA rounds them there: that reciprocal times the distance penalty,
+    both constants, folded into one factor
+    (``sums * (1/denom * dist_pen) * ang_pen``)."""
+    sums = torch.movedim(sums, 0, -1)  # [nY, nX, nA]
+    const = isinstance(denom, float)
+    resp = sums * recip(denom) if const else sums / denom
+    fold = const and sums.device.type == "cpu"
 
     if penalize:
         d2 = (xs[:, None] ** 2 + xs[None, :] ** 2)[..., None]  # [nY, nX, 1]
@@ -422,7 +438,9 @@ def _finish_correlate(
             1.0 - ANGLE_PENALTY_GAIN * a2 / spec.angle_variance_penalty**2,
             spec.minimum_angle_penalty,
         )[None, None, :]
-        resp = torch.where(resp > 0.0, resp * dist_pen * ang_pen, resp)
+        pen = (sums * (recip(denom) * dist_pen) if fold
+               else resp * dist_pen) * ang_pen
+        resp = torch.where(resp > 0.0, pen, resp)
 
     best = torch.max(resp)
     # DoubleEqual tie set at the reference's KT_TOLERANCE (Math.h:41,138)

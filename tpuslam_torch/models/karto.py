@@ -51,7 +51,7 @@ import torch
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import KartoConfig
 from tpuslam_torch.core.grid import GridSpec
-from tpuslam_torch.core.scan import Scan, scan_to_points
+from tpuslam_torch.core.scan import Scan
 from tpuslam_torch.core.xla_cpu import clipped_endpoints as _clipped_endpoints
 from tpuslam_torch.core.xla_cpu import cos_sin_f32 as _cos_sin_f32
 from tpuslam_torch.graph.backends import graph_from_edges, make_solver
@@ -63,6 +63,10 @@ from tpuslam_torch.parallel.mesh import Replicas, on, split
 
 # occupancy_grid: ray steps (scans x beams x steps) traced at once
 _MAP_CHUNK = 1 << 23
+
+
+# the edge covariances' eigenvalue floor (KartoMapper._add_edge)
+_COV_FLOOR = 1e-9
 
 
 def _np_compose(a, b):
@@ -110,19 +114,37 @@ def _gather_chain(pts_store, valid_store, chain_idx, chain_poses):
             valid_store[chain_idx])
 
 
-def _stage(pts_store, valid_store, sid, scan: Scan, max_range: float):
+def matcher_points(scan: Scan):
+    """The matcher's points of a scan (sensor frame) and their mask: the
+    UNFILTERED readings (GetPointReadings(false), Karto.h:5336-5355), the
+    ``valid`` beams and the ``near`` ones below range_min (which
+    ``make_scan`` keeps, masked from ``valid``).  Each takes part in
+    visibility, grid stamping and the response, as in
+    LocalizedRangeScan::Update and the f64 oracle (``oracle/karto.py``).
+    Returns (points [..., B, 2], mask, near); every other beam is at the
+    origin."""
+    mask = scan.valid | scan.near
+    r = torch.where(mask, scan.ranges, 0.0)
+    pts = torch.stack([r * torch.cos(scan.angles),
+                       r * torch.sin(scan.angles)], dim=-1)
+    return pts, mask, scan.near
+
+
+def _stage(pts_store, valid_store, near_store, sid, scan: Scan,
+           max_range: float):
     """Polar to cartesian, store write at row ``sid`` (in place; the JAX
     version donates and returns the store) and the barycenter mean.
 
-    The matcher consumes the UNFILTERED readings (GetPointReadings(false),
-    Karto.h:5336-5355): every finite beam takes part in visibility, grid
-    stamping and the response.  Only the barycenter uses the
-    range-filtered set (Karto.h:5361-5427)."""
-    pts, valid = scan_to_points(scan)
-    valid = valid & (scan.ranges > 0.0)
-    filtered = valid & (scan.ranges <= max_range)
+    The matcher consumes the unfiltered readings (:func:`matcher_points`):
+    ``valid_store`` holds their mask and ``near_store`` those below
+    range_min, which the map export skips (OccupancyGrid::AddScan).  Only
+    the barycenter uses the range-filtered set InRange(range_min,
+    threshold) (Karto.h:5361-5427)."""
+    pts, valid, near = matcher_points(scan)
+    filtered = scan.valid & (scan.ranges <= max_range)
     pts_store[sid] = pts
     valid_store[sid] = valid
+    near_store[sid] = near
     mean_local = torch.sum(
         torch.where(filtered[..., None], pts, 0.0), dim=-2
     ) / torch.clamp_min(torch.sum(filtered, dim=-1), 1)[..., None]
@@ -133,6 +155,7 @@ def _fused_seq_step(
     spec: CorrelativeSpec,
     pts_store: torch.Tensor,  # [M, B, 2], written in place at row sid
     valid_store: torch.Tensor,  # [M, B], written in place at row sid
+    near_store: torch.Tensor,  # [M, B], written in place at row sid
     sid: int,
     scan: Scan,
     center: torch.Tensor,  # [3] odometry-carried prediction
@@ -144,8 +167,8 @@ def _fused_seq_step(
     """The per-scan device side of Mapper::Process: the store write and
     barycenter (:func:`_stage`), then the running-chain match
     (Mapper.cpp:2037-2045)."""
-    pts, valid, mean_local = _stage(pts_store, valid_store, sid, scan,
-                                    max_range)
+    pts, valid, mean_local = _stage(pts_store, valid_store, near_store, sid,
+                                    scan, max_range)
     if not do_match:
         return mean_local, None
     res = _gather_match(
@@ -166,6 +189,7 @@ def _fused_batch_steps(
     spec: CorrelativeSpec,
     pts_store: torch.Tensor,  # [M, B, 2], written in place
     valid_store: torch.Tensor,  # [M, B], written in place
+    near_store: torch.Tensor,  # [M, B], written in place
     poses_store: torch.Tensor,  # [M, 3] matched poses, written in place
     sid0: int,  # state id of the first scan of the flush
     scans: list[Scan],  # K scans
@@ -186,8 +210,8 @@ def _fused_batch_steps(
     rows = []
     for k, scan in enumerate(scans):
         sid = sid0 + k
-        pts, valid, mean_local = _stage(pts_store, valid_store, sid, scan,
-                                        max_range)
+        pts, valid, mean_local = _stage(pts_store, valid_store, near_store,
+                                        sid, scan, max_range)
         center = se2.compose(prev, deltas[k])
         res = _gather_match(
             spec, pts_store, valid_store, chains[k], poses_store[chains[k]],
@@ -203,6 +227,7 @@ def _parallel_steps(
     spec: CorrelativeSpec,
     pts_store: torch.Tensor,  # [M, B, 2], written in place
     valid_store: torch.Tensor,  # [M, B], written in place
+    near_store: torch.Tensor,  # [M, B], written in place
     sid0: int,
     scans: list[Scan],  # K scans
     centers: torch.Tensor,  # [K, 3] odometry-chained predictions
@@ -218,8 +243,8 @@ def _parallel_steps(
     [K, 15] packed outputs."""
     k = len(scans)
     batch = Scan(*(torch.stack(t) for t in zip(*scans)))
-    _, _, mean_local = _stage(pts_store, valid_store, slice(sid0, sid0 + k),
-                              batch, max_range)
+    _, _, mean_local = _stage(pts_store, valid_store, near_store,
+                              slice(sid0, sid0 + k), batch, max_range)
     dev0 = pts_store.device
     blocks = ([(dev0, pts_store, valid_store, 0, k)] if shards is None
               else shards.blocks(k, pts_store, valid_store))
@@ -337,7 +362,14 @@ class KartoMapper:
         batch_mesh=None,
         batch_mesh_axis: str = "scan",
     ):
-        """events: optional ``tpuslam_torch.utils.events.EventBus`` (or any object
+        """max_scans: the capacity of the scan store (and so of the pose
+        graph).  A graph of any size is solved: each LM step exactly (a
+        dense f64 factor) while the graph's padded bucket holds at most
+        ``graph.solver.MAX_NODES`` (8192) nodes, by the JAX package's
+        block-Jacobi PCG past it (``graph/solver.py``), which stops short
+        of the optimum on a long graph and warns so (ROADMAP C.12).
+
+        events: optional ``tpuslam_torch.utils.events.EventBus`` (or any object
         with ``fire(event, **payload)``) — receives the reference's
         MapperListener stream (loop_closure_check, begin/end_loop_closure,
         poses_corrected; Mapper.cpp:2142-2218).
@@ -380,8 +412,11 @@ class KartoMapper:
         # device-side scan store (local sensor-frame points, fixed capacity)
         self._pts = torch.zeros((max_scans, b, 2), dtype=torch.float32,
                                 device=self.device)
+        # the matcher's mask of each stored beam, and of those the beams
+        # below range_min, which the map export skips
         self._valid = torch.zeros((max_scans, b), dtype=torch.bool,
                                   device=self.device)
+        self._near = torch.zeros_like(self._valid)
         for mesh in (loop_mesh, batch_mesh):
             if mesh is not None and mesh.first != self._pts.device:
                 raise ValueError(f"a mesh's first entry must be the "
@@ -428,7 +463,9 @@ class KartoMapper:
     @classmethod
     def from_state(cls, cfg: KartoConfig, state: dict, device="cuda"):
         """A mapper that continues from ``state`` (see
-        :func:`tpuslam_torch.convert.karto_state_from_numpy`)."""
+        :func:`tpuslam_torch.convert.karto_state_from_numpy`).  Such a
+        state holds no reading below range_min (the JAX package drops
+        them), so the ``near`` store starts empty."""
         m = cls(cfg, max_scans=len(state["poses"]), device=device)
         m._pts.copy_(torch.as_tensor(state["_pts"], dtype=torch.float32))
         m._valid.copy_(torch.as_tensor(state["_valid"], dtype=torch.bool))
@@ -573,8 +610,16 @@ class KartoMapper:
     def _add_edge(self, i: int, j: int, mean: np.ndarray, cov: np.ndarray):
         """LinkScans (Mapper.cpp:1105-1121): constraint = from-pose → mean,
         precision = the inverse of the covariance rotated into the from
-        scan's frame, eigen-floored at 1e-4 so a degenerate response
-        plateau cannot explode it."""
+        scan's frame (spa_solver.cc:81-90), as the reference inverts it.
+
+        The eigenvalues are floored at ``_COV_FLOOR`` only against a
+        singular or indefinite covariance (a line-shaped response plateau's
+        cross term, rounded in f32).  The matcher's own floors keep every
+        variance above it (0.1 res^2 / response, angle_res^2 / norm), so
+        no other covariance is touched: a floor at 1e-4, as the JAX package
+        takes, caps a fine match's heading precision at 1e4 where the
+        reference keeps 2-4e4, and the solve after a closure parts from
+        the reference's by up to 0.7 mm."""
         if (i, j) in self._edge_keys:
             return  # AddEdge dedup (Mapper.cpp:1086-1096)
         self._edge_keys.add((i, j))
@@ -585,7 +630,7 @@ class KartoMapper:
         sym = 0.5 * (cov + cov.T)
         sym = rot @ sym @ rot.T
         w, v = np.linalg.eigh(sym)
-        prec = (v / np.maximum(w, 1e-4)) @ v.T
+        prec = (v / np.maximum(w, _COV_FLOOR)) @ v.T
         self.edges.append((i, j, meas, prec))
         self.adj.setdefault(i, set()).add(j)
         self.adj.setdefault(j, set()).add(i)
@@ -741,6 +786,7 @@ class KartoMapper:
             self.seq_spec,
             self._pts,
             self._valid,
+            self._near,
             sid,
             scan.to(self.device),
             torch.as_tensor(corrected, dtype=torch.float32,
@@ -1054,7 +1100,7 @@ class KartoMapper:
                     and k % self._batch_mesh_size == 0):
                 steps = self._sharded_parallel_steps
             out = steps(
-                run.spec, self._pts, self._valid, sid0, scans,
+                run.spec, self._pts, self._valid, self._near, sid0, scans,
                 f32[: 3 * k].view(k, 3), chain_dev,
                 [cposes[offs[j]:offs[j + 1]] for j in range(k)],
                 cfg.use_scan_range,
@@ -1079,7 +1125,8 @@ class KartoMapper:
                 start_pose = poses_in[self.last_by_sensor[run.sensor]]
             self._poses_dev = poses_in
             out = _fused_batch_steps(
-                run.spec, self._pts, self._valid, poses_in, sid0, scans,
+                run.spec, self._pts, self._valid, self._near, poses_in,
+                sid0, scans,
                 f32[3 * m:].view(k, 3), chain_dev, start_pose,
                 cfg.use_scan_range,
             )
@@ -1435,7 +1482,8 @@ class KartoMapper:
         per = max(1, _MAP_CHUNK // (self._pts.shape[1] * max_steps))
         for a in range(0, n, per):
             b = min(n, a + per)
-            pts, valid = self._pts[a:b], self._valid[a:b]
+            pts = self._pts[a:b]
+            valid = self._valid[a:b] & ~self._near[a:b]
             pp = pose_dev[a:b, None, :]  # [k, 1, 4]
             r, world = _clipped_endpoints(pts, pp, thr)
             counts = accumulate_scan(

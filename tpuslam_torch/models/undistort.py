@@ -24,6 +24,12 @@ masked sums (``interp_bracketed``): exact f32, the same on every device,
 with np.interp's clamps at both ends.  The gyro integral adds in jitted
 ``jnp.cumsum``'s order (``core.xla_cpu.cumsum``).  The cos and sin are
 PyTorch's, not glibc's, so points part from the JAX package's by ~1e-7 m.
+
+Every time is in seconds relative to the scan, in f32 on the device: a
+caller rebases absolute stamps (a ROS bag's are seconds since 1970,
+where an f32 ulp is 128 s) on the host in f64 first, as the command line
+does (``cli._undistort_args``).  :func:`make_imu_buffer` and
+:func:`undistort` raise ``ValueError`` on times that f32 cannot resolve.
 """
 
 from __future__ import annotations
@@ -48,9 +54,29 @@ class ImuBuffer(NamedTuple):
     wy: torch.Tensor  # [K] pitch rate (rad/s)
 
 
+def _check_f32_times(times, span: float, what: str) -> None:
+    """Raise ``ValueError`` if rounding ``times`` (host seconds) to f32
+    moves one by more than a thousandth of ``span``: such stamps are
+    absolute (epoch) times, and the sweep is lost in their f32 cast."""
+    t = np.asarray(times, np.float64).reshape(-1)
+    t = t[np.isfinite(t)]
+    err = np.abs(t.astype(np.float32).astype(np.float64) - t)
+    if span > 0 and err.size and err.max() > 1e-3 * span:
+        raise ValueError(
+            f"{what}: f32 cannot resolve times near {t[err.argmax()]:.6g} "
+            f"s over a {span:.3g} s span; pass times relative to the scan "
+            f"(rebase absolute stamps on the host in f64)")
+
+
 def make_imu_buffer(stamps, wz, capacity: int, wx=None, wy=None,
                     device="cuda") -> ImuBuffer:
-    stamps = np.asarray(stamps, np.float32)
+    """The gyro samples at ``stamps`` (seconds relative to the scan, on
+    the time base of ``undistort``'s ``t0``/``t1``) in a buffer of
+    ``capacity``."""
+    stamps64 = np.asarray(stamps, np.float64)
+    if stamps64.size > 1:
+        _check_f32_times(stamps64, float(np.ptp(stamps64)), "make_imu_buffer")
+    stamps = stamps64.astype(np.float32)
     k = min(len(stamps), capacity)
     out_t = np.full(capacity, np.inf, np.float32)
     out_v = np.zeros(capacity, bool)
@@ -111,7 +137,9 @@ def undistorted_scan(
     |p|, angle = atan2(y, x), so scan_to_points gives back the corrected
     cloud (modulo one f32 polar round-trip) and the engines consume it as
     they consume any scan (lidar_undistortion.launch chains the node in
-    front of the matchers).  Planar configs only."""
+    front of the matchers).  Only the ``valid`` beams are corrected, so
+    the readings below range_min (``Scan.near``) are dropped, as the
+    corrected cloud drops them.  Planar configs only."""
     if cfg.three_axis:
         raise ValueError(
             "undistorted_scan: three_axis clouds are 3D; consume "
@@ -125,6 +153,7 @@ def undistorted_scan(
         angles=torch.where(valid, ang, scan.angles),
         valid=valid,
         stamps=scan.stamps,
+        near=torch.zeros_like(valid),
     )
 
 
@@ -137,7 +166,15 @@ def undistort(
     t1: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Correct one scan; returns (points [B, 2] in the beam-0 frame, or
-    [B, 3] in three_axis mode, and valid [B])."""
+    [B, 3] in three_axis mode, and valid [B]).
+
+    ``t0``, ``t1`` and the IMU buffer's stamps are seconds relative to the
+    scan (``t0`` its first beam's time, usually 0), all on one time base;
+    a beam's time is ``t0 + scan.stamps``.  Absolute stamps must be
+    rebased on the host in f64 before they come here: the same scan gives
+    the same points whatever its stamps' origin.  Raises ``ValueError``
+    if f32 cannot resolve ``t0`` or ``t1``."""
+    _check_f32_times([t0, t1], float(t1) - float(t0), "undistort")
     dev = scan.ranges.device
     t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
     t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
