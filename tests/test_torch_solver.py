@@ -6,29 +6,39 @@ pairwise tree vs XLA scatter-add), so poses are held to atol 1e-4 and
 costs to rtol 1e-4.  The JAX side pads the graph to power-of-two
 capacities; padding is masked and changes no result.
 
-Up to ``MAX_NODES`` the port solves each LM step exactly (a dense f64
-Cholesky factor) where the JAX package runs a block-Jacobi PCG of 60
-iterations; on these small graphs the PCG converges, so both reach the
-same poses.  Past it the port runs that PCG too.
+The port solves each LM step exactly, by a dense f64 Cholesky factor up
+to ``MAX_NODES`` and by a block-banded one in the graph's reverse
+Cuthill-McKee order past it, where the JAX package runs a block-Jacobi
+PCG of 60 iterations; on these small graphs the PCG converges, so both
+reach the same poses.  The tests reach the band step by lowering
+``MAX_NODES`` below the smallest bucket; it lands within 1e-9 m of the
+dense step.  The port keeps the PCG (``_pcg``) off its path, held to the
+JAX package's ``_pcg`` on one system.
 
 Against ``OracleSpa2d`` (f64): a garland of 512 poses, there and moved
 3e4 m from the origin, lands within test_oracle_parity.py's SPA bound of
 5e-4 m (the f64 LM state; an f32 state rounds the moved poses by ~2e-3
-m), and past the dense limit the PCG step lands as close as the JAX
-package's own.
+m), the band step on a garland of 256 within 1e-6 m, and an LM solve
+through the PCG step as close as the JAX package's own.
 
-The port's own contract: under either step solve the fixed-count form
+The port's own contract: under each step solve the fixed-count form
 reads no tensor, equals the
 CPU's early-exit form bit for bit and repeats itself bit for bit, its
-per-node sums take the order that ``node_edge_index`` writes down, and its
-H is the f64 sum of the edges' blocks in edge order.
+per-node sums take the order that ``node_edge_index`` writes down, its
+H is the f64 sum of the edges' blocks in edge order, and the band step's
+panels hold that H's entries bit for bit.  The order is a permutation
+that depends on the edges alone, and keeps a garland within panels of 64
+nodes and a ring within 4.
 """
 
 import inspect
 import math
 import sys
+import warnings
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -218,13 +228,16 @@ def _raise(*args, **kw):
 
 
 def _take_step(step, monkeypatch):
-    """The dense step (the default at these sizes) or the PCG, reached by
-    lowering the dense limit below the smallest bucket (256 nodes)."""
-    if step == "pcg":
+    """The dense step (the default at these sizes), the band step, reached
+    by lowering the dense limit below the smallest bucket (256 nodes), or
+    the PCG, put in the band step's place."""
+    if step != "dense":
         monkeypatch.setattr(ts, "MAX_NODES", 64)
+    if step == "pcg":
+        monkeypatch.setattr(ts, "_step_kind", lambda n: "pcg")
 
 
-STEPS = ["dense", "pcg"]
+STEPS = ["dense", "band", "pcg"]
 
 
 @pytest.mark.parametrize("step", STEPS)
@@ -235,6 +248,7 @@ def test_fixed_count_form_reads_no_tensor(problem, step, monkeypatch):
     g = tb.graph_from_edges(init, edges, device="cpu")
     _take_step(step, monkeypatch)
     assert ts._dense(len(init)) == (step == "dense")
+    assert ts._step_kind(len(init)) == step
     for name in ("__bool__", "__float__", "__int__", "__index__", "item",
                  "tolist", "cpu", "numpy"):
         monkeypatch.setattr(torch.Tensor, name, _raise)
@@ -394,20 +408,174 @@ def test_garland_lands_on_the_oracle(moved_m):
     assert _oracle_err(got.numpy(), want) < 5e-4
 
 
-def test_pcg_past_the_dense_limit_lands_as_the_jax_package(monkeypatch):
-    """C.11: with the dense limit lowered to 64, a 256-node garland takes
-    the PCG step (no ValueError at any size), warns that it stops short
-    of the optimum (C.12), and lands no farther from the oracle than the
-    JAX package's ``optimize``, plus 1e-5 m."""
+def _optimize_quietly(graph, **kw):
+    """``optimize`` with every warning raised as an error."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        return ts.optimize(graph, **kw)
+
+
+def test_band_past_the_dense_limit_lands_on_the_dense_step(monkeypatch):
+    """C.12: with the dense limit lowered to 64, a 256-node garland takes
+    the band step in panels of its reverse Cuthill-McKee order, warns
+    nothing, and lands within 1e-9 m of the dense step's poses and within
+    1e-6 m and rad of the oracle's."""
     init, edges = garland(256)
     want = _oracle_solve(init, edges)
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    dense, dstats = _optimize_quietly(g)
     monkeypatch.setattr(ts, "MAX_NODES", 64)
-    assert not ts._dense(len(init))
-    with pytest.warns(RuntimeWarning, match="C.12"):
-        got, stats = tb.make_solver("spa_solver").compute(
-            tb.graph_from_edges(init, edges, device="cpu"))
+    assert ts._step_kind(len(init)) == "band"
+    assert 8 <= g.panel < len(init)  # more than one panel
+    got, stats = _optimize_quietly(g)
+    assert float(stats.final_cost) < float(stats.initial_cost)
+    assert float((got - dense).abs().max()) <= 1e-9
+    assert _oracle_err(got.numpy(), want) <= 1e-6
+    assert int(stats.good_iters) == int(dstats.good_iters)
+
+
+@pytest.mark.parametrize("problem", ["noisy_loop", "bad_init"])
+def test_band_step_lands_on_the_dense_step(problem, monkeypatch):
+    init, edges = (noisy_loop_graph() if problem == "noisy_loop"
+                   else bad_init_problem())
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    dense, _ = ts.optimize(g)
+    monkeypatch.setattr(ts, "MAX_NODES", 64)
+    got, _ = ts.optimize(g)
+    assert float((got - dense).abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("problem", ["garland", "noisy_loop"])
+def test_band_panels_hold_the_dense_matrix(problem):
+    """Each diagonal and sub-diagonal panel of ``_band_matrix`` is the
+    dense H's block at the nodes' ordered positions, bit for bit, with
+    identity rows past the last node; no entry of the permuted H lies
+    outside the panels."""
+    init, edges = (garland(256) if problem == "garland"
+                   else noisy_loop_graph())
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    sys_ = ts._build_system(g, g.poses, 1)
+    lam = torch.tensor(1e-3, dtype=torch.float64)
+    diag_p, sub_p = ts._band_matrix(g, sys_, lam, g.panel)
+    k, w = diag_p.shape[:2]
+    assert w == 3 * g.panel and k == -(-len(init) // g.panel)
+    assert sub_p.shape == (k - 1, w, w)
+    idx = (3 * g.order[:, None] + torch.arange(3)).reshape(-1)
+    h = torch.eye(k * w, dtype=torch.float64)
+    h[idx[:, None], idx[None, :]] = ts._normal_matrix(g, sys_, lam)
+    inside = torch.zeros_like(h, dtype=torch.bool)
+    for p in range(k):
+        rows = slice(p * w, (p + 1) * w)
+        assert torch.equal(diag_p[p], h[rows, rows])
+        if p:
+            assert torch.equal(sub_p[p - 1], h[rows, (p - 1) * w:p * w])
+        inside[rows, max(0, p - 1) * w:(p + 2) * w] = True
+    assert not h[~inside].any()
+
+
+def _edge_ends(edges):
+    return (np.asarray([e[0] for e in edges], np.int64),
+            np.asarray([e[1] for e in edges], np.int64))
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_band_order_is_a_fixed_permutation(n):
+    """The order of a garland and of a graph in parts (two chains and
+    lone nodes) is a permutation of its nodes, the same on two calls,
+    and the same from ``graph_from_edges``."""
+    init, edges = garland(n)
+    ei, ej = _edge_ends(edges)
+    parts = (np.concatenate([ei[:n // 4], ei[n // 2:n - 1]]),
+             np.concatenate([ej[:n // 4], ej[n // 2:n - 1]]))
+    for a, b in ((ei, ej), parts):
+        pos = tb.band_order(n, a, b)
+        assert pos.dtype == np.int64
+        np.testing.assert_array_equal(np.sort(pos), np.arange(n))
+        np.testing.assert_array_equal(pos, tb.band_order(n, a, b))
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    np.testing.assert_array_equal(g.order.numpy(), tb.band_order(n, ei, ej))
+    assert g.panel == tb.band_panel(g.order.numpy(), ei, ej)
+    empty = tb.graph_from_edges(np.zeros((0, 3)), [], device="cpu")
+    assert empty.order.shape == (0,) and empty.panel == 8
+
+
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_garland_half_bandwidth_is_a_lap(n):
+    """A garland's loop edges join poses one lap (64) apart: in the order
+    no edge spans more than 64 positions, so its panels are 64 nodes."""
+    ei, ej = _edge_ends(garland(n)[1])
+    pos = tb.band_order(n, ei, ej)
+    assert np.abs(pos[ei] - pos[ej]).max() <= 64
+    assert tb.band_panel(pos, ei, ej) == 64
+
+
+def test_ring_half_bandwidth():
+    """A ring of 512 nodes closed back to node 0: at most 4 positions."""
+    ei = np.arange(512, dtype=np.int64)
+    ej = (ei + 1) % 512
+    pos = tb.band_order(512, ei, ej)
+    assert np.abs(pos[ei] - pos[ej]).max() <= 4
+    assert tb.band_panel(pos, ei, ej) == 8
+
+
+def _orders(n, g):
+    rcm = g.order.numpy()
+    moved = np.arange(n)  # node 0 in the middle of the first panel
+    moved[1:33] -= 1
+    moved[0] = 32
+    return {"rcm": rcm, "rcm_reversed": n - 1 - rcm,
+            "natural": np.arange(n), "reversed": np.arange(n)[::-1].copy(),
+            "node0_inside": moved,
+            "random": np.random.default_rng(4).permutation(n)}
+
+
+@pytest.mark.parametrize("order", ["rcm", "rcm_reversed", "natural",
+                                   "reversed", "node0_inside", "random"])
+def test_fixed_node_stays_fixed_under_any_order(order, monkeypatch):
+    """Node 0 (``n_fixed`` 1) keeps its pose bit for bit under the band
+    step in any order, with the panel width that order needs, and the
+    other poses land within 1e-9 m of the dense step's."""
+    init, edges = garland(256)
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    dense, _ = ts.optimize(g)
+    pos = _orders(len(init), g)[order]
+    ei, ej = _edge_ends(edges)
+    g = g._replace(order=torch.from_numpy(pos),
+                   panel=tb.band_panel(pos, ei, ej))
+    monkeypatch.setattr(ts, "MAX_NODES", 64)
+    got, _ = ts.optimize(g)
+    assert torch.equal(got[0], g.poses[0])
+    assert float((got - dense).abs().max()) <= 1e-9
+
+
+def test_pcg_past_the_dense_limit_lands_as_the_jax_package(monkeypatch):
+    """The JAX package's step, kept in the port off the solve's path: an
+    LM solve of a 256-node garland through ``_pcg`` (the dense limit
+    lowered to 64, the PCG in the band step's place) lands no farther
+    from the oracle than the JAX package's ``optimize``, plus 1e-5 m;
+    and ``_pcg`` on one f64 system gives the JAX package's ``_pcg`` (in
+    f64) within 1e-9."""
+    init, edges = garland(256)
+    want = _oracle_solve(init, edges)
+    g = tb.graph_from_edges(init, edges, device="cpu")
+    _take_step("pcg", monkeypatch)
+    got, stats = _optimize_quietly(g)
     assert float(stats.final_cost) < float(stats.initial_cost)
     pj, _ = jb.make_solver("spa_solver").compute(
         jb.graph_from_edges(init, edges))
     pj = np.asarray(pj)[:len(init)].astype(np.float64)
     assert _oracle_err(got.numpy(), want) <= _oracle_err(pj, want) + 1e-5
+    sys_ = ts._build_system(g, g.poses, 1)
+    lam = torch.tensor(1e-4, dtype=torch.float64)
+    x = ts._pcg(g, sys_, lam, False).numpy()
+    jax.config.update("jax_enable_x64", True)
+    try:
+        gj = js.PoseGraph(*(jnp.asarray(t.numpy()) for t in g[:7]))
+        sj = js._System(*(jnp.asarray(t.numpy()) for t in sys_))
+        assert sj.g.dtype == jnp.float64
+        xj = np.asarray(js._pcg(gj, sj, jnp.float64(1e-4), -sj.g,
+                                ts.CG_ITERS, ts.CG_TOL))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert np.abs(x).max() > 1e-3
+    np.testing.assert_allclose(x, xj, rtol=0, atol=1e-9)

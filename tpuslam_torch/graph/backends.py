@@ -6,8 +6,8 @@ The reference ships four backends behind ``karto::ScanSolver``
 They minimise the same residual and differ in iteration strategy, so one
 float64 engine (``graph/solver.py``) serves them all, each step solved
 exactly by a Cholesky factorization as the reference's backends factor
-theirs, up to ``solver.MAX_NODES`` nodes, and by the JAX package's
-block-Jacobi PCG past it:
+theirs: dense up to ``solver.MAX_NODES`` nodes, block-banded in the
+reverse Cuthill-McKee order of :func:`graph_from_edges` past it:
 
 - ``spa_solver``:   LM, 40 iterations (spa_solver.cc:43-61),
 - ``ceres_solver``: LM with a tiny initial lambda, 100 iterations
@@ -108,14 +108,86 @@ def node_edge_index(n: int, edge_i: np.ndarray, edge_j: np.ndarray
     return out
 
 
+def band_order(n: int, edge_i: np.ndarray, edge_j: np.ndarray
+               ) -> np.ndarray:
+    """[n] int64: each node's position in the reverse Cuthill-McKee order
+    of the graph, which keeps its edges near the diagonal of H.
+
+    The connected components are taken in the order of their nodes of
+    least (degree, index); each is walked breadth first from a
+    pseudo-peripheral node (George and Liu: from that node, then from the
+    least-degree node of the walk's last level while that lengthens the
+    walk), each node's unvisited neighbours taken by (degree, index); the
+    whole walk is then reversed.  Ties go to the lower index, so the order
+    depends on the edge list alone."""
+    a = np.concatenate([edge_i, edge_j]).astype(np.int64)
+    b = np.concatenate([edge_j, edge_i]).astype(np.int64)
+    key = np.unique((a * n + b)[a != b])
+    a, b = key // max(n, 1), key % max(n, 1)
+    deg = np.bincount(a, minlength=n)
+    nbrs = b[np.lexsort((b, deg[b], a))].tolist()
+    start = np.concatenate([[0], np.cumsum(deg)]).tolist()
+    degree = deg.tolist()
+    stamp, level = [0] * n, [0] * n
+    walks = 0
+
+    def walk(root):
+        """The nodes by a breadth-first walk from ``root``; ``level``
+        holds their depths until the next walk."""
+        nonlocal walks
+        walks += 1
+        stamp[root], level[root] = walks, 0
+        out = [root]
+        for v in out:
+            depth = level[v] + 1
+            for u in nbrs[start[v]:start[v + 1]]:
+                if stamp[u] != walks:
+                    stamp[u], level[u] = walks, depth
+                    out.append(u)
+        return out
+
+    seen = [False] * n
+    walked = []
+    for root in np.lexsort((np.arange(n), deg)).tolist():
+        if seen[root]:
+            continue
+        comp = walk(root)
+        while True:
+            depth, last = level[comp[-1]], len(comp) - 1
+            while last and level[comp[last - 1]] == depth:
+                last -= 1
+            cand = min(comp[last:], key=lambda u: (degree[u], u))
+            nxt = walk(cand)
+            if level[nxt[-1]] <= depth:
+                break
+            comp = nxt
+        for u in comp:
+            seen[u] = True
+        walked.extend(comp)
+    pos = np.empty(n, np.int64)
+    pos[np.asarray(walked[::-1], np.int64)] = np.arange(n, dtype=np.int64)
+    return pos
+
+
+def band_panel(pos: np.ndarray, edge_i: np.ndarray, edge_j: np.ndarray
+               ) -> int:
+    """The band step's panel width in nodes under the order ``pos``: the
+    smallest power of two, at least 8, that holds the half-bandwidth (the
+    largest ``|pos[i] - pos[j]|`` of an edge), so that every edge joins
+    two nodes of one panel or of two neighbouring panels."""
+    width = int(np.abs(pos[edge_i] - pos[edge_j]).max()) if len(edge_i) else 0
+    return max(8, 1 << max(0, (width - 1).bit_length()))
+
+
 def graph_from_edges(
     poses: np.ndarray,
     edges: list[tuple[int, int, np.ndarray, np.ndarray]],
     device="cuda",
 ) -> PoseGraph:
     """A float64 PoseGraph on ``device`` from host-side pose/edge lists,
-    with each node's edge ends (:func:`node_edge_index`) built once here
-    on the host.
+    with each node's edge ends (:func:`node_edge_index`), its position in
+    the band step's order (:func:`band_order`) and that order's panel
+    width (:func:`band_panel`) built once here on the host.
 
     The graph holds exactly the n poses and e edges.  On a CUDA device
     ``optimize`` copies it into the static buffers of its padded bucket
@@ -128,6 +200,7 @@ def graph_from_edges(
     edge_j = np.asarray([x[1] for x in edges], np.int64)
     meas = np.asarray([x[2] for x in edges], np.float64).reshape(e, 3)
     prec = np.asarray([x[3] for x in edges], np.float64).reshape(e, 3, 3)
+    pos = band_order(n, edge_i, edge_j)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
@@ -141,4 +214,6 @@ def graph_from_edges(
         precisions=dev(prec),
         edge_mask=torch.ones(e, dtype=torch.bool, device=device),
         node_edges=dev(node_edge_index(n, edge_i, edge_j)),
+        order=dev(pos),
+        panel=band_panel(pos, edge_i, edge_j),
     )

@@ -18,48 +18,50 @@ precisions), the Jacobians, the LM state (poses, cost, lambda) and the
 accept test, so that a cost decrease below f32 resolution is still taken
 and a graph far from the origin keeps its sub-millimetre steps.
 
-Each step's normal system is solved by one of two methods, chosen from
-the graph's padded node bucket (:func:`_pow2`) alike on every device:
+Each step's normal system is solved exactly, as SPA's CSparse Cholesky
+solves it (spa2d.cpp:258-323), by one of two factors chosen from the
+graph's padded node bucket (:func:`_pow2`) alike on every device:
 
-- up to ``MAX_NODES``, exactly, as SPA's CSparse Cholesky does
-  (spa2d.cpp:258-323): H is assembled dense and factored by Cholesky
-  (:func:`_normal_matrix`, :func:`_step`).  The JAX package's PCG stops
-  short on a long loop: 1.3 mm from the optimum of a 134-node closure,
-  where the f64 oracle converges in 9 steps.  A dense factor costs
-  O(N^2) memory and O(N^3) time (``solve_scaling.py`` measures the
-  buckets);
-- past it, by the JAX package's own step: a matrix-free block-Jacobi PCG
-  of ``CG_ITERS`` iterations to a relative residual of ``CG_TOL``
-  (:func:`_pcg`), in O(E) memory, so that every graph the JAX package
-  solves is solved, as it solves it.  Its 60 iterations stop short of
-  the optimum on a long chain (ROADMAP C.12; ``solve_scaling.py
-  --dense-check`` measures how far), and ``optimize`` warns when it is
-  taken.
+- up to ``MAX_NODES``, dense: H is assembled whole and factored by
+  Cholesky (:func:`_normal_matrix`, :func:`_step`), O(N^2) memory and
+  O(N^3) time (``solve_scaling.py`` measures the buckets);
+- past it, block-banded: H is assembled in the graph's reverse
+  Cuthill-McKee order (``PoseGraph.order``) as K diagonal and K - 1
+  sub-diagonal panels of ``panel`` nodes, which hold every edge of a
+  chain with loop edges, and factored panel by panel
+  (:func:`_band_matrix`, :func:`_band_step`), O(N P) memory and
+  O(N P^2) time.  A graph without an order takes its natural order in
+  one panel of its bucket: the dense factor, by the same code.
+
+The JAX package's step, a block-Jacobi PCG of ``CG_ITERS`` iterations
+(:func:`_pcg`), stops short of the exact step on a long loop (1.3 mm
+from a 134-node closure's optimum; 356 m from the exact steps' poses on
+a 16,384-pose garland); it is kept as that package's counterpart, off
+the solve's path.
 
 Plain PyTorch, no kernel: the JAX solver has no Pallas kernel either.
 
 Every per-node sum (g, the diagonal blocks, the PCG's ``H x``) is a
 gather of the per-edge-end terms through the graph's ``node_edges`` index
 followed by a pairwise tree over its padded width (:func:`segment_sum`),
-and each edge's off-diagonal block goes into the dense H by one
+and each edge's off-diagonal block goes into H (dense or banded) by one
 accumulating ``index_put_`` in edge order: a fixed order, so a solve
 repeats itself bit for bit on the card, where a float ``index_add_`` adds
 through atomics in an order that changes from run to run.
 
-The loop is the reference's masked fixed-count form: LM (and the PCG
-inside it) carries a ``done`` flag on the device and freezes its state
-once done, and no value is read back to the host (a factorization that
-fails gives a zero step, which ends the solve as the reference's loop
-ends on a failed solve).  On a CUDA device one LM iteration is captured
-once as a CUDA graph for each padded (nodes, edges, node width) bucket
-and replayed ``num_iters`` times (:class:`_CudaSolve`).  On the CPU the
-same iteration runs eagerly and stops at ``done``, where a read costs
-nothing and the frozen iterations would change no value.
+The loop is the reference's masked fixed-count form: LM carries a
+``done`` flag on the device and freezes its state once done, and no
+value is read back to the host (a factorization that fails gives a zero
+step, which ends the solve as the reference's loop ends on a failed
+solve).  On a CUDA device one LM iteration is captured once as a CUDA
+graph for each padded (nodes, edges, node width, panel) bucket and
+replayed ``num_iters`` times (:class:`_CudaSolve`).  On the CPU the same
+iteration runs eagerly and stops at ``done``, where a read costs nothing
+and the frozen iterations would change no value.
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -86,6 +88,13 @@ class PoseGraph(NamedTuple):
     # for edge_i, 1 for edge_j), by edge index, padded with the zero slot
     # 0; D is a power of two (see graph.backends.node_edge_index)
     node_edges: torch.Tensor
+    # [N] int64: each node's position in the band step's order
+    # (graph.backends.band_order), None for the natural order
+    order: torch.Tensor | None = None
+    # the band step's panel width in nodes, a power of two that holds the
+    # ordered half-bandwidth (graph.backends.band_panel); 0 for the whole
+    # bucket
+    panel: int = 0
 
 
 def residuals(graph: PoseGraph, poses: torch.Tensor) -> torch.Tensor:
@@ -226,6 +235,108 @@ def _step(graph: PoseGraph, sys: _System, lam) -> torch.Tensor:
     return x.reshape(n, 3)
 
 
+def _panel(graph: PoseGraph) -> int:
+    """The band step's panel width in nodes: the graph's own, else its
+    whole bucket (one panel, the dense factor)."""
+    return graph.panel or _pow2(graph.poses.shape[0], 256)
+
+
+def _positions(graph: PoseGraph) -> torch.Tensor:
+    """[N] each node's position in the band step's order: the graph's
+    own, else the natural order."""
+    if graph.order is not None:
+        return graph.order
+    return torch.arange(graph.poses.shape[0], device=graph.poses.device)
+
+
+def _band_matrix(graph: PoseGraph, sys: _System, lam, panel: int):
+    """``_normal_matrix``'s H in the graph's order, as panels of ``panel``
+    nodes: ([K, 3P, 3P] diagonal panels, [K - 1, 3P, 3P] sub-diagonal
+    panels, H[k + 1, k]), K the panels that hold N nodes.  The same terms
+    in the same order: each live edge between free nodes puts ``J0^T P
+    J1`` at its (i, j) and the transpose at (j, i), all by one
+    accumulating ``index_put_`` in edge order (the entries above the
+    diagonal panels go to slots that are dropped); then the diagonal
+    blocks and the damping.  Fixed nodes and the positions past N get
+    identity rows.  Each stored entry equals the dense H's bit for bit."""
+    n = sys.g.shape[0]
+    dev = sys.g.device
+    w = 3 * panel
+    k = -(-n // panel)
+    pos = _positions(graph)
+    free = sys.free
+    keep = graph.edge_mask & free[graph.edge_i] & free[graph.edge_j]
+    off = torch.einsum("eba,ebc->eac", sys.j0, sys.lj1)
+    off = torch.where(keep[:, None, None], off, 0.0)
+    c = torch.arange(3, device=dev)
+    rows = (3 * pos[graph.edge_i][:, None, None] + c[:, None]).expand_as(off)
+    cols = (3 * pos[graph.edge_j][:, None, None] + c).expand_as(off)
+    r = torch.cat([rows.reshape(-1), cols.reshape(-1)])
+    s = torch.cat([cols.reshape(-1), rows.reshape(-1)])
+    pr, pc = r // w, s // w
+    local = (r % w) * w + s % w
+    # an entry above the diagonal panels goes to a slot of its own past
+    # the panels: a shared one would be one long run of sums in the
+    # deterministic scatter
+    slot = torch.where(pr == pc, pr * w * w + local,
+                       torch.where(pr == pc + 1, (k + pc) * w * w + local,
+                                   (2 * k - 1) * w * w
+                                   + torch.arange(r.shape[0], device=dev)))
+    band = torch.zeros((2 * k - 1) * w * w + r.shape[0], dtype=sys.g.dtype,
+                       device=dev)
+    band.index_put_((slot,), torch.cat([off.reshape(-1), off.reshape(-1)]),
+                    accumulate=True)
+    diag_p = band[:k * w * w].view(k, w, w)
+    sub_p = band[k * w * w:(2 * k - 1) * w * w].view(k - 1, w, w)
+    blocks = torch.zeros((k * panel, 3, 3), dtype=sys.g.dtype, device=dev)
+    blocks[pos] = torch.where(free[:, None, None], sys.diag, 0.0)
+    free_p = torch.zeros(k * panel, dtype=sys.g.dtype, device=dev)
+    free_p[pos] = free.to(sys.g.dtype)
+    diag_p.view(k, panel, 3, panel, 3).diagonal(dim1=1, dim2=3).add_(
+        blocks.view(k, panel, 3, 3).permute(0, 2, 3, 1))
+    d = diag_p.diagonal(dim1=1, dim2=2)
+    d.add_(d * lam + (1.0 - free_p.repeat_interleave(3).view(k, w)))
+    return diag_p, sub_p
+
+
+def _band_step(graph: PoseGraph, sys: _System, lam, panel: int
+               ) -> torch.Tensor:
+    """dx of ``_normal_matrix`` dx = -g, exactly, by a block-tridiagonal
+    Cholesky factor of :func:`_band_matrix`'s panels (A_kk -= L_k,k-1
+    L_k,k-1^T, L_kk = chol(A_kk), L_k+1,k = A_k+1,k L_kk^-T), a forward
+    and a backward block substitution, and the graph's order undone.  A
+    fixed count of panel ops and no value read back: a panel whose
+    factorization fails leaves dx at 0."""
+    diag_p, sub_p = _band_matrix(graph, sys, lam, panel)
+    k, w = diag_p.shape[0], diag_p.shape[1]
+    pos = _positions(graph)
+    rhs = torch.zeros((k * panel, 3), dtype=sys.g.dtype, device=sys.g.device)
+    rhs[pos] = -(sys.g * sys.free[:, None])
+    rhs = rhs.view(k, w, 1)
+    chol, info = torch.linalg.cholesky_ex(diag_p[0])
+    lows, offs, infos = [chol], [], [info]
+    for i in range(1, k):
+        off = torch.linalg.solve_triangular(lows[-1].mT, sub_p[i - 1],
+                                            upper=True, left=False)
+        chol, info = torch.linalg.cholesky_ex(
+            torch.addmm(diag_p[i], off, off.mT, alpha=-1.0))
+        lows.append(chol)
+        offs.append(off)
+        infos.append(info)
+    ys = [torch.linalg.solve_triangular(lows[0], rhs[0], upper=False)]
+    for i in range(1, k):
+        ys.append(torch.linalg.solve_triangular(
+            lows[i], torch.addmm(rhs[i], offs[i - 1], ys[-1], alpha=-1.0),
+            upper=False))
+    xs = [torch.linalg.solve_triangular(lows[-1].mT, ys[-1], upper=True)]
+    for i in range(k - 2, -1, -1):
+        xs.append(torch.linalg.solve_triangular(
+            lows[i].mT, torch.addmm(ys[i], offs[i].mT, xs[-1], alpha=-1.0),
+            upper=True))
+    x = torch.cat(xs[::-1]).view(k * panel, 3)[pos]
+    return torch.where((torch.stack(infos) == 0).all(), x, 0.0)
+
+
 def _hvp(graph: PoseGraph, sys: _System, lam, x: torch.Tensor) -> torch.Tensor:
     """(H + lam * blockdiag(H)) x, matrix-free over edges (the JAX
     package's ``_hvp``), its per-node sums by ``segment_sum``."""
@@ -332,16 +443,22 @@ def _lm_step(
     st: _LmState,
     n_fixed: int,
     gauss_newton: bool,
-    dense: bool,
+    step: str,
     early_exit: bool = False,
 ) -> _LmState:
     """One masked LM iteration (doSPA's loop body, spa2d.cpp:425-609):
     every update is ``torch.where``-selected and frozen once ``done``.
-    ``dense`` picks the exact step (:func:`_step`) over the PCG
-    (:func:`_pcg`, which ``early_exit`` lets stop at its ``done``)."""
+    ``step`` names the step solve (:func:`_step_kind`): ``"dense"``
+    (:func:`_step`), ``"band"`` (:func:`_band_step`) or the JAX
+    package's ``"pcg"`` (:func:`_pcg`, which ``early_exit`` lets stop at
+    its ``done``; off the solve's path)."""
     sys = _build_system(graph, st.poses, n_fixed)
-    dx = (_step(graph, sys, st.lam) if dense
-          else _pcg(graph, sys, st.lam, early_exit))
+    if step == "dense":
+        dx = _step(graph, sys, st.lam)
+    elif step == "band":
+        dx = _band_step(graph, sys, st.lam, _panel(graph))
+    else:
+        dx = _pcg(graph, sys, st.lam, early_exit)
     converged = torch.sum(dx * dx) < 1e-16
     new_poses = st.poses + dx
     new_poses = torch.cat(
@@ -378,14 +495,14 @@ def _solve(
     early_exit: bool,
 ) -> tuple[torch.Tensor, SolveStats]:
     """The LM loop run eagerly on the graph's device, with the step solve
-    of its bucket (:func:`_dense`); ``early_exit`` reads the ``done``
+    of its bucket (:func:`_step_kind`); ``early_exit`` reads the ``done``
     flags and stops at them (the CPU's form), otherwise every iteration
     runs, masked, with no host read."""
-    dense = _dense(graph.poses.shape[0])
+    step = _step_kind(graph.poses.shape[0])
     st = _init_state(graph, init_lambda)
     cost0 = st.cost
     for _ in range(num_iters):
-        st = _lm_step(graph, st, n_fixed, gauss_newton, dense, early_exit)
+        st = _lm_step(graph, st, n_fixed, gauss_newton, step, early_exit)
         if early_exit and bool(st.done):
             break
     return st.poses, SolveStats(cost0, st.cost, st.good, st.lam)
@@ -395,21 +512,27 @@ def _pow2(n: int, floor: int) -> int:
     return max(floor, 1 << max(0, (max(n, 1) - 1).bit_length()))
 
 
-# the largest padded node bucket whose steps are solved exactly: the dense
+# the largest padded node bucket whose steps take the dense factor: the
 # f64 H and its factor take 144 N^2 bytes, 9.7 GB at 8192 nodes; a larger
-# bucket takes the JAX package's PCG step, O(E) in memory
+# bucket takes the band factor, 144 N P bytes (P the panel width)
 MAX_NODES = 8192
-# that PCG's iterations and relative residual (the JAX presets' cg_iters,
-# tpuslam/graph/backends.py, and optimize's cg_tol)
+# the JAX package's PCG: its iterations and relative residual (the JAX
+# presets' cg_iters, tpuslam/graph/backends.py, and optimize's cg_tol)
 CG_ITERS = 60
 CG_TOL = 1e-6
 
 
 def _dense(n: int) -> bool:
-    """Whether a graph of ``n`` nodes takes the exact step: its padded
+    """Whether a graph of ``n`` nodes takes the dense step: its padded
     bucket (the card's capture bucket, at least 256 nodes) is at most
     ``MAX_NODES``.  Both devices decide alike."""
     return _pow2(n, 256) <= MAX_NODES
+
+
+def _step_kind(n: int) -> str:
+    """The step solve of a graph of ``n`` nodes: ``"dense"`` up to
+    ``MAX_NODES`` (:func:`_dense`), ``"band"`` past it."""
+    return "dense" if _dense(n) else "band"
 
 
 class _CudaSolve:
@@ -417,12 +540,14 @@ class _CudaSolve:
 
     The bucket is (nodes, edges, node width) padded to powers of two with
     masks, at least 256 nodes and 512 edges as the reference's
-    ``graph_from_edges`` pads; padded nodes have no edge ends and padded
-    edges no mask, so they change no value.  A solve copies its graph into
-    the buffers, sets the LM state and replays the graph ``num_iters``
-    times; the captured iteration writes its new state over the old."""
+    ``graph_from_edges`` pads, with the step solve and (for the band step)
+    the panel width; padded nodes have no edge ends and padded edges no
+    mask, so they change no value, and they take the last positions of
+    the order.  A solve copies its graph into the buffers, sets the LM
+    state and replays the graph ``num_iters`` times; the captured
+    iteration writes its new state over the old."""
 
-    def __init__(self, cap_n, cap_e, width, dense, device, n_fixed,
+    def __init__(self, cap_n, cap_e, width, step, panel, device, n_fixed,
                  gauss_newton):
         f64 = dict(dtype=torch.float64, device=device)
         self.graph = PoseGraph(
@@ -435,9 +560,12 @@ class _CudaSolve:
             edge_mask=torch.zeros(cap_e, dtype=torch.bool, device=device),
             node_edges=torch.zeros((cap_n, width), dtype=torch.int64,
                                    device=device),
+            order=torch.arange(cap_n, device=device),
+            panel=panel,
         )
+        self.natural = torch.arange(cap_n, device=device)
         self.state = _init_state(self.graph, 0.0)
-        args = (n_fixed, gauss_newton, dense)
+        args = (n_fixed, gauss_newton, step)
 
         def step():
             new = _lm_step(self.graph, self.state, *args)
@@ -458,11 +586,14 @@ class _CudaSolve:
 
     def run(self, graph: PoseGraph, num_iters: int, init_lambda: float):
         """Copy ``graph`` in, replay; returns (poses [n, 3], stats)."""
-        for buf, src in zip(self.graph, graph):
+        for buf, src in zip(self.graph[:8], graph[:8]):
             k = src.shape[0]
             buf[:k].copy_(src)
             buf[k:].zero_()
         n = graph.poses.shape[0]
+        self.graph.order.copy_(self.natural)
+        if graph.order is not None:
+            self.graph.order[:n].copy_(graph.order)
         st = self.state
         st.poses.copy_(self.graph.poses)
         st.cost.copy_(cost(self.graph, self.graph.poses))
@@ -478,8 +609,9 @@ class _CudaSolve:
             cost0, st.cost.clone(), st.good.clone(), st.lam.clone())
 
 
-# captured solves by (device, bucket, step solve, solver settings): a
-# mapping session meets a handful of buckets as its graph grows
+# captured solves by (device, bucket, step solve, panel width, solver
+# settings): a mapping session meets a handful of buckets as its graph
+# grows
 _CUDA_SOLVES: dict[tuple, _CudaSolve] = {}
 
 
@@ -498,25 +630,22 @@ def optimize(
     OptimizationAlgorithmGaussNewton, g2o_solver.cc:42-138), which can
     diverge where LM's reject/escalate recovers.
 
-    Returns float64 poses.  The step solve follows the graph's padded
-    bucket (:func:`_dense`): exact up to ``MAX_NODES``, the PCG past it,
-    which stops short of the optimum (a ``RuntimeWarning`` says so).
-    On a CUDA device the solve replays the captured LM iteration of the
-    graph's bucket and reads nothing back; on the CPU it runs eagerly and
-    stops at convergence."""
+    Returns float64 poses.  Every step is exact; its factor follows the
+    graph's padded bucket (:func:`_step_kind`): dense up to
+    ``MAX_NODES``, banded in the graph's order past it.  On a CUDA device
+    the solve replays the captured LM iteration of the graph's bucket and
+    reads nothing back; on the CPU it runs eagerly and stops at
+    convergence."""
     dev = graph.poses.device
     n, e = graph.poses.shape[0], graph.edge_i.shape[0]
-    if not _dense(n):
-        warnings.warn(
-            "a pose graph past graph.solver.MAX_NODES takes the PCG step, "
-            "which stops short of the optimum (ROADMAP C.12)",
-            RuntimeWarning, stacklevel=2)
     if dev.type != "cuda":
         return _solve(graph, num_iters, n_fixed, init_lambda, gauss_newton,
                       True)
+    step = _step_kind(n)
     key = (str(dev), _pow2(n, 256), _pow2(e, 512), graph.node_edges.shape[1],
-           _dense(n), n_fixed, gauss_newton)
+           step, _panel(graph) if step == "band" else 0, n_fixed,
+           gauss_newton)
     solve = _CUDA_SOLVES.get(key)
     if solve is None:
-        solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:5], dev, *key[5:])
+        solve = _CUDA_SOLVES[key] = _CudaSolve(*key[1:6], dev, *key[6:])
     return solve.run(graph, num_iters, init_lambda)

@@ -363,11 +363,11 @@ class KartoMapper:
         batch_mesh_axis: str = "scan",
     ):
         """max_scans: the capacity of the scan store (and so of the pose
-        graph).  A graph of any size is solved: each LM step exactly (a
-        dense f64 factor) while the graph's padded bucket holds at most
-        ``graph.solver.MAX_NODES`` (8192) nodes, by the JAX package's
-        block-Jacobi PCG past it (``graph/solver.py``), which stops short
-        of the optimum on a long graph and warns so (ROADMAP C.12).
+        graph).  A graph of any size is solved, each LM step exactly: by a
+        dense f64 factor while the graph's padded bucket holds at most
+        ``graph.solver.MAX_NODES`` (8192) nodes, by a block-banded one in
+        the graph's reverse Cuthill-McKee order past it
+        (``graph/solver.py``).
 
         events: optional ``tpuslam_torch.utils.events.EventBus`` (or any object
         with ``fire(event, **payload)``) — receives the reference's
