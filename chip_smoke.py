@@ -22,7 +22,14 @@ line):
    3.35 TB/s, the patch sums' grid counted as the cells their patches
    cover, or f32 operations at 67 TFLOP/s, whichever is larger) and, for the
    patch sums, the time of ``F.conv2d`` on the JAX "conv" method's point
-   indicator (``library_ms``, TF32 off, never called by the port);
+   indicator (``library_ms``, TF32 off, never called by the port).  After
+   its timed calls each row calls the kernel once more on the same inputs,
+   which must equal its first call bit for bit (``repeats``: the patch
+   sums' float atomics, ``fvp``'s ``atomicMin`` and the correspondences'
+   tickets must not show their order).  Then f64 input: each wrapper
+   that takes floats, and ``plicp``, must raise ValueError on the card,
+   launching nothing and calling no plain version (the f64 fidelity mode
+   is CPU-only);
 4. the slice end to end: a ``KartoMapper`` at the outdoor configuration
    with 1081 beams on the card, over a 24 x 18 m rectangular circuit; it
    must stay within the ATE bound and launch every kernel.  The same
@@ -70,8 +77,10 @@ line):
    cut (``ENDURANCE.json``) by its ``COUNT_BAND`` and ``EPISODE_SLACK``;
    4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
    1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
-   below 0.05 m, the correspondence kernel launched, and the same stream
-   through the kernel's plain version gives the same poses;
+   below 0.05 m, the correspondence kernel launched, its first
+   ``REPEAT_SCANS`` (20) scans again from a fresh state give the same
+   poses bit for bit, and the same stream through the kernel's plain
+   version gives the same poses;
    4e. frame-to-frame PL-ICP and ICP (the kernel's nearest mode) over the
    first 50 scans, and ``plicp_batch`` / ``icp_batch`` of 256 pairs of
    512 beams timed against the plain chain;
@@ -83,8 +92,10 @@ line):
    with the plain one within ``HECTOR_PATH_BOUNDS``;
    4g. the Hector engine (``hector_slam.step``) at the reference's
    defaults (map 2048, 3 levels) with 1081 beams over the 320-scan
-   ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, scans/s, and the
-   device busy share of 80 scans under ``torch.profiler``;
+   ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, scans/s, its
+   first ``REPEAT_SCANS`` scans twice more from a fresh state, each with
+   the stream's poses and both with the same level-0 log-odds, bit for
+   bit, and the device busy share of 80 scans under ``torch.profiler``;
    4k. the CLI (``tpuslam_torch.cli.main``, in this process) over a ROS1
    bag written by the port's ``write_bag`` from ``bag.synthesize``'s 160
    motion-distorted scans of 1081 beams (four laps of the boxes world):
@@ -181,6 +192,9 @@ CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
 CORR_FIXTURES = ("normal", "lattice", "far")
 # the engine's scans run again under torch.profiler (phase 4g)
 PROFILE_SCANS = 80
+# phases 4d and 4g run their first scans again from a fresh state, which
+# must repeat the first run bit for bit (tests/test_determinism.py)
+REPEAT_SCANS = 20
 # (fixture, scans): bench.py's batch (map 1024, 512 beams, R = 12 m:
 # window 896), the reference defaults (map 2048, 1081 beams, R = 20 m:
 # window 1152) for one scan and for a batch of 256
@@ -497,17 +511,42 @@ def _fvp_inputs(rng, s, b, kind="normal"):
             torch.tensor(vp, dtype=torch.float32, device="cuda"))
 
 
-def _row(kernel, shape, err, fn_k, fn_p, bnd, card, note="", recheck=None):
+def _same(a, b) -> bool:
+    """Bit for bit: two tensors, or two tuples of tensors."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+
+
+def repeats(tag, fn_k, first) -> float:
+    """Call the kernel once more on the same inputs: the output must equal
+    ``first`` bit for bit (the kernels that meet across threads through
+    atomics, ``patch_sums.cu``'s float adds, ``fvp.cu``'s ``atomicMin``
+    and ``plicp_corr.cu``'s tickets, are built so that their order does
+    not show), else raise.  State that a call leaves behind would show
+    here too.  Returns the synced seconds of the call and the compare."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fn_k()
+    same = _same(again, first)
+    seconds = time.perf_counter() - t0
+    if not same:
+        raise RuntimeError(f"{tag}: a second call on the same inputs "
+                           "differs from the first")
+    return seconds
+
+
+def _row(kernel, shape, err, fn_k, fn_p, bnd, card, first, note=""):
     """A phase-3 row: the wrapper's and the plain version's CUDA-event
     times, the kernel's profiled device time and device ops a call, and
-    the bound.  ``recheck``, called after the timed calls, holds one more
-    call against the plain version: state that a call leaves behind
-    would show there."""
+    the bound; then, after the timed calls, one more call on the same
+    inputs, which must equal ``first`` (the row's first call) bit for bit
+    (``repeats``)."""
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
            "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p),
            **profile_call(fn_k, KERNEL_NAMES[kernel]), **bnd}
-    if recheck is not None:
-        recheck()
+    row["repeat_s"] = repeats(f"{kernel} {shape}", fn_k, first)
+    row["repeats"] = True
     if kernel in ONE_OP and row["device_ops"] > 1:
         raise RuntimeError(f"{kernel} {shape}: {row['device_ops']} device "
                            "ops a call, not 1")
@@ -516,7 +555,8 @@ def _row(kernel, shape, err, fn_k, fn_p, bnd, card, note="", recheck=None):
     print(f"  {kernel:19s} {shape:34s} {note or 'equal'}  kernel {ku} "
           f"(wrapper {row['ms']:.4f} ms, {row['device_ops']:g} device ops a "
           f"call, bound {row['bound_us']:.3f} us by {row['bound_by']})  "
-          f"plain {row['plain_ms']:.4f} ms  [{card}]", flush=True)
+          f"plain {row['plain_ms']:.4f} ms  repeats bit for bit "
+          f"({row['repeat_s'] * 1e3:.2f} ms)  [{card}]", flush=True)
     return row
 
 
@@ -532,7 +572,7 @@ def check_kernels(card: str) -> list[dict]:
         if not torch.equal(got, want):
             raise RuntimeError(f"{kernel} {shape}: kernel != plain "
                                f"(max |err| {err})")
-        rows.append(_row(kernel, shape, err, fn_k, fn_p, bnd, card))
+        rows.append(_row(kernel, shape, err, fn_k, fn_p, bnd, card, got))
         return rows[-1]
 
     gen = torch.Generator().manual_seed(0)
@@ -627,25 +667,17 @@ def check_corr(card: str) -> list[dict]:
 
                     want = plain()
 
-                    def same(tag, kern=kern, want=want, name=name,
-                             shape=shape):
-                        got = kern()
-                        err = max(float((g.float() - w.float()).abs().max())
-                                  for g, w in zip(got, want))
-                        if not all(torch.equal(g, w)
-                                   for g, w in zip(got, want)):
-                            raise RuntimeError(f"{name} {shape}: kernel != "
-                                               f"plain {tag}(max |err| {err})")
-                        return got, err
-
-                    got, err = same("")
+                    got = kern()
+                    err = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want))
+                    if not _same(got, want):
+                        raise RuntimeError(f"{name} {shape}: kernel != "
+                                           f"plain (max |err| {err})")
                     ok_rows = int(got[3].sum())
                     rows.append({**_row(
                         name, shape, err, kern, plain,
-                        corr_bound(args[0], args[2]), card,
-                        f"equal, ok rows {ok_rows}",
-                        recheck=lambda same=same: same("after the timed "
-                                                       "calls ")),
+                        corr_bound(args[0], args[2]), card, got,
+                        f"equal, ok rows {ok_rows}"),
                         "ok_rows": ok_rows})
     return rows
 
@@ -706,23 +738,81 @@ def check_hector(card: str) -> list[dict]:
         print(f"  hector_gn {shape}: {ws} warps a scan; kernel vs its order "
               f"in PyTorch {lanes}", flush=True)
 
-        def recheck(args=args, got=got, shape=shape):
-            again = ops_h._launch(*args)
-            if not all(torch.equal(a, g) for a, g in zip(again, got)):
-                raise RuntimeError(f"hector_gn {shape}: a call after the "
-                                   "timed calls differs from the first")
-
         in_gate = int(got[3].sum())
         rows.append({
             **_row("hector_gn", shape,
                    max(diffs["xy"], diffs["yaw"], diffs["score"]),
                    lambda args=args: ops_h._launch(*args),
                    lambda args=args: ops_h._plain(*args),
-                   hector_bound(grids[0], valid[:n], 5), card,
-                   f"within bounds {diffs}, in gate {in_gate}", recheck),
+                   hector_bound(grids[0], valid[:n], 5), card, got,
+                   f"within bounds {diffs}, in gate {in_gate}"),
             "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
             "vs_lanes": lanes})
     return rows
+
+
+def check_f64_refused(card: str) -> dict:
+    """Phase 3: the f64 fidelity mode is CPU-only.  On the card each
+    wrapper that takes floats (``fvp``, the correspondences in both
+    modes, ``hector_gn``) and ``match.plicp.plicp``, which reaches one,
+    must raise ValueError on f64 input, launch no kernel and call no
+    plain version (each plain version is swapped for one that raises
+    while the check runs)."""
+    from tpuslam_torch.core.config import PlicpConfig
+    from tpuslam_torch.match.plicp import plicp
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.ops import hector as ops_h
+    from tpuslam_torch.ops import plicp as ops_p
+
+    f64 = dict(dtype=torch.float64, device="cuda")
+    pts = torch.rand((2, 64, 2), **f64)
+    valid = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    calls = {
+        "fvp": lambda: ops_f.find_valid_points(pts, valid,
+                                               torch.zeros(2, **f64)),
+        "plicp_corr": lambda: ops_p.correspondences(pts, valid, pts, valid,
+                                                    1.0, True),
+        "plicp_nearest": lambda: ops_p.nearest(pts, valid, pts, valid, 1.0),
+        "hector_gn": lambda: ops_h.match_level_kernel(
+            torch.rand((64, 64), **f64), pts, valid,
+            torch.zeros((2, 3), **f64), window=64, num_iters=1),
+        "plicp": lambda: plicp(PlicpConfig(num_beams=64), pts[0], valid[0],
+                               pts[0], valid[0]),
+    }
+    plains = [(ops_f, "find_valid_points_plain"),
+              (ops_p, "correspondences_plain"), (ops_p, "nearest_plain"),
+              (ops_h, "match_level_plain")]
+    saved = [getattr(m, k) for m, k in plains]
+
+    def refuse(*args, **kw):
+        raise RuntimeError("an f64 call on the card reached a plain version")
+
+    counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_h.LAUNCHES,
+                ops_p.LAUNCHES)
+    before = [dict(d) for d in counters]
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for m, k in plains:
+            setattr(m, k, refuse)
+        for name, fn in calls.items():
+            try:
+                fn()
+            except ValueError as e:
+                out[name] = str(e)
+            else:
+                raise RuntimeError(f"{name}: f64 input on the card ran")
+    finally:
+        for (m, k), f in zip(plains, saved):
+            setattr(m, k, f)
+    if [dict(d) for d in counters] != before:
+        raise RuntimeError("an f64 call on the card launched a kernel")
+    seconds = time.perf_counter() - t0
+    print(f"  f64 input on the card: {len(out)} calls refused "
+          f"({', '.join(out)}), no launch, no plain version, "
+          f"{seconds:.3f} s [{card}]", flush=True)
+    return {"refused": out, "seconds": seconds}
 
 
 def _box_segs(center, half=0.6):
@@ -1276,9 +1366,11 @@ def _timed(fn, on_card):
 
 
 def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
-                 profile: bool = False):
+                 profile: bool = False, repeat: int = 0):
     """Phase 4d: ``plicp_odometry.step`` over the stream; the launch
     counters are set to 0 just before the stream and read just after.
+    With ``repeat``, the first ``repeat`` scans run again from a fresh
+    ``OdomState`` and must give the same poses bit for bit (else raise).
     With ``profile`` (on the card), the stream runs again under
     ``torch.profiler``: device ms and device ops a scan, busy share."""
     from tpuslam_torch.core.config import PlicpConfig
@@ -1288,7 +1380,7 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
     truth, _, scans = odometry_stream(device, num_beams, n_scans)
     cfg = PlicpConfig(num_beams=num_beams, kf_scan_count=6)
 
-    def stream():
+    def stream(scans=scans):
         st = plicp_odometry.init_state(cfg, device=device)
         poses, kfs, valid = [], [], []
         for sc in scans:
@@ -1316,6 +1408,13 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
         "launches": launches,
         "launches_per_scan": launches["plicp_corr"] / len(scans),
     }
+    if repeat:
+        (again, _, _), secs = _timed(lambda: stream(scans[:repeat]),
+                                     torch.device(device).type == "cuda")
+        if not np.array_equal(again, poses[:repeat]):
+            raise RuntimeError(f"odometry: the first {repeat} scans again "
+                               "from a fresh state give other poses")
+        out["repeat"] = {"scans": repeat, "seconds": secs, "equal": True}
     if profile and torch.device(device).type == "cuda":
         prof = busy_share(stream, cpu=False)
         out.update(profile=prof,
@@ -1491,13 +1590,17 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5,
 
 
 def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
-                      cfg=None, profile_scans: int = 0) -> dict:
+                      cfg=None, profile_scans: int = 0,
+                      repeat: int = 0) -> dict:
     """Phase 4g: the Hector engine over benchmarks/suite.py's
     ``bench_ate_hector`` stream (the boxes world, 6 cm + 0.05 rad a scan
     with no odometry, the first scan mapped without matching) at the
     reference's defaults with 1081 beams, map updates every 0.1 m /
-    0.15 rad.  With ``profile_scans``, the first scans run again under
-    ``torch.profiler`` for the device busy share."""
+    0.15 rad.  With ``repeat``, the first ``repeat`` scans run twice more
+    from a fresh state: both must give the stream's poses, and the same
+    level-0 log-odds, bit for bit (else raise).  With ``profile_scans``,
+    the first scans run again under ``torch.profiler`` for the device
+    busy share."""
     from tpuslam_torch.io.simulate import world_with_boxes
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.models import hector_slam
@@ -1523,15 +1626,27 @@ def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
             st, _ = hector_slam.step(cfg, st, sc,
                                      map_without_matching=(i == 0))
             poses.append(st.pose)
-        return torch.stack(poses).cpu().numpy(), int(st.num_updates)
+        return (torch.stack(poses).cpu().numpy(), int(st.num_updates),
+                st.log_odds[0])
 
-    (poses, updates), wall = _timed(lambda: stream(scans), on_card)
+    (poses, updates, _), wall = _timed(lambda: stream(scans), on_card)
     err = np.hypot(*(poses[:, :2] - np.stack(truths)[:, :2]).T)
     out = {"scans": n_scans, "beams": num_beams, "map": cfg.map_size,
            "levels": cfg.map_multi_res_levels, "seconds": wall,
            "scans_per_s": n_scans / wall,
            "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
            "max_err_m": float(err.max()), "map_updates": updates}
+    if repeat:  # twice, so that the timed stream above stays as it was
+        (a, b), secs = _timed(lambda: [stream(scans[:repeat])
+                                       for _ in range(2)], on_card)
+        if not (np.array_equal(a[0], poses[:repeat])
+                and np.array_equal(b[0], poses[:repeat])
+                and torch.equal(a[2], b[2])):
+            raise RuntimeError(f"hector engine: the first {repeat} scans "
+                               "again from a fresh state give other poses "
+                               "or another level-0 map")
+        out["repeat"] = {"scans": repeat, "runs": 2, "seconds": secs,
+                         "equal": True}
     if profile_scans and on_card:
         out["profile"] = busy_share(lambda: stream(scans[:profile_scans]))
     return out
@@ -3128,6 +3243,11 @@ def main() -> int:
     # ---- 3. kernels == plain at production sizes
     mark(f"3. kernels vs plain, {TIMED_RUNS} calls a timing")
     rows = check_kernels(card)
+    repeat_s = sum(r["repeat_s"] for r in rows)
+    print(f"  every row's second call on the same inputs equal to its "
+          f"first: {len(rows)} rows, {repeat_s:.3f} s in all [{card}]",
+          flush=True)
+    f64 = check_f64_refused(card)
 
     # ---- 4. the slice end to end
     from tpuslam_torch.core.config import outdoor_karto_config
@@ -3278,7 +3398,7 @@ def main() -> int:
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
     mark("4d. PL-ICP odometry")
-    od, od_poses = run_odometry("cuda", profile=True)
+    od, od_poses = run_odometry("cuda", profile=True, repeat=REPEAT_SCANS)
     print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans in "
           f"{od['seconds']:.2f} s = {od['scans_per_s']:.2f} scans/s, ATE RMSE "
           f"{od['ate_rmse_m']:.4f} m (max {od['max_err_m']:.4f}), keyframes "
@@ -3288,6 +3408,9 @@ def main() -> int:
     print(f"  profiled rerun: {od['device_ms_per_scan']:.3f} device ms and "
           f"{od['device_ops_per_scan']:.1f} device ops a scan, device busy "
           f"{od['busy_share']:.4f} of the run above [{card}]", flush=True)
+    print(f"  the first {REPEAT_SCANS} scans again from a fresh state: "
+          f"poses equal bit for bit, {od['repeat']['seconds']:.2f} s "
+          f"[{card}]", flush=True)
     if not od["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"odometry ATE RMSE {od['ate_rmse_m']} >= 0.05 m")
     if od["launches"]["plicp_corr"] <= 0:
@@ -3349,7 +3472,8 @@ def main() -> int:
 
     # 4g. the Hector engine at the reference's defaults, 1081 beams
     mark("4g. Hector engine")
-    he = run_hector_engine("cuda", profile_scans=PROFILE_SCANS)
+    he = run_hector_engine("cuda", profile_scans=PROFILE_SCANS,
+                           repeat=REPEAT_SCANS)
     prof = he.get("profile", {})
     print(f"hector engine (map {he['map']}, {he['levels']} levels, "
           f"{he['beams']} beams): {he['scans']} scans in "
@@ -3358,6 +3482,9 @@ def main() -> int:
           f"{he['map_updates']}; profiled {PROFILE_SCANS} scans: device busy "
           f"{prof.get('busy_share')} of {prof.get('wall_s')} s, "
           f"{prof.get('device_ops')} device ops [{card}]", flush=True)
+    print(f"  the first {REPEAT_SCANS} scans twice more from a fresh "
+          f"state: poses and level-0 log-odds equal bit for bit, "
+          f"{he['repeat']['seconds']:.2f} s [{card}]", flush=True)
     if not he["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"hector engine ATE RMSE {he['ate_rmse_m']} >= "
                            "0.05 m")
@@ -3437,6 +3564,7 @@ def main() -> int:
                                       if cli_scans[name] else None),
             "mesh_launches": mesh_launches[name],
             "oracle_launches": oracle_launches[name],
+            "repeats": all(r["repeats"] for r in mine),
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()
@@ -3452,6 +3580,7 @@ def main() -> int:
         "odometry_plain_path": odp, "frame_to_frame": ff,
         "batches": batches, "hector_batch": hb, "hector_engine": he,
         "cli": clir, "mesh": mesh_r, "oracle": orc, "codec": codec,
+        "f64_refused": f64,
         "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

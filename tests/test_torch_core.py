@@ -68,6 +68,90 @@ def test_transform_points_matches_jax_batched():
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("batch_shape", [(), (4,), (2, 3)])
+def test_se2_identity_matches_jax(batch_shape):
+    got = tse2.identity(batch_shape, device="cpu")
+    want = np.asarray(jse2.identity(batch_shape))
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tse2.identity((2,), torch.float64, "cpu").dtype == torch.float64
+
+
+@pytest.mark.parametrize("name", ["rotation", "to_matrix"])
+def test_se2_matrices_match_jax(name):
+    """The entries that are cos / sin agree within an ulp (torch's libm
+    and XLA's are not the same); the rest (x, y, 0, 1) bit for bit."""
+    p = _poses(7, 64)
+    arg = p[:, 2] if name == "rotation" else p
+    got, want = _both(getattr(jse2, name), getattr(tse2, name), arg)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    if name == "to_matrix":
+        np.testing.assert_array_equal(got[:, :, 2], want[:, :, 2])
+        np.testing.assert_array_equal(got[:, 2], want[:, 2])
+
+
+def test_se2_from_matrix_matches_jax_bit_for_bit():
+    m = np.array(jse2.to_matrix(jnp.asarray(_poses(8, 64))))
+    got, want = _both(jse2.from_matrix, tse2.from_matrix, m)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("alpha", ["scalar", "per_pose"])
+def test_se2_interp_matches_jax(alpha):
+    """x, y bit for bit (the same f32 blend); theta within 1e-6 rad, the
+    wrap's sin / cos being another libm's."""
+    a, b = _poses(9, 64), _poses(10, 64)
+    al = (np.float32(0.3) if alpha == "scalar" else
+          np.random.default_rng(11).uniform(0, 1, 64).astype(np.float32))
+    want = np.asarray(jse2.interp(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(al)))
+    got = tse2.interp(torch.from_numpy(a), torch.from_numpy(b),
+                      torch.from_numpy(np.asarray(al))).numpy()
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_allclose(got[:, 2], want[:, 2], atol=1e-6, rtol=0)
+
+
+def test_compose_matches_matrix_product():
+    """tests/test_se2.py::test_compose_matches_matrix_product on the port."""
+    a, b = (torch.from_numpy(_poses(s, 16)) for s in (12, 13))
+    want = tse2.from_matrix(tse2.to_matrix(a) @ tse2.to_matrix(b))
+    np.testing.assert_allclose(tse2.compose(a, b).numpy(), want.numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_transform_points_matches_matrix():
+    """tests/test_se2.py::test_transform_points_matches_matrix on the
+    port."""
+    r = np.random.default_rng(14)
+    pose = torch.from_numpy(_poses(15, 1)[0])
+    pts = torch.from_numpy(r.uniform(-3, 3, (32, 2)).astype(np.float32))
+    m = tse2.to_matrix(pose)
+    want = pts @ m[:2, :2].T + m[:2, 2]
+    np.testing.assert_allclose(tse2.transform_points(pose, pts).numpy(),
+                               want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 1.0])
+def test_interp_endpoints_and_shortest_arc(alpha):
+    """tests/test_se2.py::test_interp_endpoints_and_shortest_arc on the
+    port: the ends at 0 and 1, and the arc from 3.0 to -3.0 rad through
+    pi, not through 0; each against the JAX package within 1e-6."""
+    a = torch.tensor([0.0, 0.0, 3.0])
+    b = torch.tensor([1.0, 2.0, -3.0])
+    got = tse2.interp(a, b, alpha)
+    want = np.asarray(jse2.interp(jnp.asarray(a.numpy()),
+                                  jnp.asarray(b.numpy()), alpha))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    if alpha == 0.0:
+        np.testing.assert_allclose(got.numpy(), a.numpy(), atol=1e-6)
+    elif alpha == 1.0:
+        np.testing.assert_allclose(got.numpy(), b.numpy(), atol=1e-5)
+    else:
+        assert abs(abs(float(got[2])) - math.pi) < 0.15
+
+
 @pytest.mark.parametrize("num_beams", [None, 4, 9])
 def test_make_scan_matches_jax(num_beams):
     """Every field equal, but for the reading below range_min (0.05 m,
@@ -105,6 +189,55 @@ def test_scan_to_points_matches_jax():
     pt, vt = tscan.scan_to_points(tscan.make_scan(r, **kw, device="cpu"))
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=1e-6, rtol=0)
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+def test_clip_ranges():
+    """tests/test_scan.py::test_clip_ranges on the port."""
+    scan = tscan.make_scan([1.0, 26.0], angle_min=0.0, angle_increment=0.1,
+                           device="cpu")
+    clipped = tscan.clip_ranges(scan, 25.0)
+    assert bool(clipped.valid[0]) and not bool(clipped.valid[1])
+    assert float(clipped.ranges[1]) == 0.0
+
+
+@pytest.mark.parametrize("max_range", [0.5, 4.0, 25.0])
+def test_clip_ranges_matches_jax_bit_for_bit(max_range):
+    """Scans with no reading below range_min: every field equal."""
+    r = np.random.default_rng(16).uniform(0.2, 30.0, (3, 181))
+    r[:, ::17] = np.nan
+    kw = dict(angle_min=-math.pi, angle_increment=2 * math.pi / 180,
+              range_min=0.1, range_max=28.0, time_increment=1e-4)
+    sj = jscan.clip_ranges(jscan.make_scan(r, **kw), max_range)
+    st = tscan.make_scan(r, **kw, device="cpu")
+    assert not st.near.any()
+    st = tscan.clip_ranges(st, max_range)
+    for f in sj._fields:
+        got, want = getattr(st, f).numpy(), np.asarray(getattr(sj, f))
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert not st.near.any()
+
+
+def test_clip_ranges_keeps_the_near_readings():
+    """A reading below range_min keeps its range and its ``near`` mark
+    through the clip (Karto's matcher takes it); the clipped beam goes to
+    0, as in the JAX package."""
+    ranges = [0.05, 1.0, 26.0, 0.07]
+    st = tscan.make_scan(ranges, angle_min=0.0, angle_increment=0.1,
+                         range_min=0.1, device="cpu")
+    out = tscan.clip_ranges(st, 25.0)
+    np.testing.assert_array_equal(out.near.numpy(),
+                                  [True, False, False, True])
+    np.testing.assert_array_equal(out.valid.numpy(),
+                                  [False, True, False, False])
+    np.testing.assert_array_equal(
+        out.ranges.numpy(), np.float32([0.05, 1.0, 0.0, 0.07]))
+    sj = jscan.clip_ranges(jscan.make_scan(
+        ranges, angle_min=0.0, angle_increment=0.1, range_min=0.1), 25.0)
+    np.testing.assert_array_equal(out.valid.numpy(), np.asarray(sj.valid))
+    far = ~(out.near.numpy())
+    np.testing.assert_array_equal(out.ranges.numpy()[far],
+                                  np.asarray(sj.ranges)[far])
 
 
 _CONFIG_MAKERS = {

@@ -26,7 +26,8 @@ import pytest
 from tpuslam.io import simulate as jsim
 from tpuslam_torch import cli, convert
 from tpuslam_torch.core import scan as tscan
-from tpuslam_torch.graph import backends
+from tpuslam_torch.core import se2 as tse2
+from tpuslam_torch.graph import backends, solver
 from tpuslam_torch.io import bag
 from tpuslam_torch.io import simulate as tsim
 from tpuslam_torch.models import (
@@ -121,11 +122,14 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     scan_match_plicp.init_state,
     hector_slam.init_state,
     tscan.make_scan,
+    tse2.identity,
     backends.graph_from_edges,
+    solver.empty_graph,
     counts.zero_counts,
     convert.odom_state_from_numpy,
     convert.hector_state_from_numpy,
     convert.frame_state_from_numpy,
+    convert.pose_graph_from_numpy,
     bag.ScanLog.scan,
     bag.ScanLog.scans_batched,
     gmapping.init_counts,

@@ -12,7 +12,9 @@ port's checked copy:
 - :func:`frame_state_from_numpy`: a frame-to-frame ``FrameState`` (ICP or
   PL-ICP);
 - :func:`hector_state_from_numpy`: a Hector ``HectorState`` (the log-odds
-  pyramid, pose, last update pose and update count).
+  pyramid, pose, last update pose and update count);
+- :func:`pose_graph_from_numpy`: a padded ``PoseGraph`` with its masks,
+  as the port's solver takes it.
 
 Nothing here sees jax: the caller does the JAX -> NumPy dump.
 """
@@ -24,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpuslam_torch.graph import backends, solver
 from tpuslam_torch.models import hector_slam, plicp_odometry, scan_match_icp
 
 STATE_KEYS = (
@@ -178,3 +181,47 @@ def frame_state_from_numpy(state, device="cuda") -> scan_match_icp.FrameState:
         last_valid=torch.tensor(valid, device=device),
         initialized=bool(d["initialized"]),
     )
+
+
+# the JAX package's PoseGraph: padded arrays and their masks
+POSE_GRAPH_KEYS = ("poses", "node_mask", "edge_i", "edge_j", "measurements",
+                   "precisions", "edge_mask")
+
+
+def pose_graph_from_numpy(graph, device="cuda") -> solver.PoseGraph:
+    """A JAX ``PoseGraph`` (as NumPy values: ``poses`` [N, 3],
+    ``node_mask`` [N], ``edge_i``/``edge_j`` [E], ``measurements`` [E, 3],
+    ``precisions`` [E, 3, 3], ``edge_mask`` [E]) as the port's float64
+    graph on ``device``.
+
+    The live edges (``edge_mask``), in index order, go through
+    ``backends.graph_from_edges``, which builds each node's edge ends,
+    the band step's order and its panel width from them; all N poses are
+    kept, and ``node_mask`` with them, so that the masked nodes stay
+    fixed in the solve as in the JAX package's."""
+    d = _fields(graph, POSE_GRAPH_KEYS)
+    poses = np.array(d["poses"], np.float64)  # a copy: the tensor shares it
+    node_mask = np.asarray(d["node_mask"], bool)
+    edge_i = np.asarray(d["edge_i"], np.int64)
+    edge_j = np.asarray(d["edge_j"], np.int64)
+    meas = np.asarray(d["measurements"], np.float64)
+    prec = np.asarray(d["precisions"], np.float64)
+    edge_mask = np.asarray(d["edge_mask"], bool)
+    n, e = len(poses), len(edge_i)
+    if poses.shape != (n, 3) or node_mask.shape != (n,):
+        raise ValueError(f"poses / node_mask must be [N, 3] / [N], got "
+                         f"{poses.shape} / {node_mask.shape}")
+    if (edge_j.shape, meas.shape, prec.shape, edge_mask.shape) != (
+            (e,), (e, 3), (e, 3, 3), (e,)):
+        raise ValueError(
+            f"edge_i / edge_j / measurements / precisions / edge_mask must "
+            f"be [E] / [E] / [E, 3] / [E, 3, 3] / [E], got {edge_i.shape} / "
+            f"{edge_j.shape} / {meas.shape} / {prec.shape} / "
+            f"{edge_mask.shape}")
+    live = np.flatnonzero(edge_mask)
+    ends = np.concatenate([edge_i[live], edge_j[live]])
+    if ends.size and not (0 <= ends.min() and ends.max() < n):
+        raise ValueError(f"a live edge joins a node outside [0, {n})")
+    edges = [(edge_i[k], edge_j[k], meas[k], prec[k]) for k in live]
+    g = backends.graph_from_edges(poses, edges, device=device)
+    return g._replace(node_mask=torch.tensor(node_mask, device=device))

@@ -106,3 +106,15 @@ def scan_to_points(scan: Scan) -> tuple[torch.Tensor, torch.Tensor]:
     x = r * torch.cos(scan.angles)
     y = r * torch.sin(scan.angles)
     return torch.stack([x, y], dim=-1), scan.valid
+
+
+def clip_ranges(scan: Scan, max_range: float) -> Scan:
+    """Invalidate beams beyond ``max_range`` and zero their ranges
+    (reference: karto clips ranges to the device rangeThreshold,
+    Karto.cpp:138-184; gmapping clamps to max_use_range,
+    gmapping.cc:178-183).  The ``near`` readings (below ``range_min``,
+    not ``valid``) keep their ranges for Karto's matcher."""
+    valid = scan.valid & (scan.ranges <= max_range)
+    clipped = scan.valid & ~valid
+    return scan._replace(valid=valid,
+                         ranges=torch.where(clipped, 0.0, scan.ranges))

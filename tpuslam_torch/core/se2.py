@@ -14,6 +14,20 @@ def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     return torch.atan2(torch.sin(theta), torch.cos(theta))
 
 
+def identity(batch_shape: tuple = (), dtype=torch.float32,
+             device="cuda") -> torch.Tensor:
+    """Identity poses, shape ``batch_shape + (3,)``, on ``device``."""
+    return torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device)
+
+
+def rotation(theta: torch.Tensor) -> torch.Tensor:
+    """2x2 rotation matrices, shape [..., 2, 2]."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack(
+        [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
+    )
+
+
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a ∘ b : apply b then a (T_a @ T_b as homogeneous matrices)."""
     ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
@@ -43,6 +57,36 @@ def transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     nx = c[..., None] * x - s[..., None] * y + pose[..., 0:1]
     ny = s[..., None] * x + c[..., None] * y + pose[..., 1:2]
     return torch.stack([nx, ny], dim=-1)
+
+
+def to_matrix(pose: torch.Tensor) -> torch.Tensor:
+    """Homogeneous 3x3 matrices, shape [..., 3, 3]."""
+    c, s = torch.cos(pose[..., 2]), torch.sin(pose[..., 2])
+    zeros = torch.zeros_like(c)
+    ones = torch.ones_like(c)
+    row0 = torch.stack([c, -s, pose[..., 0]], dim=-1)
+    row1 = torch.stack([s, c, pose[..., 1]], dim=-1)
+    row2 = torch.stack([zeros, zeros, ones], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def from_matrix(mat: torch.Tensor) -> torch.Tensor:
+    theta = torch.atan2(mat[..., 1, 0], mat[..., 0, 0])
+    return torch.stack([mat[..., 0, 2], mat[..., 1, 2], theta], dim=-1)
+
+
+def interp(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
+    """Pose interpolation with shortest-arc angle blending: ``b - a``'s
+    angle is wrapped before the blend (lesson5
+    lidar_undistortion.cc:398-447).  ``alpha`` broadcasts against the
+    batch shape; a number is taken in the poses' dtype."""
+    if not torch.is_tensor(alpha):
+        alpha = torch.tensor(alpha, dtype=a.dtype, device=a.device)
+    dxy = b[..., :2] - a[..., :2]
+    dth = wrap_angle(b[..., 2] - a[..., 2])
+    xy = a[..., :2] + alpha[..., None] * dxy
+    th = wrap_angle(a[..., 2] + alpha * dth)
+    return torch.cat([xy, th[..., None]], dim=-1)
 
 
 def exp(twist: torch.Tensor) -> torch.Tensor:

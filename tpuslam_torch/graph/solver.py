@@ -97,6 +97,29 @@ class PoseGraph(NamedTuple):
     panel: int = 0
 
 
+def empty_graph(max_nodes: int, max_edges: int, dtype=torch.float64,
+                device="cuda") -> PoseGraph:
+    """A graph of ``max_nodes`` poses and ``max_edges`` edges, all masked
+    off, on ``device``.
+
+    Its ``node_edges`` holds no edge end, so edges written into it with
+    ``_replace`` (as into the JAX package's graph) reach no node's sums:
+    set edges through ``graph.backends.graph_from_edges`` or
+    ``convert.pose_graph_from_numpy``, which build ``node_edges``,
+    ``order`` and ``panel`` from them."""
+    return PoseGraph(
+        poses=torch.zeros((max_nodes, 3), dtype=dtype, device=device),
+        node_mask=torch.zeros(max_nodes, dtype=torch.bool, device=device),
+        edge_i=torch.zeros(max_edges, dtype=torch.int64, device=device),
+        edge_j=torch.zeros(max_edges, dtype=torch.int64, device=device),
+        measurements=torch.zeros((max_edges, 3), dtype=dtype, device=device),
+        precisions=torch.zeros((max_edges, 3, 3), dtype=dtype, device=device),
+        edge_mask=torch.zeros(max_edges, dtype=torch.bool, device=device),
+        node_edges=torch.zeros((max_nodes, 4), dtype=torch.int64,
+                               device=device),
+    )
+
+
 def residuals(graph: PoseGraph, poses: torch.Tensor) -> torch.Tensor:
     """[E, 3] constraint errors (spa2d.cpp:148-159), zero on masked edges."""
     pi = poses[graph.edge_i]
