@@ -46,7 +46,13 @@ line):
    dense step's limit (the band step), which must repeat itself bit for
    bit and cut its gradient to ``GARLAND_GRAD_SHARE``, its seconds and
    peak memory printed, and at ``GARLAND_BAND_NODES`` one band step
-   must equal the card's dense step and the host's band step.  Each map
+   must equal the card's dense step and the host's band step.  The JAX
+   package's call forms of the solve on the courtyard closure's graph
+   (``check_call_forms``): ``empty_graph(...)._replace(...)`` of its
+   arrays must solve through the captured step to the built graph's
+   poses bit for bit after exactly one reindex, and the loop edge masked
+   off and back in place must be seen each time; the Karto streams of 4a-4c, 4h, 4m and 4j must
+   reindex no graph (``REPLAYS["reindex"]`` 0).  Each map
    (``occupancy_grid``) must put ``MAP_NEAR_SHARE`` of its occupied
    cells within ``MAP_NEAR_M`` of a wall;
    4h. ``process_batch`` (16 scans a flush) over the courtyard in each of
@@ -2069,6 +2075,68 @@ def check_solve(m, card) -> dict:
     return out
 
 
+def check_call_forms(m, card) -> dict:
+    """The JAX package's ways of filling a pose graph, on the card, on the
+    mapper's final graph (the courtyard closure's): the built graph's
+    seven arrays ``_replace``d into ``empty_graph`` must solve through
+    the captured LM step to the built graph's poses bit for bit, after
+    exactly one reindex.  Then edits in place: the loop-closure edge
+    (the longest) masked off in a built graph's ``edge_mask`` must be
+    seen (one reindex, other poses), and so must its unmasking (one
+    more, the built graph's poses bit for bit)."""
+    from tpuslam_torch.graph import solver
+    from tpuslam_torch.graph.backends import graph_from_edges, make_solver
+
+    n = len(m.records)
+    compute = make_solver(m.cfg.solver_type).compute
+    built = graph_from_edges(m.poses[:n], m.edges, device=m.device)
+    want, _ = compute(built)
+
+    def solve(g):
+        before = solver.REPLAYS["reindex"]
+        got, _ = compute(g)
+        if m.device.type == "cuda":
+            torch.cuda.synchronize()
+        return got, solver.REPLAYS["reindex"] - before
+
+    t0 = time.perf_counter()
+    replaced = solver.empty_graph(
+        built.poses.shape[0], built.edge_i.shape[0], device=m.device
+    )._replace(**{f: getattr(built, f).clone()
+                  for f in solver.PoseGraph._fields[:7]})
+    got, replaced_reindex = solve(replaced)
+    loop = max(range(len(m.edges)),
+               key=lambda k: abs(m.edges[k][0] - m.edges[k][1]))
+    edited = graph_from_edges(m.poses[:n], m.edges, device=m.device)
+    edited.edge_mask[loop] = False
+    off, masked_reindex = solve(edited)
+    edited.edge_mask[loop] = True
+    back, restored_reindex = solve(edited)
+    out = {"nodes": n, "edges": len(m.edges),
+           "loop_edge": [int(m.edges[loop][0]), int(m.edges[loop][1])],
+           "replaced_reindex": replaced_reindex,
+           "replaced_same": bool(torch.equal(got, want)),
+           "masked_reindex": masked_reindex,
+           "masked_differs": not bool(torch.equal(off, want)),
+           "restored_reindex": restored_reindex,
+           "restored_same": bool(torch.equal(back, want)),
+           "seconds": time.perf_counter() - t0}
+    print(f"call forms of the solve on the courtyard closure's graph ({n} "
+          f"nodes, {out['edges']} edges): empty_graph()._replace(...) "
+          f"reindexed {replaced_reindex}x, poses equal to the built "
+          f"graph's {out['replaced_same']}; loop edge {out['loop_edge']} "
+          f"masked in place: reindexed {masked_reindex}x, poses differ "
+          f"{out['masked_differs']}; unmasked in place: reindexed "
+          f"{restored_reindex}x, poses equal {out['restored_same']}; "
+          f"{out['seconds']:.2f} s [{card}]", flush=True)
+    if not (replaced_reindex == masked_reindex == restored_reindex == 1
+            and out["replaced_same"] and out["masked_differs"]
+            and out["restored_same"]):
+        raise RuntimeError(f"the JAX package's call forms of the solve: "
+                           f"{out}")
+    return out
+
+
 # past the dense step's limit (graph.solver.MAX_NODES) each LM step is
 # the band factor in the graph's reverse Cuthill-McKee order.  A
 # GARLAND_NODES garland of solve_scaling.py must take it, repeat itself
@@ -2811,7 +2879,7 @@ def oracle_spa(poses, edges, device) -> dict:
         return make_solver("spa_solver").compute(g)
 
     (got, stats), card_s = _synced(card, device)
-    got = got.cpu().numpy().astype(np.float64)
+    got = got[:len(poses)].cpu().numpy().astype(np.float64)
     t0 = time.perf_counter()
     spa = OracleSpa2d()
     for i, p in enumerate(poses):
@@ -3252,7 +3320,11 @@ def main() -> int:
     # ---- 4. the slice end to end
     from tpuslam_torch.core.config import outdoor_karto_config
 
-    # 4a. the main path: the outdoor configuration at full width
+    # 4a. the main path: the outdoor configuration at full width.  No
+    # Karto stream may index a graph again (graph.solver.is_indexed)
+    from tpuslam_torch.graph import solver as graph_solver
+
+    graph_solver.REPLAYS["reindex"] = 0
     mark("4a. Karto, room")
     cfg = dataclasses.replace(outdoor_karto_config(), num_beams=1081)
     s, m = run_slice(cfg, "cuda", 1081, profile=True)
@@ -3311,6 +3383,9 @@ def main() -> int:
     if not repeat:
         raise RuntimeError("two courtyard runs differ")
     solve = check_solve(ml, card)
+    reindexed = graph_solver.REPLAYS["reindex"]
+    callforms = check_call_forms(ml, card)
+    reindex_base = graph_solver.REPLAYS["reindex"]
     mark("4c. pose-graph solves past the dense limit")
     garlands = check_garland_solves(card)
 
@@ -3394,6 +3469,12 @@ def main() -> int:
     if endu["accepted"] != endu["scans"] or not endu["count_ok"] or not (
             endu["episodes_ok"]):
         raise RuntimeError(f"endurance against the oracle: {endu}")
+    reindexed += graph_solver.REPLAYS["reindex"] - reindex_base
+    callforms["karto_reindex"] = reindexed
+    print(f"  graphs reindexed by the Karto streams of 4a-4c, 4h, 4m and "
+          f"4j: {reindexed} [{card}]", flush=True)
+    if reindexed:
+        raise RuntimeError(f"the Karto streams reindexed {reindexed} graphs")
 
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
@@ -3575,6 +3656,7 @@ def main() -> int:
         "ptxas": info["log"], "kernels_vs_plain": rows, "slice": s,
         "slice_plain_path": sp, "slice_courtyard": sl,
         "slice_courtyard_repeat": sl2, "solve_check": solve,
+        "call_forms": callforms,
         "garland_solves": garlands, "batch": batch,
         "maps": {**maps, **batch_maps}, "endurance": endu, "odometry": od,
         "odometry_plain_path": odp, "frame_to_frame": ff,

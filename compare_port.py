@@ -8,7 +8,7 @@ every kernel of ``chip_smoke.py``'s table at the shape of the path that
 runs it (``MAIN_SHAPES``: the kernel's device time and device ops a call
 from ``torch.profiler``, the wrapper's CUDA-event time, the bound, the
 output), the Karto room and courtyard streams of phase 4 with their
-profiled rerun (scans/s, device busy share, device ms a scan, the room's
+profiled rerun (scans/s, device busy share, device ms a scan, the
 poses, and the synced seconds of each ``correct_poses`` of the
 courtyard's loop closures), ``process_batch`` over the courtyard in each
 of phase 4h's modes (scans/s, fetches a scan; "absent" in a tree without
@@ -22,7 +22,8 @@ counts the kernels of either tree's design (``OTHER_NAMES``).
 
 Fails unless the outputs agree across the trees: bit for bit (a sha256)
 for the patch sums, FindValidPoints, ``plicp_corr``, ``plicp_nearest``,
-the Karto room poses and the odometry poses; within
+the Karto room and courtyard poses (the latter through its loop
+closures' solves) and the odometry poses; within
 ``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate counts) for
 ``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
 batched Hector result, whose beam sums may take another order in each
@@ -227,7 +228,9 @@ def main(other: str) -> int:
               flush=True)
     same = {k: len({r["kernels"][k]["sha256"] for r in runs}) == 1
             for k in runs[0]["kernels"] if k not in BOUNDED}
-    same["room_poses"] = len({r["room"]["poses_sha256"] for r in runs}) == 1
+    for where in ("room", "courtyard"):
+        same[f"{where}_poses"] = len({r[where]["poses_sha256"]
+                                      for r in runs}) == 1
     same["odometry_poses"] = len({r["odometry"]["poses_sha256"]
                                   for r in runs}) == 1
     within = {k: _bounded(smoke, runs, lambda r, k=k: r["kernels"][k]["output"],

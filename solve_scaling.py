@@ -168,7 +168,7 @@ def measure(n: int, oracle_max: int, want=None) -> tuple[dict, np.ndarray]:
                initial_cost=float(stats.initial_cost),
                final_cost=float(stats.final_cost),
                good_iters=int(stats.good_iters))
-    got = got.cpu().numpy().astype(np.float64)
+    got = got[:n].cpu().numpy().astype(np.float64)
     if n <= oracle_max:
         if want is None:
             t0 = time.perf_counter()
@@ -193,11 +193,11 @@ def dense_check(n: int, band: np.ndarray, band_row: dict) -> dict:
         g = graph_from_edges(poses, edges, device="cuda")
         torch.cuda.reset_peak_memory_stats()
         (want, stats), secs = _synced(lambda: solve(g))
-        want = want.cpu().numpy()
+        want = want[:n].cpu().numpy()
         peak = torch.cuda.max_memory_allocated()
     with _limit(solver.MAX_NODES, step="pcg"):
         (pcg, pstats), pcg_s = _synced(lambda: solve(g))
-        pcg = pcg.cpu().numpy()
+        pcg = pcg[:n].cpu().numpy()
     out = {"nodes": n, "dense_first_s": secs, "dense_peak_bytes": peak,
            "dense_final_cost": float(stats.final_cost),
            "band_final_cost": band_row["final_cost"],

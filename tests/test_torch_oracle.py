@@ -430,7 +430,7 @@ def test_spa_solver_matches_oracle(graph):
     g = graph_from_edges(poses, edges, device="cpu")
     got, stats = make_solver("spa_solver").compute(g)
     assert float(stats.final_cost) < float(stats.initial_cost)
-    dxy, dth = _pose_err(got.numpy().astype(np.float64), want)
+    dxy, dth = _pose_err(got.numpy()[:len(poses)].astype(np.float64), want)
     assert dxy < 5e-4 and dth < 5e-4, (dxy, dth)
     if graph == "long_loop":  # the JAX package's PCG steps stop short
         pcg, _ = jbackends.make_solver("spa_solver").compute(

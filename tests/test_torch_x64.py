@@ -15,6 +15,11 @@ with a zero-residual optimum); a padded graph of 30 noisy poses 1e-9 m
 (the JAX package's PCG stops at a relative residual of 1e-6, the port's
 step is exact: measured 4.7e-10 m); PL-ICP's pose and mean error 1e-12,
 its covariance rtol 1e-9.
+
+A graph filled the JAX package's way (``empty_graph()._replace`` of its
+edges, its seven fields, an edge array edited in place) is indexed again
+from its edges by ``optimize`` (``REPLAYS["reindex"]``) and held to the
+same 1e-9 m.
 """
 
 import jax
@@ -135,7 +140,7 @@ def test_se2_and_solver_float64(x64):
     r = ts.residuals(tg, tg.poses)
     assert r.dtype == torch.float64
     np.testing.assert_allclose(
-        r.numpy(), np.asarray(js.residuals(jg, jg.poses))[:2], atol=1e-12,
+        r.numpy(), np.asarray(js.residuals(jg, jg.poses)), atol=1e-12,
         rtol=0)
     opt, stats = ts.optimize(tg, num_iters=10)
     assert opt.dtype == torch.float64
@@ -186,22 +191,114 @@ def test_pose_graph_from_numpy_solves_to_the_jax_optimum(x64):
     assert float(stats.final_cost) < 0.1 * float(stats.initial_cost)
 
 
-def test_replaced_edges_miss_the_solve(x64):
+_GRAPHS = {"three_node": _three_node_graph,
+           "padded_loop": _padded_noisy_graph}
+
+
+def _torch_fields(jg):
+    """A JAX graph's seven arrays as CPU tensors, by field."""
+    return {k: torch.from_numpy(np.array(v))
+            for k, v in jax.tree.map(np.asarray, jg)._asdict().items()}
+
+
+def _reindexed(solve):
+    """(``solve()``'s result, the graphs ``optimize`` indexed again)."""
+    before = ts.REPLAYS["reindex"]
+    out = solve()
+    return out, ts.REPLAYS["reindex"] - before
+
+
+@pytest.mark.parametrize("name", list(_GRAPHS))
+def test_replaced_edges_reach_the_solve(x64, name):
     """The JAX package's way of filling a graph, ``empty_graph()._replace``
-    of the edges, leaves the port's ``node_edges`` empty: no edge reaches
-    the per-node sums, and the solve stays far from the JAX optimum.
-    ``pose_graph_from_numpy`` of the same arrays builds it."""
+    of every field (test_x64.py's three nodes, test_solver.py's padded
+    loop): ``optimize`` indexes it from its edges, once, and lands within
+    1e-9 m of the JAX optimum, bit for bit on the graph that
+    ``pose_graph_from_numpy`` builds from the same arrays."""
+    jg = _GRAPHS[name]()
+    jopt, _ = js.optimize(jg)
+    n, e = jg.poses.shape[0], jg.edge_i.shape[0]
+    replaced = ts.empty_graph(n, e, device="cpu")._replace(
+        **_torch_fields(jg))
+    assert not ts.is_indexed(replaced)
+    (opt, stats), reindexed = _reindexed(lambda: ts.optimize(replaced))
+    assert reindexed == 1
+    assert np.abs(opt.numpy() - np.asarray(jopt)).max() < 1e-9
+    assert float(stats.final_cost) < float(stats.initial_cost)
+    built = convert.pose_graph_from_numpy(jax.tree.map(np.asarray, jg),
+                                          device="cpu")
+    (want, _), reindexed = _reindexed(lambda: ts.optimize(built))
+    assert reindexed == 0 and torch.equal(opt, want)
+
+
+def test_seven_field_graph_reaches_the_solve(x64):
+    """``PoseGraph`` built from the JAX package's seven fields, with no
+    ``node_edges``, solves as JAX's ``optimize`` on the same arrays."""
     jg = _padded_noisy_graph()
     jopt, _ = js.optimize(jg)
-    arrays = jax.tree.map(np.array, jg)
-    replaced = ts.empty_graph(64, 64, device="cpu")._replace(
-        **{k: torch.from_numpy(v) for k, v in arrays._asdict().items()})
-    stale, _ = ts.optimize(replaced)
-    assert np.abs(stale.numpy() - np.asarray(jopt)).max() > 0.01
-    built = convert.pose_graph_from_numpy(arrays, device="cpu")
-    assert built.node_edges.any()
-    opt, _ = ts.optimize(built)
+    g = ts.PoseGraph(*_torch_fields(jg).values())
+    assert g.node_edges is None and g.order is None
+    (opt, _), reindexed = _reindexed(lambda: ts.optimize(g))
+    assert reindexed == 1
     assert np.abs(opt.numpy() - np.asarray(jopt)).max() < 1e-9
+
+
+@pytest.mark.parametrize("field", ["edge_i", "edge_j", "edge_mask"])
+def test_edges_edited_in_place_reach_the_solve(x64, field):
+    """An edge array edited in place after a solve (its version bumps):
+    the next solve indexes the graph again and lands within 1e-9 m of JAX's
+    ``optimize`` on the edited arrays.  The graph starts with its last
+    live edge masked off (``edge_mask``) or pointing at another node."""
+    jg = _padded_noisy_graph()
+    k = int(np.flatnonzero(np.asarray(jg.edge_mask))[-1])
+    right = np.asarray(getattr(jg, field))[k]
+    wrong = {"edge_i": 5, "edge_j": 7, "edge_mask": False}[field]
+    start = jg._replace(**{field: getattr(jg, field).at[k].set(wrong)})
+    g = convert.pose_graph_from_numpy(jax.tree.map(np.asarray, start),
+                                      device="cpu")
+    (before, _), reindexed = _reindexed(lambda: ts.optimize(g))
+    assert reindexed == 0
+    getattr(g, field)[k] = torch.as_tensor(right)
+    assert not ts.is_indexed(g)
+    (opt, _), reindexed = _reindexed(lambda: ts.optimize(g))
+    assert reindexed == 1
+    jopt, _ = js.optimize(jg)
+    assert np.abs(opt.numpy() - np.asarray(jopt)).max() < 1e-9
+    assert np.abs(before.numpy() - np.asarray(jopt)).max() > 1e-6
+
+
+def test_replaced_poses_keep_the_index(x64):
+    """``_replace`` of ``poses`` or ``node_mask`` keeps the index: no
+    reindex, and the same bits as a graph built with those poses."""
+    jg = _padded_noisy_graph()
+    g = convert.pose_graph_from_numpy(jax.tree.map(np.asarray, jg),
+                                      device="cpu")
+    moved = g.poses + torch.tensor([0.01, -0.02, 0.0], dtype=torch.float64)
+    fresh = convert.pose_graph_from_numpy(
+        jax.tree.map(np.asarray, jg._replace(poses=moved.numpy())),
+        device="cpu")
+    for kw in ({"poses": moved}, {"poses": moved,
+                                  "node_mask": g.node_mask.clone()}):
+        replaced = g._replace(**kw)
+        assert ts.is_indexed(replaced)
+        (opt, _), reindexed = _reindexed(lambda: ts.optimize(replaced))
+        assert reindexed == 0
+        assert torch.equal(opt, ts.optimize(fresh)[0])
+
+
+def test_inference_mode_graph_reaches_the_solve(x64):
+    """Edge arrays made under ``torch.inference_mode`` keep no version, so
+    an edit in place could not be seen: such a graph is indexed again at
+    every solve, and solves as the same graph made outside it."""
+    jg = _padded_noisy_graph()
+    arrays = jax.tree.map(np.asarray, jg)
+    want, _ = ts.optimize(convert.pose_graph_from_numpy(arrays,
+                                                        device="cpu"))
+    with torch.inference_mode():
+        g = convert.pose_graph_from_numpy(arrays, device="cpu")
+        assert not ts.is_indexed(g)
+        (got, _), reindexed = _reindexed(lambda: ts.optimize(g))
+    assert reindexed == 1 and torch.equal(got, want)
 
 
 def test_pose_graph_from_numpy_checks_shapes(x64):

@@ -192,21 +192,18 @@ def pose_graph_from_numpy(graph, device="cuda") -> solver.PoseGraph:
     """A JAX ``PoseGraph`` (as NumPy values: ``poses`` [N, 3],
     ``node_mask`` [N], ``edge_i``/``edge_j`` [E], ``measurements`` [E, 3],
     ``precisions`` [E, 3, 3], ``edge_mask`` [E]) as the port's float64
-    graph on ``device``.
-
-    The live edges (``edge_mask``), in index order, go through
-    ``backends.graph_from_edges``, which builds each node's edge ends,
-    the band step's order and its panel width from them; all N poses are
-    kept, and ``node_mask`` with them, so that the masked nodes stay
-    fixed in the solve as in the JAX package's."""
+    graph on ``device``, of the same N nodes and E edges, with the
+    solver's index built from its live edges
+    (``backends.index_from_edges``).  The masked nodes stay fixed in the
+    solve, as in the JAX package's."""
     d = _fields(graph, POSE_GRAPH_KEYS)
     poses = np.array(d["poses"], np.float64)  # a copy: the tensor shares it
-    node_mask = np.asarray(d["node_mask"], bool)
-    edge_i = np.asarray(d["edge_i"], np.int64)
-    edge_j = np.asarray(d["edge_j"], np.int64)
-    meas = np.asarray(d["measurements"], np.float64)
-    prec = np.asarray(d["precisions"], np.float64)
-    edge_mask = np.asarray(d["edge_mask"], bool)
+    node_mask = np.array(d["node_mask"], bool)
+    edge_i = np.array(d["edge_i"], np.int64)
+    edge_j = np.array(d["edge_j"], np.int64)
+    meas = np.array(d["measurements"], np.float64)
+    prec = np.array(d["precisions"], np.float64)
+    edge_mask = np.array(d["edge_mask"], bool)
     n, e = len(poses), len(edge_i)
     if poses.shape != (n, 3) or node_mask.shape != (n,):
         raise ValueError(f"poses / node_mask must be [N, 3] / [N], got "
@@ -218,10 +215,12 @@ def pose_graph_from_numpy(graph, device="cuda") -> solver.PoseGraph:
             f"be [E] / [E] / [E, 3] / [E, 3, 3] / [E], got {edge_i.shape} / "
             f"{edge_j.shape} / {meas.shape} / {prec.shape} / "
             f"{edge_mask.shape}")
-    live = np.flatnonzero(edge_mask)
-    ends = np.concatenate([edge_i[live], edge_j[live]])
-    if ends.size and not (0 <= ends.min() and ends.max() < n):
-        raise ValueError(f"a live edge joins a node outside [0, {n})")
-    edges = [(edge_i[k], edge_j[k], meas[k], prec[k]) for k in live]
-    g = backends.graph_from_edges(poses, edges, device=device)
-    return g._replace(node_mask=torch.tensor(node_mask, device=device))
+    index = backends.index_from_edges(n, edge_i, edge_j, edge_mask, device)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return solver.mark_indexed(solver.PoseGraph(
+        poses=dev(poses), node_mask=dev(node_mask), edge_i=dev(edge_i),
+        edge_j=dev(edge_j), measurements=dev(meas), precisions=dev(prec),
+        edge_mask=dev(edge_mask), **index))

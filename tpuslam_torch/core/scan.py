@@ -5,7 +5,8 @@ dropped, so a scan is always ``[B]`` tensors plus a validity mask.  A
 finite reading below ``range_min`` keeps its range, masked from ``valid``
 and marked in ``near``: Karto's matcher stamps and reads it
 (``models.karto.matcher_points``); every other path takes ``valid`` (and
-:func:`scan_to_points` puts masked beams at the origin).
+:func:`scan_to_points` puts masked beams at the origin).  A scan built
+with the JAX package's four fields has ``near`` None: no such reading.
 """
 
 from __future__ import annotations
@@ -25,21 +26,31 @@ class Scan(NamedTuple):
     valid:  [..., B] bool    — beam validity mask
     stamps: [..., B] float32 — per-beam relative time (s) from scan start
     near:   [..., B] bool    — finite readings in (0, range_min): not
-        ``valid``, taken by Karto's matcher alone
+        ``valid``, taken by Karto's matcher alone; None for none
     """
 
     ranges: torch.Tensor
     angles: torch.Tensor
     valid: torch.Tensor
     stamps: torch.Tensor
-    near: torch.Tensor
+    near: torch.Tensor | None = None
 
     @property
     def num_beams(self) -> int:
         return self.ranges.shape[-1]
 
     def to(self, device) -> "Scan":
-        return Scan(*(t.to(device) for t in self))
+        return Scan(*(None if t is None else t.to(device) for t in self))
+
+
+def near_of(scan: Scan) -> torch.Tensor:
+    """``scan.near``, or no reading (all False) where it is None."""
+    return torch.zeros_like(scan.valid) if scan.near is None else scan.near
+
+
+def scan_at(scan: Scan, index) -> Scan:
+    """The scan at ``index`` of a batch of scans (each field indexed)."""
+    return Scan(*(None if t is None else t[index] for t in scan))
 
 
 def make_scan(
@@ -50,11 +61,14 @@ def make_scan(
     range_max: float = np.inf,
     time_increment: float = 0.0,
     num_beams: int | None = None,
+    dtype=torch.float32,
+    *,
     device="cuda",
 ) -> Scan:
     """Build a Scan from raw ranges + laser intrinsics, with validity gating.
 
-    Host arithmetic is float64 and the result float32, as in the
+    Host arithmetic is float64 and the result ``dtype`` (float32 by
+    default; ``torch.float64`` keeps the host values), as in the
     reference: ``!std::isfinite`` skip and ``range_min <= r <= range_max``
     gating; pads/truncates to ``num_beams`` when given.  A finite reading
     in (0, range_min) keeps its range in ``ranges``, with ``valid`` False
@@ -84,17 +98,15 @@ def make_scan(
             near = np.pad(near, pw, constant_values=False)
             stamps = np.pad(stamps, [(0, pad)], mode="edge")
 
-    def f32(a):
-        return torch.as_tensor(
-            np.ascontiguousarray(np.broadcast_to(a, rr.shape), np.float32),
-            device=device,
-        )
+    def real(a):
+        return torch.as_tensor(np.array(np.broadcast_to(a, rr.shape)),
+                               dtype=dtype, device=device)
 
     return Scan(
-        ranges=f32(np.where(valid | near, rr, 0.0)),
-        angles=f32(ang),
+        ranges=real(np.where(valid | near, rr, 0.0)),
+        angles=real(ang),
         valid=torch.as_tensor(np.ascontiguousarray(valid), device=device),
-        stamps=f32(stamps),
+        stamps=real(stamps),
         near=torch.as_tensor(np.ascontiguousarray(near), device=device),
     )
 

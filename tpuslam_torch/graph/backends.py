@@ -26,7 +26,12 @@ from typing import Callable, Protocol
 import numpy as np
 import torch
 
-from tpuslam_torch.graph.solver import PoseGraph, SolveStats, optimize
+from tpuslam_torch.graph.solver import (
+    PoseGraph,
+    SolveStats,
+    mark_indexed,
+    optimize,
+)
 
 
 class ScanSolver(Protocol):
@@ -43,11 +48,13 @@ class LmSolver:
     def __init__(
         self,
         num_iters: int = 40,
+        cg_iters: int = 60,
         init_lambda: float = 1e-4,
         n_fixed: int = 1,
         gauss_newton: bool = False,
     ):
         self.num_iters = num_iters
+        self.cg_iters = cg_iters  # passed on; the exact step has no use
         self.init_lambda = init_lambda
         self.n_fixed = n_fixed
         self.gauss_newton = gauss_newton
@@ -56,6 +63,7 @@ class LmSolver:
         return optimize(
             graph,
             num_iters=self.num_iters,
+            cg_iters=self.cg_iters,
             init_lambda=self.init_lambda,
             n_fixed=self.n_fixed,
             gauss_newton=self.gauss_newton,
@@ -84,18 +92,21 @@ def make_solver(name: str) -> ScanSolver:
     return _REGISTRY[name]()
 
 
-def node_edge_index(n: int, edge_i: np.ndarray, edge_j: np.ndarray
-                    ) -> np.ndarray:
+def node_edge_index(n: int, edge_i: np.ndarray, edge_j: np.ndarray,
+                    edges: np.ndarray | None = None) -> np.ndarray:
     """[n, D] int64: node v's edge ends as slots ``1 + 2k + end`` (end 0
-    at ``edge_i[k]``, 1 at ``edge_j[k]``), sorted by edge index, padded
-    with the zero slot 0 to D, the power of two (at least 4) that holds
-    the largest degree.  The solver's per-node sums read this order
-    (``graph.solver.segment_sum``)."""
+    at ``edge_i``, 1 at ``edge_j`` of edge k), sorted by edge index,
+    padded with the zero slot 0 to D, the power of two (at least 4) that
+    holds the largest degree.  ``edges`` gives each pair's edge index in
+    the graph (by default its place in the lists: every edge live).  The
+    solver's per-node sums read this order (``graph.solver.segment_sum``)."""
     e = len(edge_i)
     node = np.empty(2 * e, np.int64)
     node[0::2] = edge_i
     node[1::2] = edge_j
-    slot = 1 + np.arange(2 * e, dtype=np.int64)
+    k = np.arange(e, dtype=np.int64) if edges is None else np.asarray(
+        edges, np.int64)
+    slot = (1 + 2 * k[:, None] + np.arange(2)).reshape(-1)
     order = np.lexsort((slot, node))  # by node, then by slot
     node, slot = node[order], slot[order]
     deg = np.bincount(node, minlength=n)
@@ -179,41 +190,89 @@ def band_panel(pos: np.ndarray, edge_i: np.ndarray, edge_j: np.ndarray
     return max(8, 1 << max(0, (width - 1).bit_length()))
 
 
+def index_from_edges(n: int, edge_i: np.ndarray, edge_j: np.ndarray,
+                     live: np.ndarray, device) -> dict:
+    """The solver's index of a graph of ``n`` nodes, built on the host
+    from its live edges: each node's edge ends (:func:`node_edge_index`),
+    every node's position in the band step's order (:func:`band_order`)
+    and that order's panel width (:func:`band_panel`)."""
+    k = np.flatnonzero(live)
+    ei, ej = edge_i[k].astype(np.int64), edge_j[k].astype(np.int64)
+    ends = np.concatenate([ei, ej])
+    if ends.size and not (0 <= ends.min() and ends.max() < n):
+        raise ValueError(f"a live edge joins a node outside [0, {n})")
+    pos = band_order(n, ei, ej)
+    return dict(
+        node_edges=torch.as_tensor(node_edge_index(n, ei, ej, k),
+                                   device=device),
+        order=torch.as_tensor(pos, device=device),
+        panel=band_panel(pos, ei, ej),
+    )
+
+
+def index_graph(graph: PoseGraph) -> PoseGraph:
+    """``graph`` with the solver's index built from its own live edges,
+    on its device, and recorded as theirs (``graph.solver.is_indexed``):
+    one host read of ``edge_i``, ``edge_j`` and ``edge_mask``.  A live
+    edge that joins a node outside the graph raises ValueError."""
+    ends = torch.stack([graph.edge_i.to(torch.int64),
+                        graph.edge_j.to(torch.int64),
+                        graph.edge_mask.to(torch.int64)]).cpu().numpy()
+    return mark_indexed(graph._replace(**index_from_edges(
+        graph.poses.shape[0], ends[0], ends[1], ends[2].astype(bool),
+        graph.poses.device)))
+
+
 def graph_from_edges(
     poses: np.ndarray,
     edges: list[tuple[int, int, np.ndarray, np.ndarray]],
+    min_nodes: int = 256,
+    min_edges: int = 512,
+    *,
     device="cuda",
 ) -> PoseGraph:
-    """A float64 PoseGraph on ``device`` from host-side pose/edge lists,
-    with each node's edge ends (:func:`node_edge_index`), its position in
-    the band step's order (:func:`band_order`) and that order's panel
-    width (:func:`band_panel`) built once here on the host.
+    """A padded float64 PoseGraph on ``device`` from host-side pose/edge
+    lists, with the solver's index (each node's edge ends, the band
+    step's order and its panel width; :func:`node_edge_index`,
+    :func:`band_order`, :func:`band_panel`) built once here on the host.
 
-    The graph holds exactly the n poses and e edges.  On a CUDA device
-    ``optimize`` copies it into the static buffers of its padded bucket
-    (powers of two, at least 256 nodes and 512 edges, masks for the
-    padding, as the JAX version pads), so that the captured LM iteration
-    of that bucket serves every graph in it."""
+    The capacities are the JAX package's: powers of two, at least 16 and
+    at least ``min_nodes`` / ``min_edges``, the padding masked off (zero
+    poses and edges).  The first n rows of the solved poses are the n
+    poses'.  On a CUDA device
+    ``optimize`` copies the graph into the static buffers of its bucket
+    (powers of two, at least 256 nodes and 512 edges, as the defaults
+    pad), so that the captured LM iteration of that bucket serves every
+    graph in it."""
     n, e = len(poses), len(edges)
-    p = np.asarray(poses[:n], np.float64).reshape(n, 3)
-    edge_i = np.asarray([x[0] for x in edges], np.int64)
-    edge_j = np.asarray([x[1] for x in edges], np.int64)
-    meas = np.asarray([x[2] for x in edges], np.float64).reshape(e, 3)
-    prec = np.asarray([x[3] for x in edges], np.float64).reshape(e, 3, 3)
-    pos = band_order(n, edge_i, edge_j)
+    cap_n = max(min_nodes, 1 << max(4, (max(n, 1) - 1).bit_length()))
+    cap_e = max(min_edges, 1 << max(4, (max(e, 1) - 1).bit_length()))
+    p = np.zeros((cap_n, 3), np.float64)
+    p[:n] = np.asarray(poses[:n], np.float64).reshape(n, 3)
+    node_mask = np.arange(cap_n) < n
+    edge_i = np.zeros(cap_e, np.int64)
+    edge_j = np.zeros(cap_e, np.int64)
+    meas = np.zeros((cap_e, 3), np.float64)
+    prec = np.zeros((cap_e, 3, 3), np.float64)
+    edge_mask = np.arange(cap_e) < e
+    if e:
+        edge_i[:e] = [x[0] for x in edges]
+        edge_j[:e] = [x[1] for x in edges]
+        meas[:e] = np.asarray([x[2] for x in edges],
+                              np.float64).reshape(e, 3)
+        prec[:e] = np.asarray([x[3] for x in edges],
+                              np.float64).reshape(e, 3, 3)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
 
-    return PoseGraph(
+    return mark_indexed(PoseGraph(
         poses=dev(p),
-        node_mask=torch.ones(n, dtype=torch.bool, device=device),
+        node_mask=dev(node_mask),
         edge_i=dev(edge_i),
         edge_j=dev(edge_j),
         measurements=dev(meas),
         precisions=dev(prec),
-        edge_mask=torch.ones(e, dtype=torch.bool, device=device),
-        node_edges=dev(node_edge_index(n, edge_i, edge_j)),
-        order=dev(pos),
-        panel=band_panel(pos, edge_i, edge_j),
-    )
+        edge_mask=dev(edge_mask),
+        **index_from_edges(cap_n, edge_i, edge_j, edge_mask, device),
+    ))

@@ -49,6 +49,17 @@ accumulating ``index_put_`` in edge order: a fixed order, so a solve
 repeats itself bit for bit on the card, where a float ``index_add_`` adds
 through atomics in an order that changes from run to run.
 
+The index (``node_edges``, ``order``, ``panel``) is built on the host
+from the graph's live edges by ``graph.backends.graph_from_edges``,
+``convert.pose_graph_from_numpy`` and :func:`empty_graph`, each of which
+records the edge arrays it was built from.  ``optimize`` takes any graph
+the JAX package takes: one whose edge arrays are no longer those (a
+``_replace`` of the edges, as the JAX package fills a graph, or an edit
+in place, which bumps a tensor's version), or one built field by field
+with no ``node_edges``, is indexed again from its edges first, at the
+cost of one host read (``REPLAYS["reindex"]``).  The check itself reads
+no tensor.
+
 The loop is the reference's masked fixed-count form: LM carries a
 ``done`` flag on the device and freezes its state once done, and no
 value is read back to the host (a factorization that fails gives a zero
@@ -62,16 +73,18 @@ and the frozen iterations would change no value.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tpuslam_torch.core import se2
 
 # CUDA-graph replays (one a solve's LM iteration) and captures since the
-# last reset
-REPLAYS = {"lm_step": 0, "captures": 0}
+# last reset, and the graphs ``optimize`` indexed again from their edges
+REPLAYS = {"lm_step": 0, "captures": 0, "reindex": 0}
 
 
 class PoseGraph(NamedTuple):
@@ -84,10 +97,12 @@ class PoseGraph(NamedTuple):
     measurements: torch.Tensor  # [E, 3] pose of j in i's frame
     precisions: torch.Tensor  # [E, 3, 3] information matrices
     edge_mask: torch.Tensor  # [E] bool — active edges
-    # [N, D] int64: each node's edge ends as slots ``1 + 2k + end`` (end 0
+    # [N, D] int64: each live edge's ends as slots ``1 + 2k + end`` (end 0
     # for edge_i, 1 for edge_j), by edge index, padded with the zero slot
-    # 0; D is a power of two (see graph.backends.node_edge_index)
-    node_edges: torch.Tensor
+    # 0; D is a power of two (see graph.backends.node_edge_index); None
+    # for a graph not indexed (the JAX package's seven fields), which
+    # ``optimize`` indexes from its edges
+    node_edges: torch.Tensor | None = None
     # [N] int64: each node's position in the band step's order
     # (graph.backends.band_order), None for the natural order
     order: torch.Tensor | None = None
@@ -100,14 +115,14 @@ class PoseGraph(NamedTuple):
 def empty_graph(max_nodes: int, max_edges: int, dtype=torch.float64,
                 device="cuda") -> PoseGraph:
     """A graph of ``max_nodes`` poses and ``max_edges`` edges, all masked
-    off, on ``device``.
+    off, on ``device``, float64 by default (the port's solve).
 
-    Its ``node_edges`` holds no edge end, so edges written into it with
-    ``_replace`` (as into the JAX package's graph) reach no node's sums:
-    set edges through ``graph.backends.graph_from_edges`` or
-    ``convert.pose_graph_from_numpy``, which build ``node_edges``,
-    ``order`` and ``panel`` from them."""
-    return PoseGraph(
+    Fill it as the JAX package's, with ``_replace``: its ``node_edges``
+    (no edge end) is recorded for its masked-off edges, so ``optimize``
+    indexes a graph whose edges were replaced or edited from those edges
+    first (one host read).  ``graph.backends.graph_from_edges`` and
+    ``convert.pose_graph_from_numpy`` build a graph with its index."""
+    return mark_indexed(PoseGraph(
         poses=torch.zeros((max_nodes, 3), dtype=dtype, device=device),
         node_mask=torch.zeros(max_nodes, dtype=torch.bool, device=device),
         edge_i=torch.zeros(max_edges, dtype=torch.int64, device=device),
@@ -117,7 +132,47 @@ def empty_graph(max_nodes: int, max_edges: int, dtype=torch.float64,
         edge_mask=torch.zeros(max_edges, dtype=torch.bool, device=device),
         node_edges=torch.zeros((max_nodes, 4), dtype=torch.int64,
                                device=device),
-    )
+    ))
+
+
+# the edge arrays each index was built from: ``node_edges`` -> (weak
+# reference, version) of ``edge_i``, ``edge_j`` and ``edge_mask``
+_INDEXED = WeakIdKeyDictionary()
+
+
+def _edge_arrays(graph: PoseGraph):
+    return graph.edge_i, graph.edge_j, graph.edge_mask
+
+
+def _version(t: torch.Tensor) -> int | None:
+    """``t``'s version counter; None for an inference tensor, which
+    keeps none (an edit in place cannot be told)."""
+    return None if t.is_inference() else t._version
+
+
+def mark_indexed(graph: PoseGraph) -> PoseGraph:
+    """Record that ``graph``'s index (``node_edges``, ``order``,
+    ``panel``) was built from its edge arrays as they are now; returns
+    ``graph``."""
+    _INDEXED[graph.node_edges] = tuple(
+        (weakref.ref(t), _version(t)) for t in _edge_arrays(graph))
+    return graph
+
+
+def is_indexed(graph: PoseGraph) -> bool:
+    """Whether ``graph``'s index was built from its edge arrays as they
+    are: the same tensors (a ``_replace`` of an edge array makes a new
+    one) at the same version (an edit in place bumps it), and a row of
+    ``node_edges`` for each node.  Edge arrays made under
+    ``torch.inference_mode`` keep no version, so such a graph is never
+    known to be indexed.  A host check: reads no tensor."""
+    rec = (None if graph.node_edges is None
+           else _INDEXED.get(graph.node_edges))
+    return (rec is not None
+            and graph.node_edges.shape[0] == graph.poses.shape[0]
+            and all(ref() is t and version is not None
+                    and version == _version(t)
+                    for (ref, version), t in zip(rec, _edge_arrays(graph))))
 
 
 def residuals(graph: PoseGraph, poses: torch.Tensor) -> torch.Tensor:
@@ -643,6 +698,8 @@ def optimize(
     *,
     num_iters: int = 40,
     n_fixed: int = 1,
+    cg_iters: int = 50,
+    cg_tol: float = 1e-6,
     init_lambda: float = 1e-4,
     gauss_newton: bool = False,
 ) -> tuple[torch.Tensor, SolveStats]:
@@ -658,7 +715,19 @@ def optimize(
     ``MAX_NODES``, banded in the graph's order past it.  On a CUDA device
     the solve replays the captured LM iteration of the graph's bucket and
     reads nothing back; on the CPU it runs eagerly and stops at
-    convergence."""
+    convergence.
+
+    ``cg_iters`` and ``cg_tol`` bound the JAX package's PCG step; they are
+    taken, so that its call forms work, and change nothing: the exact
+    step has no iterations to bound.
+
+    A graph whose index is not that of its edges (:func:`is_indexed`) is
+    indexed from them first, with one host read."""
+    if not is_indexed(graph):
+        from tpuslam_torch.graph.backends import index_graph  # imports us
+
+        REPLAYS["reindex"] += 1
+        graph = index_graph(graph)
     dev = graph.poses.device
     n, e = graph.poses.shape[0], graph.edge_i.shape[0]
     if dev.type != "cuda":

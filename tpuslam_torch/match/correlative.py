@@ -165,12 +165,15 @@ def _cell(x: torch.Tensor, res: float) -> torch.Tensor:
 
 
 def find_valid_points(
-    pts: torch.Tensor, valid: torch.Tensor, viewpoint: torch.Tensor
+    pts: torch.Tensor, valid: torch.Tensor, viewpoint: torch.Tensor, *,
+    parallel: bool = False
 ) -> torch.Tensor:
     """Viewpoint visibility filter (Mapper.cpp:758-817) of one scan [B, 2].
 
     The serial trailing-anchor walk; one scan of
-    :func:`tpuslam_torch.ops.fvp.find_valid_points`."""
+    :func:`tpuslam_torch.ops.fvp.find_valid_points`.  ``parallel`` picks
+    between the JAX package's two formulations, which give the same masks
+    bit for bit (its tests hold them so); here both run this one."""
     return fvp.find_valid_points(pts[None], valid[None], viewpoint)[0]
 
 

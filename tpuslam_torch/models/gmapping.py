@@ -20,7 +20,7 @@ import torch
 
 from tpuslam_torch.core.config import GmappingConfig
 from tpuslam_torch.core.grid import GridSpec
-from tpuslam_torch.core.scan import Scan
+from tpuslam_torch.core.scan import Scan, scan_at
 from tpuslam_torch.core.xla_cpu import cos_sin, transform_fma
 from tpuslam_torch.ops.counts import (
     CountGrid,
@@ -94,5 +94,5 @@ def map_from_scans(cfg: GmappingConfig, poses: torch.Tensor,
     scan, on the poses' device."""
     counts = init_counts(cfg, poses.device)
     for t in range(poses.shape[0]):
-        counts = step(cfg, counts, poses[t], Scan(*(f[t] for f in scans)))
+        counts = step(cfg, counts, poses[t], scan_at(scans, t))
     return counts

@@ -20,7 +20,7 @@ import torch
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import HectorConfig
 from tpuslam_torch.core.grid import GridSpec
-from tpuslam_torch.core.scan import Scan, scan_to_points
+from tpuslam_torch.core.scan import Scan, scan_at, scan_to_points
 from tpuslam_torch.match.hector import MatchResult, match_pyramid
 from tpuslam_torch.ops.bilinear import prob_from_log_odds
 from tpuslam_torch.ops.logodds import update_grid
@@ -153,7 +153,7 @@ def run_trajectory(cfg: HectorConfig, state: HectorState,
     [T, 3]."""
     poses = []
     for t in range(scans.ranges.shape[0]):
-        state, res = step(cfg, state, Scan(*(f[t] for f in scans)))
+        state, res = step(cfg, state, scan_at(scans, t))
         poses.append(res.pose)
     return state, torch.stack(poses)
 

@@ -51,7 +51,7 @@ import torch
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import KartoConfig
 from tpuslam_torch.core.grid import GridSpec
-from tpuslam_torch.core.scan import Scan
+from tpuslam_torch.core.scan import Scan, near_of
 from tpuslam_torch.core.xla_cpu import clipped_endpoints as _clipped_endpoints
 from tpuslam_torch.core.xla_cpu import cos_sin_f32 as _cos_sin_f32
 from tpuslam_torch.graph.backends import graph_from_edges, make_solver
@@ -123,11 +123,12 @@ def matcher_points(scan: Scan):
     LocalizedRangeScan::Update and the f64 oracle (``oracle/karto.py``).
     Returns (points [..., B, 2], mask, near); every other beam is at the
     origin."""
-    mask = scan.valid | scan.near
+    near = near_of(scan)
+    mask = scan.valid | near
     r = torch.where(mask, scan.ranges, 0.0)
     pts = torch.stack([r * torch.cos(scan.angles),
                        r * torch.sin(scan.angles)], dim=-1)
-    return pts, mask, scan.near
+    return pts, mask, near
 
 
 def _stage(pts_store, valid_store, near_store, sid, scan: Scan,
@@ -242,7 +243,8 @@ def _parallel_steps(
     back to back (in blocks over the devices of ``shards``, if given).
     [K, 15] packed outputs."""
     k = len(scans)
-    batch = Scan(*(torch.stack(t) for t in zip(*scans)))
+    batch = Scan(*(torch.stack(t) for t in zip(
+        *(sc._replace(near=near_of(sc)) for sc in scans))))
     _, _, mean_local = _stage(pts_store, valid_store, near_store,
                               slice(sid0, sid0 + k), batch, max_range)
     dev0 = pts_store.device
@@ -356,11 +358,11 @@ class KartoMapper:
         cfg: KartoConfig,
         max_scans: int = 2048,
         events=None,
-        device="cuda",
         loop_mesh=None,
         loop_mesh_axis: str = "lattice",
         batch_mesh=None,
         batch_mesh_axis: str = "scan",
+        device="cuda",
     ):
         """max_scans: the capacity of the scan store (and so of the pose
         graph).  A graph of any size is solved, each LM step exactly: by a
@@ -1419,7 +1421,7 @@ class KartoMapper:
         n = self._num()
         g = graph_from_edges(self.poses[:n], self.edges, device=self.device)
         poses, stats = make_solver(self.cfg.solver_type).compute(g)
-        self.poses[:n] = poses.cpu().numpy().astype(np.float64)
+        self.poses[:n] = poses[:n].cpu().numpy().astype(np.float64)
         if self.events is not None:
             self.events.fire(
                 "poses_corrected",

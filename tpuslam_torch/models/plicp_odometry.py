@@ -25,7 +25,7 @@ import torch
 
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import PlicpConfig
-from tpuslam_torch.core.scan import Scan, scan_to_points
+from tpuslam_torch.core.scan import Scan, scan_at, scan_to_points
 from tpuslam_torch.match.plicp import PlicpResult, plicp
 
 
@@ -144,6 +144,6 @@ def run_trajectory(cfg: PlicpConfig, state: OdomState, scans: Scan,
     """Fold a scan stream [T, ...]; returns the final state and poses [T, 3]."""
     poses = []
     for t in range(scans.ranges.shape[0]):
-        state, info = step(cfg, state, Scan(*(f[t] for f in scans)), dts[t])
+        state, info = step(cfg, state, scan_at(scans, t), dts[t])
         poses.append(info.pose)
     return state, torch.stack(poses)

@@ -41,10 +41,10 @@ class StepTimer:
     device: the device whose work a stage waits for at its end (a CUDA
     device is synchronized; the CPU runs synchronously)."""
 
-    device: str | torch.device = "cuda"
     stats: dict[str, StageStats] = field(
         default_factory=lambda: defaultdict(StageStats)
     )
+    device: str | torch.device = "cuda"
 
     @contextlib.contextmanager
     def stage(self, name: str):
