@@ -26,10 +26,18 @@ line):
    its timed calls each row calls the kernel once more on the same inputs,
    which must equal its first call bit for bit (``repeats``: the patch
    sums' float atomics, ``fvp``'s ``atomicMin`` and the correspondences'
-   tickets must not show their order).  Then f64 input: each wrapper
-   that takes floats, and ``plicp``, must raise ValueError on the card,
-   launching nothing and calling no plain version (the f64 fidelity mode
-   is CPU-only);
+   tickets must not show their order).  Then the rows past the kernels'
+   old ceilings, each also at the ceiling (``check_wide``): ``fvp`` at
+   10,060, 10,061 and 16,384 beams (its wide form, the scan's arrays in
+   a global scratch), both correspondence modes at 17,801, 17,802 and
+   32,768 reference points (the tiled form) and at 65,535 and 65,536
+   pairs (two launches a call), ``hector_gn`` at 4,096, 4,097 and 8,192
+   beams (its wide form) and the patch sums at G=46,341 (64-bit
+   offsets); each must launch the form its wrapper's ``launch_plan``
+   names and nothing else.  Then f64 input: each wrapper that takes
+   floats, and ``plicp``, must raise ValueError on the card, also at
+   each wide form's shape, launching nothing and calling no plain
+   version (the f64 fidelity mode is CPU-only);
 4. the slice end to end: a ``KartoMapper`` at the outdoor configuration
    with 1081 beams on the card, over a 24 x 18 m rectangular circuit; it
    must stay within the ATE bound and launch every kernel.  The same
@@ -107,6 +115,21 @@ line):
    through the kernel's plain version; each converges as bench.py
    requires, the kernel launches once a call, and the kernel path agrees
    with the plain one within ``HECTOR_PATH_BOUNDS``;
+   4p. the paths past the kernels' old ceilings (``run_wide_phase``,
+   the ``WIDE_*`` constants): Karto at the outdoor configuration with
+   12,000 beams over the first 6 scans of the room circuit (the ATE
+   bound, ``fvp_wide`` launched, the plain path's poses, edges and map
+   equal), the PL-ICP odometry at 18,000 beams over 20 scans and
+   frame-to-frame PL-ICP and ICP over 10 pairs (the tiled forms
+   launched, the plain path's poses equal), ``plicp_batch`` and
+   ``icp_batch`` over 72,000 pairs of 512 beams (every correspondence
+   call held against the kernel on the pairs [0, 65,535) and [65,535,
+   72,000) apart and on 256 sampled pairs against the plain version; the
+   matcher on the two sets apart equal to the whole call, and on the
+   sampled pairs to its plain path) and ``match_pyramid_batched`` at
+   bench.py's map with 8,192 beams and 64 scans (mean xy error below
+   0.05 m, each ``hector_gn_wide`` call within ``HECTOR_BOUNDS`` of its
+   plain version on its own inputs); kept within 60 s;
    4g. the Hector engine (``hector_slam.step``) at the reference's
    defaults (map 2048, 3 levels) with 1081 beams over the 320-scan
    ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, scans/s, its
@@ -159,7 +182,10 @@ line):
    line.  A row's ``launches`` counts its paths' runs, phase 4k's CLI
    commands, phase 4m's sharded runs and phase 4o's checks;
    ``launches_per_scan`` the paths and the CLI; ``cli_launches``,
-   ``mesh_launches`` and ``oracle_launches`` each phase alone.
+   ``mesh_launches`` and ``oracle_launches`` each phase alone; beside
+   each row its wide form (``wide_form``), that form's launches in phase
+   4p (``wide_launches``) and its phase-3 rows past the old ceiling
+   (``wide_rows``).
 
 Writes the full results to ``chiprun_out/chip_smoke.json``.  Imports
 nothing of JAX and nothing of the JAX package ``tpuslam``: the synthetic
@@ -210,6 +236,29 @@ FVP_SIZES = [(20, 180, "normal"), (8, 512, "normal"), (128, 1081, "normal"),
 # fixtures of _corr_inputs
 CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
 CORR_FIXTURES = ("normal", "lattice", "far")
+# phase 3 past the kernels' old ceilings, each row also at the ceiling:
+# fvp (scans, beams): the last width whose scan fits shared memory, the
+# first that does not, 16,384 beams; the correspondences (pairs, source
+# beams, reference points, fixtures): the last reference in shared
+# memory, the first tiled one, 32,768 points, then the last and the first
+# call past the launch grid's 65,535 pairs; hector_gn (scans, beams) at
+# bench.py's map: the most beams in registers, one more, 8,192
+FVP_WIDE_SIZES = [(20, 10060), (20, 10061), (20, 16384)]
+CORR_WIDE_SIZES = [(1, 1081, 17801, ("normal",)),
+                   (1, 1081, 17802, CORR_FIXTURES),
+                   (1, 1081, 32768, CORR_FIXTURES),
+                   (65535, 64, 64, ("normal",)),
+                   (65536, 64, 64, ("normal", "lattice"))]
+HECTOR_WIDE_SIZES = [(64, 4096), (64, 4097), (64, 8192)]
+# the patch sums' grid whose flat offsets pass 2^31 (a 2.1 GB byte grid):
+# (G, S, nA, B)
+PATCH_WIDE = (46341, 3, 2, 64)
+# the plain walk takes seconds a call at these widths: one timed call
+WIDE_PLAIN_RUNS = 1
+# the wide forms, by the kernel that has them
+WIDE_FORMS = {"fvp": "fvp_wide", "plicp_corr": "plicp_corr_wide",
+              "plicp_nearest": "plicp_nearest_wide",
+              "hector_gn": "hector_gn_wide"}
 # the engine's scans run again under torch.profiler (phase 4g)
 PROFILE_SCANS = 80
 # phases 4d and 4g run their first scans again from a fresh state, which
@@ -269,7 +318,8 @@ KERNEL_NAMES = {
     "plicp_nearest": ("plicp_corr_kernel",),
     "hector_gn": ("hector_gn_kernel",),
 }
-# kernels whose call must be one device op (no fill, no second pass)
+# kernels whose call must be one device op a launch (no fill, no second
+# pass; one launch a chunk of 65,535 pairs)
 ONE_OP = ("plicp_corr", "plicp_nearest")
 # the library yardstick's first call may take this long before it counts
 # as "not measured"
@@ -330,6 +380,8 @@ def cells_read(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
     each parity class dilated by an s x s max pool."""
     import torch.nn.functional as F
 
+    if g * g > 1 << 28:  # a grid too large to dilate: the cells themselves
+        return cells_listed(g, ay, ax, ok, s, stride)
     hit = torch.zeros(g * g, device=ay.device)
     hit[(ay.long() * g + ax.long())[ok]] = 1.0
     hit = hit.view(g, g)
@@ -340,6 +392,19 @@ def cells_read(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
                         (s - 1, 0, s - 1, 0))
             n += int(F.max_pool2d(sub, s, stride=1).sum())
     return n
+
+
+def cells_listed(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
+    """:func:`cells_read` from the covered cells themselves (flat int64
+    indices, made unique): for grids too large to dilate, whose points
+    are few.  Cells off the grid do not count."""
+    steps = stride * torch.arange(s, device=ay.device)
+    ys = ay[ok].long()[:, None] + steps  # [P, s]
+    xs = ax[ok].long()[:, None] + steps
+    iny = (ys >= 0) & (ys < g)
+    inx = (xs >= 0) & (xs < g)
+    flat = ys[:, :, None] * g + xs[:, None, :]
+    return int(torch.unique(flat[iny[:, :, None] & inx[:, None, :]]).numel())
 
 
 def patch_bound(q, ay, ax, ok, s, stride: int = 1) -> dict:
@@ -556,20 +621,22 @@ def repeats(tag, fn_k, first) -> float:
     return seconds
 
 
-def _row(kernel, shape, err, fn_k, fn_p, bnd, card, first, note=""):
+def _row(kernel, shape, err, fn_k, fn_p, bnd, card, first, note="",
+         plain_runs: int = TIMED_RUNS, launches: int = 1):
     """A phase-3 row: the wrapper's and the plain version's CUDA-event
-    times, the kernel's profiled device time and device ops a call, and
-    the bound; then, after the timed calls, one more call on the same
-    inputs, which must equal ``first`` (the row's first call) bit for bit
-    (``repeats``)."""
+    times (the plain version over ``plain_runs`` calls), the kernel's
+    profiled device time and device ops a call, and the bound; then,
+    after the timed calls, one more call on the same inputs, which must
+    equal ``first`` (the row's first call) bit for bit (``repeats``).
+    ``launches``: the kernel's launches a call."""
     row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
-           "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p),
+           "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p, plain_runs),
            **profile_call(fn_k, KERNEL_NAMES[kernel]), **bnd}
     row["repeat_s"] = repeats(f"{kernel} {shape}", fn_k, first)
     row["repeats"] = True
-    if kernel in ONE_OP and row["device_ops"] > 1:
+    if kernel in ONE_OP and row["device_ops"] > launches:
         raise RuntimeError(f"{kernel} {shape}: {row['device_ops']} device "
-                           "ops a call, not 1")
+                           f"ops a call, not {launches}")
     ku = row["kernel_us"]
     ku = "not measured" if ku is None else f"{ku:.2f} us"
     print(f"  {kernel:19s} {shape:34s} {note or 'equal'}  kernel {ku} "
@@ -638,24 +705,26 @@ def check_kernels(card: str) -> list[dict]:
     return rows
 
 
-def _corr_inputs(rng, n, b, fixture="normal"):
-    """verify_tpu.py's fixture: normal(0, 2) points, 10 % invalid;
+def _corr_inputs(rng, n, b, fixture="normal", nr=None):
+    """verify_tpu.py's fixture: ``b`` source points against ``nr``
+    (default ``b``) reference points, normal(0, 2), 10 % invalid;
     ``lattice``: a coarse 1/64 lattice with duplicate points and exact ties
     (every squared distance exact in f32); ``far``: the normal fixture with
     every third reference point and every fifth source point moved 1e5 m,
     so that many valid squared distances exceed BIG (1e9) and lose to an
     invalid point's BIG."""
+    nr = b if nr is None else nr
     if fixture == "lattice":
         cur = rng.integers(-128, 129, (n, b, 2)) / 64.0
-        ref = rng.integers(-16, 17, (n, b, 2)) / 8.0
+        ref = rng.integers(-16, 17, (n, nr, 2)) / 8.0
     else:
         cur = rng.normal(0, 2.0, (n, b, 2))
-        ref = rng.normal(0, 2.0, (n, b, 2))
+        ref = rng.normal(0, 2.0, (n, nr, 2))
     if fixture == "far":
         ref[:, ::3, 0] += 1e5
         cur[:, ::5, 1] -= 1e5
     sv = rng.random((n, b)) > 0.1
-    rv = rng.random((n, b)) > 0.1
+    rv = rng.random((n, nr)) > 0.1
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
     return (f32(cur), torch.tensor(sv, device="cuda"), f32(ref),
             torch.tensor(rv, device="cuda"))
@@ -771,10 +840,179 @@ def check_hector(card: str) -> list[dict]:
     return rows
 
 
+def launched(counters, fn):
+    """``fn()`` with ``counters`` set to 0 just before it: (its result,
+    {counter: launches} of the counters it moved)."""
+    _reset(*counters)
+    out = fn()
+    return out, {k: v for d in counters for k, v in d.items() if v}
+
+
+def _patch_wide_inputs(g, s, n_a, b, seed=41):
+    """A byte grid of G x G on the card and ``b`` points an angle: half
+    with corners on the bottom patch row whose last grid row lies past
+    flat offset 2^31 (where an int offset would wrap), a quarter anywhere,
+    a quarter whose patches leave the grid at its bottom-right corner;
+    10 % dropped."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randint(0, 101, (g, g), generator=gen, dtype=torch.uint8,
+                      device="cuda")
+    rng = np.random.default_rng(seed)
+    far_x = max(0, (1 << 31) - (g - 1) * g)  # row g - 1 past 2^31 here
+    h, k = b // 2, b // 4
+    ay = np.concatenate([np.full((n_a, h), g - s),
+                         rng.integers(0, g - s + 1, (n_a, k)),
+                         rng.integers(g - s + 1, g, (n_a, b - h - k))], 1)
+    ax = np.concatenate([rng.integers(min(far_x, g - s), g - s + 1,
+                                      (n_a, h)),
+                         rng.integers(0, g - s + 1, (n_a, k)),
+                         rng.integers(g - s + 1, g, (n_a, b - h - k))], 1)
+    ok = rng.random((n_a, b)) >= 0.1
+    i32 = functools.partial(torch.tensor, dtype=torch.int32, device="cuda")
+    return q, i32(ay), i32(ax), torch.tensor(ok, device="cuda")
+
+
+def check_wide(card: str) -> list[dict]:
+    """Phase 3 past the kernels' old ceilings, and at each ceiling
+    (``FVP_WIDE_SIZES``, ``CORR_WIDE_SIZES``, ``HECTOR_WIDE_SIZES``,
+    ``PATCH_WIDE``): every row equal to its plain version bit for bit
+    (``hector_gn`` within ``HECTOR_BOUNDS`` with equal in-gate counts),
+    launching the form its wrapper's ``launch_plan`` names, once a
+    launch plan chunk (``form``, ``launches_a_call``).  The plain walk
+    of FindValidPoints is timed over ``WIDE_PLAIN_RUNS`` call."""
+    from tpuslam_torch.core.grid import recip
+    from tpuslam_torch.match.hector import _window
+    from tpuslam_torch.ops import _build
+    from tpuslam_torch.ops import correlative as ops_c
+    from tpuslam_torch.ops import fvp as ops_f
+    from tpuslam_torch.ops import hector as ops_h
+    from tpuslam_torch.ops import plicp as ops_p
+
+    rows = []
+    sms = _build.sm_count("cuda")
+
+    def formed(kernel, shape, moved, want):
+        if moved != want:
+            raise RuntimeError(f"{kernel} {shape}: launched {moved}, its "
+                               f"plan names {want}")
+        (form, n), = want.items()
+        return {"form": form, "launches_a_call": n}
+
+    rng = np.random.default_rng(31)
+    for n_s, b in FVP_WIDE_SIZES:
+        pts, valid, vp = _fvp_inputs(rng, n_s, b)
+
+        def kern(a=(pts, valid, vp)):
+            return ops_f.find_valid_points(*a)
+
+        def plain(a=(pts, valid, vp)):
+            return ops_f.find_valid_points_plain(*a)
+
+        shape = f"S={n_s} B={b}"
+        got, moved = launched((ops_f.LAUNCHES,), kern)
+        form = formed("fvp", shape, moved, {ops_f.launch_plan(b)[0]: 1})
+        if not torch.equal(got, plain()):
+            raise RuntimeError(f"fvp {shape}: kernel != plain")
+        rows.append({**_row("fvp", shape, 0.0, kern, plain, fvp_bound(valid),
+                            card, got, f"equal, {form['form']}",
+                            plain_runs=WIDE_PLAIN_RUNS), **form})
+
+    rng = np.random.default_rng(37)
+    for n, b, nr, fixtures in CORR_WIDE_SIZES:
+        plan = ops_p.launch_plan(n, b, nr, sms)
+        for fixture in fixtures:
+            args = _corr_inputs(rng, n, b, fixture, nr)
+            for line in (True, False):
+                for rd in (True, False):
+                    name = "plicp_corr" if line else "plicp_nearest"
+                    shape = (f"N={n} B={b} B'={nr} "
+                             f"{'line' if line else 'nearest'}"
+                             f"{' doubles' if rd else ''} {fixture}")
+
+                    def kern(line=line, rd=rd, args=args, name=name):
+                        return ops_p._launch(*args, 1.0, rd, line, name)
+
+                    def plain(line=line, rd=rd, args=args):
+                        return ops_p.correspondences_plain(*args, 1.0, rd,
+                                                           line)
+
+                    got, moved = launched((ops_p.LAUNCHES,), kern)
+                    want_form = WIDE_FORMS[name] if plan.tiled else name
+                    form = formed(name, shape, moved,
+                                  {want_form: len(plan.chunks)})
+                    want = plain()
+                    err = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want))
+                    if not _same(got, want):
+                        raise RuntimeError(f"{name} {shape}: kernel != "
+                                           f"plain (max |err| {err})")
+                    del want
+                    ok_rows = int(got[3].sum())
+                    rows.append({**_row(
+                        name, shape, err, kern, plain,
+                        corr_bound(args[0], args[2]), card, got,
+                        f"equal, {form['form']} x{len(plan.chunks)}, ok "
+                        f"rows {ok_rows}", launches=len(plan.chunks)),
+                        "ok_rows": ok_rows, **form})
+            del args
+
+    for n, b in HECTOR_WIDE_SIZES:
+        cfg, specs, grids, pts, valid, _, guesses = hector_fixture(
+            "cuda", n, "bench", num_beams=b)
+        spec = specs[0]
+        r = min(cfg.laser_max_dist, cfg.use_max_scan_range)
+        window = min(_window(spec, r, 64 + 256), *spec.shape)
+        args = (grids[0], pts * recip(spec.resolution), valid,
+                spec.world_pose_to_map(guesses), window, 5, 0.2)
+        shape = f"map={spec.size_x} S={n} B={b} window={window}"
+        got, moved = launched((ops_h.LAUNCHES,),
+                              lambda args=args: ops_h._launch(*args))
+        form_name, ws = ops_h.launch_plan(n, b, sms)
+        form = formed("hector_gn", shape, moved, {form_name: 1})
+        diffs = hector_gn_diffs(got, ops_h._plain(*args))
+        _within(f"hector_gn {shape}", diffs, HECTOR_BOUNDS)
+        lanes = hector_gn_diffs(got, ops_h.match_level_lanes(
+            *args[:4], window=window, num_iters=5, ws=ws))
+        print(f"  hector_gn {shape}: {form_name}, {ws} warps a scan; kernel "
+              f"vs its order in PyTorch {lanes}", flush=True)
+        in_gate = int(got[3].sum())
+        rows.append({
+            **_row("hector_gn", shape,
+                   max(diffs["xy"], diffs["yaw"], diffs["score"]),
+                   lambda args=args: ops_h._launch(*args),
+                   lambda args=args: ops_h._plain(*args),
+                   hector_bound(grids[0], valid, 5), card, got,
+                   f"within bounds {diffs}, in gate {in_gate}, "
+                   f"{form_name}"),
+            "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
+            "vs_lanes": lanes, **form})
+
+    g, ps, n_a, b = PATCH_WIDE
+    q, ay, ax, ok = _patch_wide_inputs(g, ps, n_a, b)
+    shape = f"G={g} S={ps} nA={n_a} B={b}"
+    got = ops_c.patch_sums(q, ay, ax, ok, ps)
+    if not torch.equal(got, ops_c.patch_sums_plain(q, ay, ax, ok, ps)):
+        raise RuntimeError(f"patch_sums {shape}: kernel != plain")
+    rows.append({**_row("patch_sums", shape, 0.0,
+                        lambda: ops_c.patch_sums(q, ay, ax, ok, ps),
+                        lambda: ops_c.patch_sums_plain(q, ay, ax, ok, ps),
+                        patch_bound(q, ay, ax, ok, ps), card, got,
+                        "equal, 64-bit offsets", plain_runs=WIDE_PLAIN_RUNS),
+                 "form": "patch_sums", "launches_a_call": 1})
+    del q
+    torch.cuda.empty_cache()
+    seen = {r.get("form") for r in rows}
+    missing = [f for f in WIDE_FORMS.values() if f not in seen]
+    if missing:
+        raise RuntimeError(f"phase 3 never launched {missing}")
+    return rows
+
+
 def check_f64_refused(card: str) -> dict:
     """Phase 3: the f64 fidelity mode is CPU-only.  On the card each
     wrapper that takes floats (``fvp``, the correspondences in both
-    modes, ``hector_gn``) and ``match.plicp.plicp``, which reaches one,
+    modes, ``hector_gn``, each also at a shape of its wide form or of
+    several pair chunks) and ``match.plicp.plicp``, which reaches one,
     must raise ValueError on f64 input, launch no kernel and call no
     plain version (each plain version is swapped for one that raises
     while the check runs)."""
@@ -788,6 +1026,14 @@ def check_f64_refused(card: str) -> dict:
     f64 = dict(dtype=torch.float64, device="cuda")
     pts = torch.rand((2, 64, 2), **f64)
     valid = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    # the wide forms' shapes: a scan of 10,061 points, a reference of
+    # 17,802, 65,536 pairs, 4,097 beams
+    wpts = torch.rand((2, 10061, 2), **f64)
+    wvalid = torch.ones((2, 10061), dtype=torch.bool, device="cuda")
+    wref = torch.rand((1, 17802, 2), **f64)
+    wrv = torch.ones((1, 17802), dtype=torch.bool, device="cuda")
+    npts = torch.rand((65536, 8, 2), **f64)
+    nvalid = torch.ones((65536, 8), dtype=torch.bool, device="cuda")
     calls = {
         "fvp": lambda: ops_f.find_valid_points(pts, valid,
                                                torch.zeros(2, **f64)),
@@ -799,6 +1045,17 @@ def check_f64_refused(card: str) -> dict:
             torch.zeros((2, 3), **f64), window=64, num_iters=1),
         "plicp": lambda: plicp(PlicpConfig(num_beams=64), pts[0], valid[0],
                                pts[0], valid[0]),
+        "fvp_wide": lambda: ops_f.find_valid_points(wpts, wvalid,
+                                                    torch.zeros(2, **f64)),
+        "plicp_corr_wide": lambda: ops_p.correspondences(
+            pts[:1], valid[:1], wref, wrv, 1.0, True),
+        "plicp_nearest_wide": lambda: ops_p.nearest(pts[:1], valid[:1],
+                                                    wref, wrv, 1.0),
+        "plicp_corr_pairs": lambda: ops_p.correspondences(
+            npts, nvalid, npts, nvalid, 1.0, True),
+        "hector_gn_wide": lambda: ops_h.match_level_kernel(
+            torch.rand((64, 64), **f64), wpts[:, :4097], wvalid[:, :4097],
+            torch.zeros((2, 3), **f64), window=64, num_iters=1),
     }
     plains = [(ops_f, "find_valid_points_plain"),
               (ops_p, "correspondences_plain"), (ops_p, "nearest_plain"),
@@ -974,7 +1231,8 @@ def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
 def run_slice(cfg, device, num_beams: int, where: str = "room",
               max_scans: int = 256, profile: bool = False,
               mapper_kw: dict | None = None,
-              solve_inputs: list | None = None):
+              solve_inputs: list | None = None,
+              n_scans: int | None = None):
     """Phase 4: the Karto path over the circuit of ``world(where)``.
 
     Returns (numbers, mapper); the launch counters are set to 0 just
@@ -982,12 +1240,13 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
     card), the stream runs again through a fresh mapper under
     ``torch.profiler``: the device busy share and device ms a scan.
     ``mapper_kw`` goes to ``KartoMapper`` (phase 4m's ``loop_mesh``);
-    ``solve_inputs`` to ``solve_timer`` (phase 4o's graph)."""
+    ``solve_inputs`` to ``solve_timer`` (phase 4o's graph); ``n_scans``
+    cuts the stream to its first scans (phase 4p)."""
     from tpuslam_torch.models.karto import KartoMapper
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
 
-    stream = karto_stream(where, num_beams, device)
+    stream = karto_stream(where, num_beams, device)[:n_scans]
     m = KartoMapper(cfg, max_scans=max_scans, device=device,
                     **(mapper_kw or {}))
     on_card = torch.device(device).type == "cuda"
@@ -1449,18 +1708,19 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
     return out, poses
 
 
-def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50):
+def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50,
+                       stream_scans: int = 320):
     """Phase 4e: scan_match_plicp and scan_match_icp (20 iterations as
     ``cli.py``; "kernel" and the default "auto", both the nearest mode)
-    over the first scans of the stream; each run resets the counters just
-    before it and reads them just after.  Errors are against the true
-    frame-to-frame motion."""
+    over the first scans of the stream (of ``stream_scans``); each run
+    resets the counters just before it and reads them just after.  Errors
+    are against the true frame-to-frame motion."""
     from tpuslam_torch.core import se2
     from tpuslam_torch.core.config import IcpConfig, PlicpConfig
     from tpuslam_torch.models import scan_match_icp, scan_match_plicp
     from tpuslam_torch.ops import plicp as ops_p
 
-    _, traj, scans = odometry_stream(device, num_beams, 320)
+    _, traj, scans = odometry_stream(device, num_beams, stream_scans)
     scans = scans[:n_scans]
     t = torch.tensor(traj[:n_scans], dtype=torch.float64)
     prev_in_cur = se2.relative(t[1:], t[:-1]).numpy()  # ICP's direction
@@ -1495,26 +1755,26 @@ def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50):
     return out
 
 
-def batch_fixture(n: int = 256, num_beams: int = 512):
+def batch_fixture(n: int = 256, num_beams: int = 512, device="cuda"):
     """benchmarks/suite.py's scan_fixtures: n scans from poses uniform in
     +-0.2 in an 8 x 6 m room, 512 beams; each scan is matched onto the
-    one before it (a roll by one)."""
+    one before it (a roll by one).  The ranges are simulated on the host,
+    then one ``make_scan`` and ``scan_to_points`` of all n scans on
+    ``device`` (in bulk: phase 4p makes 72,000)."""
     from tpuslam_torch.io.simulate import rect_room, simulate_scan
     from tpuslam_torch.core.scan import make_scan, scan_to_points
 
     segs = rect_room(8.0, 6.0)
     rng = np.random.default_rng(0)
-    pts, valid = [], []
-    for pose in rng.uniform(-0.2, 0.2, size=(n, 3)):
-        r, amin, ainc = simulate_scan(segs, pose, num_beams=num_beams,
-                                      max_range=20.0)
-        p, v = scan_to_points(make_scan(r, amin, ainc, 0.1, 20.0,
-                                        num_beams=num_beams, device="cuda"))
-        pts.append(p)
-        valid.append(v)
-    pts, valid = torch.stack(pts), torch.stack(valid)
+    poses = rng.uniform(-0.2, 0.2, size=(n, 3))
+    r = np.stack([simulate_scan(segs, pose, num_beams=num_beams,
+                                max_range=20.0)[0] for pose in poses])
+    _, amin, ainc = simulate_scan(segs, poses[0], num_beams=num_beams,
+                                  max_range=20.0)
+    pts, valid = scan_to_points(make_scan(r, amin, ainc, 0.1, 20.0,
+                                          num_beams=num_beams, device=device))
     return (pts, valid, torch.roll(pts, 1, 0), torch.roll(valid, 1, 0),
-            torch.zeros((n, 3), device="cuda"))
+            torch.zeros((n, 3), device=device))
 
 
 def time_batches(card: str, runs: int = 5) -> dict:
@@ -1840,7 +2100,8 @@ def check_method_names(m, card, device="cuda",
     return out
 
 
-def hector_fixture(device, n: int, where: str = "bench"):
+def hector_fixture(device, n: int, where: str = "bench",
+                   num_beams: int | None = None):
     """A map built through the port's engine and n perturbed scans.
 
     ``bench``: bench.py's operating point, ``HectorConfig(map_size=1024,
@@ -1850,20 +2111,22 @@ def hector_fixture(device, n: int, where: str = "bench"):
     default_rng(0): true poses uniform in +-0.2, guesses within +-0.05.
     ``reference``: the reference's defaults at 1081 beams (map 2048,
     3 levels) in the boxes world, three scans mapped at their poses and
-    the batch drawn the same way.  Returns (cfg, specs, prob grids, pts,
-    valid, truths [S, 3] numpy, guesses [S, 3])."""
+    the batch drawn the same way.  ``num_beams`` replaces the fixture's
+    beam count (the map too is built from scans of that many beams).
+    Returns (cfg, specs, prob grids, pts, valid, truths [S, 3] numpy,
+    guesses [S, 3])."""
     from tpuslam_torch.io.simulate import rect_room, world_with_boxes
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.models import hector_slam
     from tpuslam_torch.ops.bilinear import prob_from_log_odds
 
     if where == "bench":
-        cfg = HectorConfig(map_size=1024, num_beams=512, ray_steps=512,
-                           laser_max_dist=12.0)
+        cfg = HectorConfig(map_size=1024, num_beams=num_beams or 512,
+                           ray_steps=512, laser_max_dist=12.0)
         segs = rect_room(8.0, 6.0)
         force = False
     else:
-        cfg = HectorConfig(num_beams=1081)
+        cfg = HectorConfig(num_beams=num_beams or 1081)
         segs = world_with_boxes()
         force = True  # every seed scan updates the map
     st = hector_slam.init_state(cfg, device=device)
@@ -1882,6 +2145,320 @@ def hector_fixture(device, n: int, where: str = "bench"):
     grids = tuple(prob_from_log_odds(lo) for lo in st.log_odds)
     return (cfg, hector_slam.make_specs(cfg), grids, pts, valid, truths,
             torch.tensor(guesses, device=device))
+
+
+# phase 4p: the paths at widths past the kernels' old ceilings.  Karto at
+# the outdoor configuration with 12,000 beams (0.03 deg over 360 deg: a
+# 3-D lidar flattened by pointcloud_to_laserscan) over the room circuit,
+# its depth cut from 58 to 6 scans (the plain walk of FindValidPoints,
+# which the plain-path rerun takes, issues ~30 ops a beam: 4.7 s a match
+# at this width on an H100's host); the PL-ICP odometry at 18,000 beams
+# (0.02 deg)
+# over 20 scans and frame-to-frame PL-ICP and ICP over 10 pairs of it;
+# plicp_batch and icp_batch over 72,000 pairs of 512 beams (half an hour
+# of a 40 Hz bag; past the launch grid's 65,535 pairs), with 256 sampled
+# pairs against the plain versions; match_pyramid_batched (impl
+# "kernel") at bench.py's map with 8,192 beams, 64 scans
+WIDE_KARTO_BEAMS = 12000
+WIDE_KARTO_SCANS = 6
+WIDE_ODOM_BEAMS = 18000
+WIDE_ODOM_SCANS = 20
+WIDE_ICP_SCANS = 11
+WIDE_PAIRS = 72000
+WIDE_PAIR_BEAMS = 512
+WIDE_PAIR_SAMPLE = 256
+WIDE_HECTOR_BEAMS = 8192
+WIDE_HECTOR_SCANS = 64
+
+
+def _held_hector(seen: list):
+    """A ``match_level_kernel`` that holds each call of the kernel against
+    its plain version on the call's own inputs (``hector_gn_diffs``
+    appended to ``seen``) and returns the kernel's result."""
+    from tpuslam_torch.ops import hector as ops_h
+
+    def call(prob_grid, pts_map, valid, poses_map, *, window, num_iters,
+             yaw_clamp=0.2):
+        args = (prob_grid, pts_map, valid, poses_map, window, num_iters,
+                yaw_clamp)
+        got = ops_h._launch(*args)
+        seen.append(hector_gn_diffs(got, ops_h._plain(*args)))
+        return got[:3]
+    return call
+
+
+@contextlib.contextmanager
+def held_pairs(seen: dict, cut: int, idx):
+    """Hold every correspondence call (both modes) on its own inputs: its
+    result against the same wrapper called on the pairs [0, ``cut``) and
+    [``cut``, N) apart, concatenated, and its rows ``idx`` against the
+    plain version on those rows; bit for bit, else raise.  ``seen`` counts
+    the calls held by mode.  The held calls' launches are taken back off
+    the counters, so they see the path's own."""
+    from tpuslam_torch.ops import plicp as ops_p
+
+    saved = (ops_p.correspondences, ops_p.nearest)
+
+    def hold(mode, kern, plain):
+        def call(cur, sv, ref, rv, *rest):
+            got = kern(cur, sv, ref, rv, *rest)
+            counted = dict(ops_p.LAUNCHES)
+            n = cur.shape[0]
+            parts = [kern(cur[a:b], sv[a:b], ref[a:b], rv[a:b], *rest)
+                     for a, b in ((0, cut), (cut, n))]
+            ops_p.LAUNCHES.update(counted)
+            split = tuple(torch.cat(t) for t in zip(*parts))
+            want = plain(cur[idx], sv[idx], ref[idx], rv[idx], *rest)
+            if not _same(got, split):
+                raise RuntimeError(f"{mode}: the pairs [0, {cut}) and "
+                                   f"[{cut}, {n}) called apart differ")
+            if not _same(tuple(t[idx] for t in got), want):
+                raise RuntimeError(f"{mode}: the sampled pairs differ from "
+                                   "the plain version")
+            seen[mode] = seen.get(mode, 0) + 1
+            return got
+        return call
+
+    ops_p.correspondences = hold("plicp_corr", saved[0],
+                                 ops_p.correspondences_plain)
+    ops_p.nearest = hold("plicp_nearest", saved[1], ops_p.nearest_plain)
+    try:
+        yield
+    finally:
+        ops_p.correspondences, ops_p.nearest = saved
+
+
+def run_wide_phase(karto_cfg, device, card: str,
+                   karto_beams: int = WIDE_KARTO_BEAMS,
+                   karto_scans: int = WIDE_KARTO_SCANS,
+                   odom_beams: int = WIDE_ODOM_BEAMS,
+                   odom_scans: int = WIDE_ODOM_SCANS,
+                   icp_scans: int = WIDE_ICP_SCANS,
+                   pairs: int = WIDE_PAIRS, pair_beams: int = WIDE_PAIR_BEAMS,
+                   cut: int | None = None, sample: int = WIDE_PAIR_SAMPLE,
+                   hector_beams: int = WIDE_HECTOR_BEAMS,
+                   hector_scans: int = WIDE_HECTOR_SCANS) -> dict:
+    """Phase 4p: each path at a width past its kernel's old ceiling.
+
+    (a) ``run_slice`` of ``karto_cfg`` at ``karto_beams`` over the first
+    ``karto_scans`` scans of the room circuit: the ATE bound, and the same
+    stream through ``plain_path`` gives the same poses, edges and map bit
+    for bit; (b) ``run_odometry`` at ``odom_beams`` over ``odom_scans``
+    scans and ``run_frame_to_frame`` over ``icp_scans`` scans, each equal
+    to its ``plain_path`` run bit for bit; (c) ``plicp_batch`` and
+    ``icp_batch`` over ``pairs`` pairs of ``pair_beams``, each
+    correspondence call held (``held_pairs``) against the kernel on the
+    pairs before ``cut`` (default: the launch grid's 65,535) and after it
+    called apart, and on ``sample`` sampled pairs against the plain
+    version, bit for bit (the whole call run again, held); the matcher on
+    the two sets of pairs apart equals the whole call (on the card: the
+    CPU's batched matmuls of the matchers' fits sum otherwise at another
+    batch size), and on the sampled pairs alone its ``plain_path`` run,
+    bit for bit (whether those rows also equal the whole call's is
+    reported); (d)
+    ``match_pyramid_batched(impl="kernel")`` at bench.py's map with
+    ``hector_beams`` beams and ``hector_scans`` scans: mean xy error below
+    0.05 m, each kernel call held against ``match_level_plain`` on its own
+    inputs within ``HECTOR_BOUNDS``.  On the card each path must launch
+    its kernel's wide form (every counter is set to 0 just before a path
+    and read just after).  Raises on the first failure."""
+    from tpuslam_torch.core.config import IcpConfig, PlicpConfig
+    from tpuslam_torch.match.hector import match_pyramid_batched
+    from tpuslam_torch.match.icp import icp_batch
+    from tpuslam_torch.match.plicp import plicp_batch
+    from tpuslam_torch.ops import hector as ops_h
+    from tpuslam_torch.ops import plicp as ops_p
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out, fails = {}, []
+
+    def need(tag, launches, key):
+        if on_card and launches.get(key, 0) <= 0:
+            fails.append(f"{tag} never launched {key}: {launches}")
+
+    # (a) Karto
+    cfg = dataclasses.replace(karto_cfg, num_beams=karto_beams)
+    t0 = time.perf_counter()
+    sk, mk = run_slice(cfg, device, karto_beams, n_scans=karto_scans)
+    with plain_path():
+        sp, mp = run_slice(cfg, device, karto_beams, n_scans=karto_scans)
+    img_k = mk.occupancy_grid()[1].cpu().numpy()
+    img_p = mp.occupancy_grid()[1].cpu().numpy()
+    same = _same_graph(mk, mp) and np.array_equal(img_k, img_p)
+    out["karto"] = {**{k: sk[k] for k in (
+        "scans", "processed", "seconds", "scans_per_s", "ate_m",
+        "ate_bound_m", "loop_closures", "edges", "launches")},
+        "plain_seconds": sp["seconds"], "same_as_plain": same,
+        "wall_s": time.perf_counter() - t0}
+    print(f"4p karto ({karto_beams} beams, {sk['scans']} scans): "
+          f"{sk['scans_per_s']:.2f} scans/s, ATE {sk['ate_m']:.4f} m (bound "
+          f"{sk['ate_bound_m']:.3f}), launches {sk['launches']}; plain "
+          f"versions {sp['seconds']:.2f} s, same poses, edges and map "
+          f"{same} [{card}]", flush=True)
+    if not sk["ate_m"] < sk["ate_bound_m"]:
+        fails.append(f"karto ATE {sk['ate_m']} >= {sk['ate_bound_m']}")
+    if not same:
+        fails.append("karto: the plain path's poses, edges or map differ")
+    need("karto", sk["launches"], "fvp_wide")
+    need("karto", sk["launches"], "patch_sums")
+
+    # (b) the odometry and frame to frame at odom_beams
+    t0 = time.perf_counter()
+    od, od_poses = run_odometry(device, odom_beams, odom_scans)
+    with plain_path():
+        odp, odp_poses = run_odometry(device, odom_beams, odom_scans)
+    ff = run_frame_to_frame(device, odom_beams, icp_scans, icp_scans)
+    with plain_path():
+        ffp = run_frame_to_frame(device, odom_beams, icp_scans, icp_scans)
+    same_od = np.array_equal(od_poses, odp_poses)
+    same_ff = {t: np.array_equal(ff[t]["poses"], ffp[t]["poses"])
+               for t in ff}
+    out["odometry"] = {**{k: od[k] for k in (
+        "scans", "beams", "seconds", "scans_per_s", "ate_rmse_m",
+        "launches")}, "plain_seconds": odp["seconds"],
+        "same_as_plain": same_od}
+    out["frame_to_frame"] = {t: {**{k: r[k] for k in (
+        "scans", "seconds", "scans_per_s", "median_err_m", "launches")},
+        "plain_seconds": ffp[t]["seconds"], "same_as_plain": same_ff[t]}
+        for t, r in ff.items()}
+    out["odometry_wall_s"] = time.perf_counter() - t0
+    print(f"4p odometry ({odom_beams} beams, {od['scans']} scans): "
+          f"{od['scans_per_s']:.2f} scans/s, ATE RMSE {od['ate_rmse_m']:.4f} "
+          f"m, launches {od['launches']}, plain {odp['seconds']:.2f} s, same "
+          f"poses {same_od}; frame to frame ({icp_scans} scans) "
+          + ", ".join(f"{t} {r['scans_per_s']:.2f} scans/s launches "
+                      f"{ {k: v for k, v in r['launches'].items() if v} } "
+                      f"same {same_ff[t]}" for t, r in ff.items())
+          + f" [{card}]", flush=True)
+    if not same_od:
+        fails.append("odometry: the plain path's poses differ")
+    for t, ok in same_ff.items():
+        if not ok:
+            fails.append(f"frame to frame {t}: the plain path's poses "
+                         "differ")
+    need("odometry", od["launches"], "plicp_corr_wide")
+    need("frame to frame plicp", ff["plicp"]["launches"], "plicp_corr_wide")
+    for t in ("icp", "icp_auto"):
+        need(f"frame to frame {t}", ff[t]["launches"], "plicp_nearest_wide")
+
+    # (c) the batches past the launch grid's pairs
+    t0 = time.perf_counter()
+    args = batch_fixture(pairs, pair_beams, device)
+    cut = ops_p.MAX_PAIRS if cut is None else cut
+    idx = torch.tensor(np.sort(np.random.default_rng(5).choice(
+        pairs, sample, replace=False)), device=device)
+    calls = {
+        "plicp_batch": lambda a: plicp_batch(
+            PlicpConfig(num_beams=pair_beams), *a),
+        "icp_batch": lambda a: icp_batch(
+            IcpConfig(num_beams=pair_beams, max_iterations=10), *a),
+    }
+    out["batches"] = {}
+    for name, fn in calls.items():
+        _reset(ops_p.LAUNCHES)
+        full, secs = _timed(lambda fn=fn: tuple(fn(args)), on_card)
+        launches = {k: v for k, v in ops_p.LAUNCHES.items() if v}
+        held = {}
+        with held_pairs(held, cut, idx):
+            again = tuple(fn(args))
+        repeat = _same(full, again)
+        head = tuple(fn(tuple(a[:cut] for a in args)))
+        tail = tuple(fn(tuple(a[cut:] for a in args)))
+        chunks = all(torch.equal(f[:cut], h) and torch.equal(f[cut:], t)
+                     for f, h, t in zip(full, head, tail))
+        del head, tail, again
+        sub = tuple(a[idx] for a in args)
+        kern = tuple(fn(sub))
+        with plain_path():
+            plain = tuple(fn(sub))
+        vs_plain = _same(kern, plain)
+        vs_full = all(torch.equal(f[idx], q) for f, q in zip(full, plain))
+        out["batches"][name] = {
+            "pairs": pairs, "beams": pair_beams, "seconds": secs,
+            "matches_per_s": pairs / secs, "launches": launches,
+            "held_calls": held, "repeats": repeat,
+            "chunks_equal": chunks, "sample": sample,
+            "sample_equal_plain": vs_plain,
+            "sample_plain_equal_whole_call": vs_full}
+        print(f"4p {name}: {pairs} pairs of {pair_beams} in {secs:.3f} s = "
+              f"{pairs / secs:.0f} matches/s, launches {launches}; "
+              f"correspondence calls held (pairs [0, {cut}) and [{cut}, "
+              f"{pairs}) apart, {sample} sampled pairs against plain): "
+              f"{held}, bit for bit; the call again equal {repeat}; the "
+              f"matcher on the two sets apart equals the whole call "
+              f"{chunks}; on the {sample} sampled pairs alone it equals its "
+              f"plain path {vs_plain} (and the whole call's rows "
+              f"{vs_full}) [{card}]", flush=True)
+        if not repeat:
+            fails.append(f"{name}: a second call differs from the first")
+        if on_card and not chunks:  # the CPU's matmuls block by batch
+            fails.append(f"{name}: the pairs [0, {cut}) and [{cut}, "
+                         f"{pairs}) called apart differ from the whole call")
+        if not vs_plain:
+            fails.append(f"{name}: the sampled pairs differ from their plain "
+                         "path")
+        key = "plicp_corr" if name == "plicp_batch" else "plicp_nearest"
+        if not held.get(key):
+            fails.append(f"{name}: no correspondence call was held")
+        need(name, launches, key)
+        del full, kern, plain, sub
+    del args
+    out["batches_wall_s"] = time.perf_counter() - t0
+
+    # (d) batched Hector past 4,096 beams
+    t0 = time.perf_counter()
+    hcfg, specs, grids, hpts, hvalid, truths, guesses = hector_fixture(
+        device, hector_scans, "bench", num_beams=hector_beams)
+    kw = dict(iterations_finest=hcfg.iterations_finest,
+              iterations_coarse=hcfg.iterations_coarse,
+              max_point_range=hcfg.laser_max_dist,
+              compute_dtype=getattr(torch, hcfg.matcher_dtype))
+    held = []
+    _reset(ops_h.LAUNCHES)
+    orig = ops_h.match_level_kernel
+    if on_card:
+        ops_h.match_level_kernel = _held_hector(held)
+    try:
+        res, secs = _timed(lambda: match_pyramid_batched(
+            specs, grids, hpts, hvalid, guesses, impl="kernel", **kw),
+            on_card)
+    finally:
+        ops_h.match_level_kernel = orig
+    launches = {k: v for k, v in ops_h.LAUNCHES.items() if v}
+    err = np.abs(res.pose.cpu().numpy() - truths)
+    out["hector"] = {"scans": hector_scans, "beams": hector_beams,
+                     "map": hcfg.map_size, "seconds": secs,
+                     "mean_xy_err_m": float(err[:, :2].mean()),
+                     "max_xy_err_m": float(err[:, :2].max()),
+                     "launches": launches, "held": held}
+    print(f"4p hector batch (map {hcfg.map_size}, {hector_beams} beams, "
+          f"{hector_scans} scans): {secs:.3f} s, mean xy err "
+          f"{out['hector']['mean_xy_err_m']:.4f} m (max "
+          f"{out['hector']['max_xy_err_m']:.4f}), launches {launches}, "
+          f"kernel vs plain on the path's inputs {held} [{card}]",
+          flush=True)
+    if not out["hector"]["mean_xy_err_m"] < 0.05:
+        fails.append(f"hector batch: mean xy error "
+                     f"{out['hector']['mean_xy_err_m']} >= 0.05 m")
+    for diffs in held:
+        bad = {k: v for k, v in diffs.items()
+               if k in HECTOR_BOUNDS and not v <= HECTOR_BOUNDS[k]}
+        if bad or diffs.get("inb_differ", 0):
+            fails.append(f"hector_gn on the path's inputs: kernel and plain "
+                         f"differ {diffs} (bounds {HECTOR_BOUNDS})")
+    need("hector batch", launches, "hector_gn_wide")
+    out["hector"]["wall_s"] = time.perf_counter() - t0
+
+    launches = {}
+    for r in (out["karto"], out["odometry"], *out["frame_to_frame"].values(),
+              *out["batches"].values(), out["hector"]):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    if fails:
+        raise RuntimeError("phase 4p: " + "; ".join(fails))
+    return out
 
 
 # phase 4m: a mesh of MESH_ENTRIES entries (the host's cards in turn
@@ -3415,7 +3992,8 @@ def run_oracle_phase(cfg, device, card: str, graph,
     print(f"4o: K={k} matches, launches {launches}, "
           f"{out['seconds']:.2f} s [{card}]", flush=True)
     if torch.device(device).type == "cuda":
-        idle = [key for key, v in launches.items() if v <= 0]
+        idle = [key for key, v in launches.items()
+                if v <= 0 and key not in WIDE_FORMS.values()]
         if idle:
             fails.append(f"kernels never launched in phase 4o: {idle}")
     if fails:
@@ -3457,6 +4035,9 @@ def main() -> int:
     # ---- 3. kernels == plain at production sizes
     mark(f"3. kernels vs plain, {TIMED_RUNS} calls a timing")
     rows = check_kernels(card)
+    mark("3. past the kernels' old ceilings")
+    wide_rows = check_wide(card)
+    rows += wide_rows
     repeat_s = sum(r["repeat_s"] for r in rows)
     print(f"  every row's second call on the same inputs equal to its "
           f"first: {len(rows)} rows, {repeat_s:.3f} s in all [{card}]",
@@ -3475,7 +4056,8 @@ def main() -> int:
     cfg = dataclasses.replace(outdoor_karto_config(), num_beams=1081)
     s, m = run_slice(cfg, "cuda", 1081, profile=True)
     _report("slice (outdoor, 1081 beams)", s, card)
-    idle = [k for k, v in s["launches"].items() if v <= 0]
+    wide = set(WIDE_FORMS.values())  # past the old ceilings: phase 4p
+    idle = [k for k, v in s["launches"].items() if v <= 0 and k not in wide]
     if idle:
         raise RuntimeError(f"kernels never launched on the main path: {idle}")
     maps = {}
@@ -3515,7 +4097,7 @@ def main() -> int:
           f"captures its bucket's LM iteration) [{card}]", flush=True)
     if sl["loop_closures"] < 1:
         raise RuntimeError("no loop closure on the courtyard circuit")
-    idle = [k for k, v in sl["launches"].items() if v <= 0]
+    idle = [k for k, v in sl["launches"].items() if v <= 0 and k not in wide]
     if idle:
         raise RuntimeError(f"kernels never launched in the loop run: {idle}")
     maps["courtyard"], _ = map_check(ml, world("courtyard")[0],
@@ -3701,6 +4283,11 @@ def main() -> int:
     _within("hector batch, kernel vs plain path", hb["kernel_vs_plain"],
             HECTOR_PATH_BOUNDS)
 
+    # 4p. the paths past the kernels' old ceilings: every wide form
+    mark("4p. past the kernels' old ceilings")
+    wide_r = run_wide_phase(outdoor_karto_config(), "cuda", card)
+    mark(f"4p done in {wide_r['seconds']:.1f} s")
+
     # 4g. the Hector engine at the reference's defaults, 1081 beams
     mark("4g. Hector engine")
     he = run_hector_engine("cuda", profile_scans=PROFILE_SCANS,
@@ -3764,6 +4351,7 @@ def main() -> int:
                 "plicp_nearest": sum(ff[t]["launches"]["plicp_nearest"]
                                      for t in ("icp", "icp_auto")),
                 "hector_gn": hb["launches"]["hector_gn"]}
+    launches = {k: v for k, v in launches.items() if k in KERNEL_NAMES}
     path_scans = {**{k: karto_scans for k in s["launches"]},
                   "plicp_corr": od["scans"],
                   "plicp_nearest": (ff["icp"]["scans"]
@@ -3799,6 +4387,14 @@ def main() -> int:
             "mesh_launches": mesh_launches[name],
             "oracle_launches": oracle_launches[name],
             "repeats": all(r["repeats"] for r in mine),
+            # past the old ceilings: the wide form, its launches in phase
+            # 4p's paths and its phase-3 rows
+            "wide_form": WIDE_FORMS.get(name),
+            "wide_launches": wide_r["launches"].get(WIDE_FORMS.get(name), 0),
+            "wide_rows": [{k: r.get(k) for k in (
+                "shape", "form", "launches_a_call", "kernel_us", "ms",
+                "plain_ms", "bound_us", "bound_by")}
+                for r in wide_rows if r["kernel"] == name],
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()
@@ -3816,6 +4412,7 @@ def main() -> int:
         "batches": batches, "method_names": names, "hector_batch": hb,
         "hector_engine": he,
         "cli": clir, "mesh": mesh_r, "oracle": orc, "codec": codec,
+        "wide": wide_r,
         "f64_refused": f64,
         "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

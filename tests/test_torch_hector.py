@@ -492,7 +492,8 @@ def test_kernel_wrapper_rejects_what_it_does_not_take():
     tops.match_level_kernel(_t(grids[0]), _t(pts / np.float32(0.05)),
                             _t(valid), torch.tensor([[128.0, 128.0, 0.0]]),
                             window=256, num_iters=2)
-    assert tops.LAUNCHES == {"hector_gn": 0}  # the CPU path never counts
+    # the CPU path never counts
+    assert tops.LAUNCHES == {"hector_gn": 0, "hector_gn_wide": 0}
 
 
 # --------------------------------------------------------------- matchers

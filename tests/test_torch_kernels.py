@@ -223,7 +223,7 @@ def test_launch_counters_stay_zero_on_cpu():
     tops.patch_sums(grid, ay, ay, ok, 5)
     tops.patch_sums_stride2(grid, ay, ay, ok, 3)
     assert tops.LAUNCHES == {"patch_sums": 0, "patch_sums_stride2": 0}
-    assert tfvp.LAUNCHES == {"fvp": 0}
+    assert tfvp.LAUNCHES == {"fvp": 0, "fvp_wide": 0}
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -248,7 +248,8 @@ def test_correspondence_launch_counters_stay_zero_on_cpu():
     fx = _corr_fixture(seed=4)
     _port_corr(*fx, 1.0, True)
     _port_corr(*fx, 1.0, False, line=False)
-    assert tops.LAUNCHES == {"plicp_corr": 0, "plicp_nearest": 0}
+    assert tops.LAUNCHES == {"plicp_corr": 0, "plicp_nearest": 0,
+                             "plicp_corr_wide": 0, "plicp_nearest_wide": 0}
 
 
 def _lanes_corr(cur, sv, ref, rv, max_d2, rd, line=True):

@@ -41,6 +41,17 @@
 //      a block-wide reverse min-scan over decision indices (each thread a
 //      contiguous run, warps by shuffles, warps across shared memory).
 // Inputs are read in the caller's [S, B, 2] / [S, B] layout: no transposes.
+//
+// Wide scans: a scan's arrays take 23 bytes a point, so past about 10,000
+// points they do not fit a block's 227 KB of shared memory.  There the
+// same kernel (kWide) keeps them in a global scratch the wrapper
+// allocates, one 16-byte aligned slice a scan (377 KB at 16,384 points;
+// S slices stay in the 50 MB L2 for the batches the matcher makes), with
+// the same one block a scan, the same four stages and the same block
+// barriers (__syncthreads orders a block's global accesses as it orders
+// its shared ones), so the masks are those of the shared form bit for
+// bit.  A cluster of blocks holding the arrays in distributed shared
+// memory would serve such scans faster; that is left for later.
 
 #include <algorithm>
 #include <cstdint>
@@ -53,7 +64,8 @@ constexpr int kMaxThreads = 1024;  // a block: about one thread a point
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr float kMinSq = 0.01f;  // points closer than 0.1 m never decide
 
-// dynamic shared memory of one block: see fvp_smem_bytes
+// a scan's arrays, in a block's dynamic shared memory or (kWide) in its
+// slice of the global scratch: see fvp_smem_bytes
 struct Smem {
   float* x;
   float* y;
@@ -65,9 +77,14 @@ struct Smem {
   uint8_t* keep; // [b] keep verdict of a decision
 };
 
-size_t fvp_smem_bytes(int b) {
+__host__ __device__ size_t fvp_smem_bytes(int b) {
   const size_t n = static_cast<size_t>(b) + 1;
   return n * (2 * sizeof(float) + 3 * sizeof(int)) + 3 * n;
+}
+
+// one scan's slice of the wide form's scratch: 16-byte aligned
+__host__ __device__ size_t fvp_slice_bytes(int b) {
+  return (fvp_smem_bytes(b) + 15) / 16 * 16;
 }
 
 __device__ Smem carve(unsigned char* base, int b) {
@@ -92,13 +109,16 @@ __device__ __forceinline__ bool far_apart(float ax, float ay, float x,
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) > kMinSq;
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kMaxThreads)
 fvp_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ valid,
-           const float* __restrict__ vp, int b, uint8_t* __restrict__ out) {
+           const float* __restrict__ vp, int b,
+           unsigned char* __restrict__ scratch, uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_i0;
   __shared__ int s_warp_min[kMaxWarps];
-  const Smem sm = carve(smem_raw, b);
+  const Smem sm = carve(
+      kWide ? scratch + blockIdx.x * fvp_slice_bytes(b) : smem_raw, b);
   const int t = threadIdx.x;
   const int nt = blockDim.x;  // a multiple of 32
   const size_t row = static_cast<size_t>(blockIdx.x) * b;
@@ -233,22 +253,32 @@ extern "C" {
 
 // out [s, b] uint8 (0/1) <- the mask, already ANDed with valid.
 // pts [s, b, 2] f32, valid [s, b] uint8/bool, vp [2] f32, all contiguous
-// on the device.  Returns cudaGetLastError(): the launch is refused when
-// one scan (23 bytes a point) does not fit in a block's shared memory.
+// on the device.  With scratch null, one scan (23 bytes a point) sits in a
+// block's shared memory and the launch is refused where it does not fit;
+// else scratch holds s * fvp_slice_bytes(b) bytes (the wide form).
+// Returns cudaGetLastError().
 int tpuslam_fvp(const void* pts, const void* valid, const void* vp, int s,
-                int b, void* out, void* stream) {
+                int b, void* scratch, void* out, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is ours
   if (s <= 0 || b <= 0) return static_cast<int>(cudaGetLastError());
+  const int threads = std::min(kMaxThreads, std::max(64, (b + 31) / 32 * 32));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pts);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  const float* q = static_cast<const float*>(vp);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (scratch != nullptr) {
+    fvp_kernel<true><<<s, threads, 0, st>>>(
+        p, v, q, b, static_cast<unsigned char*>(scratch), o);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = fvp_smem_bytes(b);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(fvp_kernel,
+    cudaFuncSetAttribute(fvp_kernel<false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
-  const int threads = std::min(kMaxThreads, std::max(64, (b + 31) / 32 * 32));
-  fvp_kernel<<<s, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(vp), b, static_cast<uint8_t*>(out));
+  fvp_kernel<false><<<s, threads, smem, st>>>(p, v, q, b, nullptr, o);
   return static_cast<int>(cudaGetLastError());
 }
 

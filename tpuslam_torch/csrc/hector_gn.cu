@@ -55,6 +55,13 @@
 // with ws > 1 one __syncthreads and the warps' totals added in warp order
 // (scan_sum).  Every lane then holds the same sums and solves alike: no pose
 // broadcast.  sincosf once a lane an iteration.
+//
+// Wide scans (kWide, past 16 beams a thread at 8 warps: B > 4096): the
+// thread's first 16 beams stay in registers and each iteration reads the
+// rest from global memory (L2) 16 at a time, beams t + 16 m g, ... in
+// order, adding their terms to the same running sums after the first 16.
+// So the thread still adds its beams t, t + g, t + 2g, ... in order and
+// the sums are those that match_level_lanes writes out for ws warps.
 
 #include <cstdint>
 
@@ -185,7 +192,104 @@ __device__ __forceinline__ float floor_small(float x, int& i) {
   return f;
 }
 
+// One iteration's terms of K beams of the thread (points px, py, valid
+// vb) at the pose (c, s, x, y), added to acc in beam order; cnt counts the
+// beams inside the gate.
+template <int K>
+__device__ __forceinline__ void add_beams(
+    const float (&px)[K], const float (&py)[K], const bool (&vb)[K],
+    float c, float s, float x, float y, float oxf, float oyf, int ox,
+    int oy, int gw, int window, const uint16_t* __restrict__ grid,
+    float (&acc)[kSums], int& cnt) {
+  float tx[K], fx[K], fy[K];
+  int e0[K], e1[K];
+  bool in[K];
+  uint2 w0[K], w1[K];
+  uint32_t h0[K], h1[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    tx[u] = c * px[u] - s * py[u] + x - oxf;
+    const float ty = s * px[u] + c * py[u] + y - oyf;
+    int ix, iy;
+    fx[u] = floor_small(tx[u], ix);  // == float(ix)
+    const float fly = floor_small(ty, iy);
+    // one unsigned compare a side; where |t| >= 2^22 (or t is not
+    // finite) floor_small's int lies outside [0, 2^22) > window
+    in[u] = vb[u] && static_cast<unsigned>(ix) < window - 1u &&
+            static_cast<unsigned>(iy) < window - 1u;
+    fy[u] = ty - fly;
+    // every read before any use: the cells ix, ix + 1 of rows iy and
+    // iy + 1, each pair from the 4-aligned 8 bytes around it (the host
+    // keeps h * w < 2^31); a beam outside the gate reads zeros
+    const int at0 = in[u] ? (oy + iy) * gw + ox + ix : 0;
+    const int at1 = at0 + gw;
+    e0[u] = at0 & 3;
+    e1[u] = at1 & 3;
+    w0[u] = in[u] ? *reinterpret_cast<const uint2*>(grid + (at0 - e0[u]))
+                  : make_uint2(0u, 0u);
+    w1[u] = in[u] ? *reinterpret_cast<const uint2*>(grid + (at1 - e1[u]))
+                  : make_uint2(0u, 0u);
+    h0[u] = in[u] && e0[u] == 3 ? grid[at0 + 1] : 0u;
+    h1[u] = in[u] && e1[u] == 3 ? grid[at1 + 1] : 0u;
+  }
+  // no branch a beam: a beam outside the gate has its val and J set to
+  // zero, so every term it adds is an exact zero (x + 0 == x), whatever
+  // its point
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    float c00, c01, c10, c11;
+    cell_pair(w0[u], h0[u], e0[u], c00, c01);
+    cell_pair(w1[u], h1[u], e1[u], c10, c11);
+    // both row differences rounded to bf16 in one instruction
+    const __nv_bfloat162 dg = __floats2bfloat162_rn(c10 - c00, c11 - c01);
+    const float dg0 = __low2float(dg);
+    const float dg1 = __high2float(dg);
+    const float yg0 = c00 + fy[u] * dg0;
+    const float yg1 = c01 + fy[u] * dg1;
+    // float(ix) == fx and float(ix + 1) == fx + 1 exactly
+    const float w0f = 1.f - fabsf(fx[u] - tx[u]);
+    const float w1f = 1.f - fabsf((fx[u] + 1.f) - tx[u]);
+    const float val = in[u] ? yg0 * w0f + yg1 * w1f : 0.f;
+    const float gx = in[u] ? yg1 - yg0 : 0.f;
+    const float gy = in[u] ? dg0 * w0f + dg1 * w1f : 0.f;
+    const float rot =
+        in[u] ? (-s * px[u] - c * py[u]) * gx + (c * px[u] - s * py[u]) * gy
+              : 0.f;
+    const float r = 1.f - val;
+    acc[0] += gx * gx;
+    acc[1] += gx * gy;
+    acc[2] += gx * rot;
+    acc[3] += gy * gy;
+    acc[4] += gy * rot;
+    acc[5] += rot * rot;
+    acc[6] += gx * r;
+    acc[7] += gy * r;
+    acc[8] += rot * r;
+    acc[9] += val;
+    cnt += in[u];
+  }
+}
+
+// Tile m of the thread's beams, t + (m kBeams + u) g for u < kBeams
+// (tile 0 the beams that every form holds in registers).
 template <int kBeams>
+__device__ __forceinline__ void load_tile(const float2* __restrict__ p,
+                                          const uint8_t* __restrict__ v,
+                                          int t, int g, int m, int nb,
+                                          float (&px)[kBeams],
+                                          float (&py)[kBeams],
+                                          bool (&vb)[kBeams]) {
+#pragma unroll
+  for (int u = 0; u < kBeams; ++u) {
+    const int i = t + (m * kBeams + u) * g;
+    vb[u] = i < nb && v[i];
+    const float2 q = vb[u] ? p[i] : make_float2(0.f, 0.f);
+    px[u] = q.x;
+    py[u] = q.y;
+  }
+}
+
+template <int kBeams, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 hector_gn_kernel(const uint16_t* __restrict__ grid, int gh, int gw,
                  const float2* __restrict__ pts,
@@ -219,18 +323,22 @@ hector_gn_kernel(const uint16_t* __restrict__ grid, int gh, int gw,
   const float oyf = static_cast<float>(oy);
 
   // the thread's beams t, t + g, ... (at most kBeams: the host's choice
-  // of ws sees to it), held in registers through every iteration
+  // of ws sees to it; the wide form's first kBeams), held in registers
+  // through every iteration
   float px[kBeams], py[kBeams];
   bool vb[kBeams];
   int cnt = 0;
+  load_tile<kBeams>(p, v, t, g, 0, nb, px, py, vb);
 #pragma unroll
-  for (int u = 0; u < kBeams; ++u) {
-    const int i = t + u * g;
-    vb[u] = i < nb && v[i];
-    const float2 q = vb[u] ? p[i] : make_float2(0.f, 0.f);
-    px[u] = q.x;
-    py[u] = q.y;
-    cnt += vb[u];
+  for (int u = 0; u < kBeams; ++u) cnt += vb[u];
+  // the wide form's further tiles of kBeams beams a thread
+  const int tiles = kWide ? (b + g * kBeams - 1) / (g * kBeams) : 1;
+  for (int m = 1; m < tiles; ++m) {
+    float qx[kBeams], qy[kBeams];
+    bool qv[kBeams];
+    load_tile<kBeams>(p, v, t, g, m, nb, qx, qy, qv);
+#pragma unroll
+    for (int u = 0; u < kBeams; ++u) cnt += qv[u];
   }
   float acc[kSums];
 #pragma unroll
@@ -249,72 +357,14 @@ hector_gn_kernel(const uint16_t* __restrict__ grid, int gh, int gw,
 #pragma unroll
     for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
     cnt = 0;
-    float tx[kBeams], fx[kBeams], fy[kBeams];
-    int e0[kBeams], e1[kBeams];
-    bool in[kBeams];
-    uint2 w0[kBeams], w1[kBeams];
-    uint32_t h0[kBeams], h1[kBeams];
-#pragma unroll
-    for (int u = 0; u < kBeams; ++u) {
-      tx[u] = c * px[u] - s * py[u] + x - oxf;
-      const float ty = s * px[u] + c * py[u] + y - oyf;
-      int ix, iy;
-      fx[u] = floor_small(tx[u], ix);  // == float(ix)
-      const float fly = floor_small(ty, iy);
-      // one unsigned compare a side; where |t| >= 2^22 (or t is not
-      // finite) floor_small's int lies outside [0, 2^22) > window
-      in[u] = vb[u] && static_cast<unsigned>(ix) < window - 1u &&
-              static_cast<unsigned>(iy) < window - 1u;
-      fy[u] = ty - fly;
-      // every read before any use: the cells ix, ix + 1 of rows iy and
-      // iy + 1, each pair from the 4-aligned 8 bytes around it (the host
-      // keeps h * w < 2^31); a beam outside the gate reads zeros
-      const int at0 = in[u] ? (oy + iy) * gw + ox + ix : 0;
-      const int at1 = at0 + gw;
-      e0[u] = at0 & 3;
-      e1[u] = at1 & 3;
-      w0[u] = in[u] ? *reinterpret_cast<const uint2*>(grid + (at0 - e0[u]))
-                    : make_uint2(0u, 0u);
-      w1[u] = in[u] ? *reinterpret_cast<const uint2*>(grid + (at1 - e1[u]))
-                    : make_uint2(0u, 0u);
-      h0[u] = in[u] && e0[u] == 3 ? grid[at0 + 1] : 0u;
-      h1[u] = in[u] && e1[u] == 3 ? grid[at1 + 1] : 0u;
-    }
-    // no branch a beam: a beam outside the gate has its val and J set to
-    // zero, so every term it adds is an exact zero (x + 0 == x), whatever
-    // its point
-#pragma unroll
-    for (int u = 0; u < kBeams; ++u) {
-      float c00, c01, c10, c11;
-      cell_pair(w0[u], h0[u], e0[u], c00, c01);
-      cell_pair(w1[u], h1[u], e1[u], c10, c11);
-      // both row differences rounded to bf16 in one instruction
-      const __nv_bfloat162 dg = __floats2bfloat162_rn(c10 - c00, c11 - c01);
-      const float dg0 = __low2float(dg);
-      const float dg1 = __high2float(dg);
-      const float yg0 = c00 + fy[u] * dg0;
-      const float yg1 = c01 + fy[u] * dg1;
-      // float(ix) == fx and float(ix + 1) == fx + 1 exactly
-      const float w0f = 1.f - fabsf(fx[u] - tx[u]);
-      const float w1f = 1.f - fabsf((fx[u] + 1.f) - tx[u]);
-      const float val = in[u] ? yg0 * w0f + yg1 * w1f : 0.f;
-      const float gx = in[u] ? yg1 - yg0 : 0.f;
-      const float gy = in[u] ? dg0 * w0f + dg1 * w1f : 0.f;
-      const float rot =
-          in[u] ? (-s * px[u] - c * py[u]) * gx + (c * px[u] - s * py[u]) * gy
-                : 0.f;
-      const float r = 1.f - val;
-      acc[0] += gx * gx;
-      acc[1] += gx * gy;
-      acc[2] += gx * rot;
-      acc[3] += gy * gy;
-      acc[4] += gy * rot;
-      acc[5] += rot * rot;
-      acc[6] += gx * r;
-      acc[7] += gy * r;
-      acc[8] += rot * r;
-      acc[9] += val;
-      cnt += in[u];
+    add_beams<kBeams>(px, py, vb, c, s, x, y, oxf, oyf, ox, oy, gw, window,
+                      grid, acc, cnt);
+    for (int m = 1; m < tiles; ++m) {  // the wide form: in beam order
+      float qx[kBeams], qy[kBeams];
+      bool qv[kBeams];
+      load_tile<kBeams>(p, v, t, g, m, nb, qx, qy, qv);
+      add_beams<kBeams>(qx, qy, qv, c, s, x, y, oxf, oyf, ox, oy, gw,
+                        window, grid, acc, cnt);
     }
     parity ^= 1;
     scan_sum(acc, cnt, ws, warp, lane, part[parity]);
@@ -339,15 +389,15 @@ hector_gn_kernel(const uint16_t* __restrict__ grid, int gh, int gw,
   out_inb[scan] = n_inb;
 }
 
-// One launch at kBeams beams a thread.
-template <int kBeams>
+// One launch at kBeams beams a thread (kWide: a multiple of them).
+template <int kBeams, bool kWide = false>
 cudaError_t launch(const void* grid, int h, int w, const void* pts,
                    const void* valid, const void* pose0, int s, int b,
                    int window, int num_iters, float yaw_clamp, int ws,
                    void* out_pose, void* out_h, void* out_score,
                    void* out_inb, cudaStream_t stream) {
   const int per_block = kThreads / 32 / ws;
-  hector_gn_kernel<kBeams>
+  hector_gn_kernel<kBeams, kWide>
       <<<(s + per_block - 1) / per_block, kThreads, 0, stream>>>(
           static_cast<const uint16_t*>(grid), h, w,
           static_cast<const float2*>(pts),
@@ -368,7 +418,8 @@ extern "C" {
 // valid [s, b] uint8 from pose0 [s, 3] f32 against grid [h, w] bf16, 8-byte
 // aligned and readable to a multiple of 4 cells (contract above); window
 // <= min(h, w), >= 2; ws warps a scan (1, 2, 4 or 8) with ceil(b / (32
-// ws)) <= 16 beams a thread.  Returns cudaGetLastError() after the launch.
+// ws)) <= 16 beams a thread, or ws = 8 and any b (the wide form).  Returns
+// cudaGetLastError() after the launch.
 int tpuslam_hector_gn(const void* grid, int h, int w, const void* pts,
                       const void* valid, const void* pose0, int s, int b,
                       int window, int num_iters, float yaw_clamp, int ws,
@@ -399,6 +450,9 @@ int tpuslam_hector_gn(const void* grid, int h, int w, const void* pts,
     case 13: case 14: case 15: case 16:
       e = launch<16>(TPUSLAM_HECTOR_ARGS);
       break;
+    default:
+      if (per_thread > 16 && ws == kMaxWarps)
+        e = launch<16, true>(TPUSLAM_HECTOR_ARGS);
   }
 #undef TPUSLAM_HECTOR_ARGS
   return static_cast<int>(e);

@@ -36,7 +36,8 @@
 // neighbouring cells, so L1 serves most of them.  Small patches (S = 3, 5,
 // 9) give the spare threads of a block their own point lanes.  Chunks and
 // lanes meet in the output through atomicAdd of exact integer-valued
-// floats.
+// floats.  Flat offsets are int, or 64-bit (Off) where G^2 >= 2^31 (G >=
+// 46,341: a 2.1 GB byte grid), so a grid that large sums the same cells.
 
 #include <cstdint>
 
@@ -48,14 +49,14 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 128;  // most points one block walks
 constexpr int kUnroll = 8;   // points walked together by a thread
 
-template <int R>
+template <int R, typename Off>
 __global__ void __launch_bounds__(kThreads)
 patch_sums_kernel(const uint8_t* __restrict__ q, int g,
                   const int* __restrict__ ay, const int* __restrict__ ax,
                   const uint8_t* __restrict__ ok, int b, int s, int stride,
                   int cells_blk, int per_lane, int lanes, int chunk,
                   float* __restrict__ out) {
-  __shared__ int s_in[kChunk];     // flat offsets of whole-patch points
+  __shared__ Off s_in[kChunk];     // flat offsets of whole-patch points
   __shared__ int s_ey[kChunk];     // rows / cols of points off the edge
   __shared__ int s_ex[kChunk];
   __shared__ int s_n_in;
@@ -77,7 +78,7 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
       const int y = ay[p];
       const int x = ax[p];
       if (y >= 0 && x >= 0 && y < g - span && x < g - span) {
-        s_in[atomicAdd(&s_n_in, 1)] = y * g + x;
+        s_in[atomicAdd(&s_n_in, 1)] = static_cast<Off>(y) * g + x;
       } else {
         const int e = atomicAdd(&s_n_edge, 1);
         s_ey[e] = y;
@@ -94,7 +95,7 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
   const int cell0 = blockIdx.x * cells_blk;
   const int cell_end = min(s * s, cell0 + cells_blk);
   if (lane >= lanes) return;  // no barrier follows
-  int off[R];
+  Off off[R];
   int ky[R];
   int kx[R];
   bool live[R];
@@ -106,7 +107,7 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
     const int l = live[r] ? c - k * s : 0;
     ky[r] = stride * k;
     kx[r] = stride * l;
-    off[r] = ky[r] * g + kx[r];
+    off[r] = static_cast<Off>(ky[r]) * g + kx[r];
   }
 
   int acc[R];
@@ -114,7 +115,7 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
   for (int r = 0; r < R; ++r) acc[r] = 0;
   int i = lane;
   for (; i + (kUnroll - 1) * lanes < n_in; i += kUnroll * lanes) {
-    int base[kUnroll];
+    Off base[kUnroll];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) base[j] = s_in[i + j * lanes];
 #pragma unroll
@@ -124,7 +125,7 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
     }
   }
   for (; i < n_in; i += lanes) {
-    const int base = s_in[i];
+    const Off base = s_in[i];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] += q[base + off[r]];
   }
@@ -151,6 +152,16 @@ patch_sums_kernel(const uint8_t* __restrict__ q, int g,
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+template <int R, typename Off>
+void launch(dim3 grid, cudaStream_t st, const uint8_t* q, int g,
+            const int* ay, const int* ax, const uint8_t* ok, int b, int s,
+            int stride, int cells_blk, int per_lane, int lanes, int chunk,
+            float* out) {
+  patch_sums_kernel<R, Off><<<grid, kThreads, 0, st>>>(
+      q, g, ay, ax, ok, b, s, stride, cells_blk, per_lane, lanes, chunk,
+      out);
+}
 
 }  // namespace
 
@@ -182,15 +193,19 @@ int tpuslam_patch_sums(const void* q, int g, const void* ay, const void* ax,
   const int* ax32 = static_cast<const int*>(ax);
   const uint8_t* ok8 = static_cast<const uint8_t*>(ok);
   float* o = static_cast<float*>(out);
+  // 64-bit flat offsets only where an int cannot hold y * g + x
+  const bool big = static_cast<long long>(g) * g >= (1LL << 31);
+#define TPUSLAM_PATCH_ARGS                                                \
+  grid, st, q8, g, ay32, ax32, ok8, b, s, stride, cells_blk, per_lane,     \
+      lanes, chunk, o
   if (wide) {
-    patch_sums_kernel<4><<<grid, kThreads, 0, st>>>(
-        q8, g, ay32, ax32, ok8, b, s, stride, cells_blk, per_lane, lanes,
-        chunk, o);
+    if (big) launch<4, long long>(TPUSLAM_PATCH_ARGS);
+    else launch<4, int>(TPUSLAM_PATCH_ARGS);
   } else {
-    patch_sums_kernel<1><<<grid, kThreads, 0, st>>>(
-        q8, g, ay32, ax32, ok8, b, s, stride, cells_blk, per_lane, lanes,
-        chunk, o);
+    if (big) launch<1, long long>(TPUSLAM_PATCH_ARGS);
+    else launch<1, int>(TPUSLAM_PATCH_ARGS);
   }
+#undef TPUSLAM_PATCH_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

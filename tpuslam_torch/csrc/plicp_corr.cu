@@ -53,6 +53,20 @@
 // The counters' rule: they are 0 between launches on a stream, because
 // each launch's last blocks reset them and launches on a stream run in
 // order; the wrapper keeps one counter array a stream, zeroed once.
+//
+// Large references (kTiled, the wrapper's choice past 17,801 points, where
+// a pair's ref and best[] no longer fit 227 KB of shared memory): the ref
+// goes through shared memory in tiles of kTile points, and each warp keeps
+// exactly one group of R rows (the wrapper's blocks see to it), whose
+// per-lane (d2, j) minima run on across the tiles.  kTile is a multiple of
+// 32, so lane l still meets j = l, l + 32, ... in order: the lanes' minima,
+// the butterfly and so every result are those of the shared form.  The
+// lowest invalid index is the least over the tiles; q1, q2 and the line
+// mode's neighbours are read from global memory (L2), and the doubles'
+// best[] is a global [N, B'] scratch that the pair's last block fills with
+// BIG before its atomicMin.  Pairs past the grid's 65,535 go to further
+// launches on the same stream (the wrapper's chunks), each on its own
+// slice of every array.
 
 #include <climits>
 #include <cstdint>
@@ -67,6 +81,7 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxSmem = 232448 - 1024;
 constexpr float kBig = 1e9f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 4096;  // ref points a tile (kTiled): 36 KB staged
 
 __device__ __forceinline__ float sq_dist(float cx, float cy, float rx,
                                          float ry) {
@@ -81,7 +96,131 @@ inline int smem_bytes(int nr, int doubles) {
   return nr * 8 + (doubles ? nr * 4 : 0) + nr;
 }
 
+// Shared memory a block of the tiled form: one tile of ref as float2 and
+// its valid bytes.
+inline int tiled_smem_bytes() { return kTile * 8 + kTile; }
+
+// R source rows against the ref points [0, tn) of shared memory (a tile
+// whose first point is j0): each lane's lowest-index minimum over its j.
 template <int R>
+__device__ __forceinline__ void lane_min(const float2* rxy, int tn, int j0,
+                                         int lane, const float (&cx)[R],
+                                         const float (&cy)[R], float (&bd)[R],
+                                         int (&bj)[R]) {
+  for (int j = lane; j < tn; j += 32) {
+    const float2 r = rxy[j];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float d = sq_dist(cx[k], cy[k], r.x, r.y);
+      if (d < bd[k]) {  // strict: the lane keeps its lowest index
+        bd[k] = d;
+        bj[k] = j0 + j;
+      }
+    }
+  }
+}
+
+// The lexicographic (d, j) minimum over the warp's lanes, in every lane.
+template <int R>
+__device__ __forceinline__ void butterfly(float (&bd)[R], int (&bj)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(kFull, bd[k], off);
+      const int oj = __shfl_xor_sync(kFull, bj[k], off);
+      if (od < bd[k] || (od == bd[k] && oj < bj[k])) {
+        bd[k] = od;
+        bj[k] = oj;
+      }
+    }
+  }
+}
+
+// The pair's ref as the row's finish reads it: from shared memory, where
+// an invalid point is NaN (the shared form), or from global memory.
+template <bool kGlobal>
+struct RefView {
+  const float2* rxy;    // shared: the whole ref
+  const uint8_t* rvs;
+  const float2* refn;   // global: the pair's ref and its valid bytes
+  const uint8_t* rvn;
+  __device__ bool valid(int j) const { return kGlobal ? rvn[j] : rvs[j]; }
+  // the stored point, valid or not
+  __device__ float2 point(int j) const {
+    return kGlobal ? refn[j] : (rvs[j] ? rxy[j] : refn[j]);
+  }
+  // a point known to be valid
+  __device__ float2 valid_point(int j) const {
+    return kGlobal ? refn[j] : rxy[j];
+  }
+};
+
+// Lane `lane` (< R) finishes row i from its warp's minima: the invalid
+// points as BIG, q1, q2 (line mode), d1, ok before the doubles' gate.
+template <int R, bool kGlobal>
+__device__ __forceinline__ void finish_row(
+    const RefView<kGlobal>& ref, int lane, int i, size_t pair, int nr,
+    int jinv, float max_d2, int line, int doubles, const float (&bd)[R],
+    const int (&bj)[R], const float (&cx)[R], const float (&cy)[R],
+    const bool (&s_ok)[R], float2* __restrict__ q1,
+    float2* __restrict__ q2, float* __restrict__ d1,
+    uint8_t* __restrict__ ok, int* __restrict__ j1s) {
+  // lane k finishes row base + k: pick its row's values (a select
+  // chain: registers take no dynamic index)
+  float dk = bd[0], x = cx[0], y = cy[0];
+  int j1 = bj[0];
+  bool src = s_ok[0];
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    if (lane == k) {
+      dk = bd[k];
+      j1 = bj[k];
+      x = cx[k];
+      y = cy[k];
+      src = s_ok[k];
+    }
+  }
+  // the invalid ref points read BIG: the lowest of them wins unless a
+  // valid d2 is below BIG, or equals it at a lower index
+  if (jinv < nr && (dk > kBig || (dk == kBig && jinv < j1))) {
+    dk = kBig;
+    j1 = jinv;
+  }
+  if (!src) {  // every pair reads BIG: the lowest index
+    dk = kBig;
+    j1 = 0;
+  }
+  j1 = min(j1, nr - 1);  // in bounds even for non-finite input
+  const size_t o = pair + i;
+  const float2 p1 = ref.point(j1);
+  float2 p2 = p1;
+  bool keep;
+  if (line) {
+    float d_r = kBig;
+    float d_l = kBig;
+    if (src && j1 + 1 < nr && ref.valid(j1 + 1)) {
+      const float2 r = ref.valid_point(j1 + 1);
+      d_r = sq_dist(x, y, r.x, r.y);
+    }
+    if (src && j1 >= 1 && ref.valid(j1 - 1)) {
+      const float2 l = ref.valid_point(j1 - 1);
+      d_l = sq_dist(x, y, l.x, l.y);
+    }
+    int j2 = d_r < d_l ? j1 + 1 : j1 - 1;
+    j2 = min(max(j2, 0), nr - 1);
+    p2 = ref.point(j2);
+    keep = dk < kBig && fminf(d_r, d_l) < kBig && dk < max_d2;
+  } else {
+    keep = dk < kBig && dk < max_d2;
+  }
+  q1[o] = p1;
+  q2[o] = p2;
+  d1[o] = dk;
+  ok[o] = keep;  // before the doubles' gate
+  if (doubles) j1s[o] = keep ? j1 : -1;
+}
+
+template <int R, bool kTiled>
 __global__ void __launch_bounds__(kMaxThreads)
 plicp_corr_kernel(const float2* __restrict__ cur,
                   const uint8_t* __restrict__ sv,
@@ -90,11 +229,14 @@ plicp_corr_kernel(const float2* __restrict__ cur,
                   float max_d2, int line, int doubles,
                   float2* __restrict__ q1, float2* __restrict__ q2,
                   float* __restrict__ d1, uint8_t* __restrict__ ok,
-                  int* __restrict__ j1s, unsigned* __restrict__ tickets) {
+                  int* __restrict__ j1s, unsigned* __restrict__ tickets,
+                  int* __restrict__ best_g) {
   extern __shared__ float2 smem[];
   float2* rxy = smem;
-  int* best = reinterpret_cast<int*>(rxy + nr);
-  uint8_t* rvs = reinterpret_cast<uint8_t*>(best + (doubles ? nr : 0));
+  // shared form: best[] after the ref (the tiled form's is best_g)
+  int* best = reinterpret_cast<int*>(rxy + (kTiled ? kTile : nr));
+  uint8_t* rvs = reinterpret_cast<uint8_t*>(
+      best + (!kTiled && doubles ? nr : 0));
   __shared__ int s_jinv;
   __shared__ bool s_last;
 
@@ -105,43 +247,43 @@ plicp_corr_kernel(const float2* __restrict__ cur,
   const uint8_t* rvn = rv + static_cast<size_t>(n) * nr;
 
   if (tid == 0) s_jinv = nr;  // nr: every ref point valid
-  if (doubles)  // read by the pair's last block only
+  if (!kTiled && doubles)  // read by the pair's last block only
     for (int j = tid; j < nr; j += nthreads) best[j] = __float_as_int(kBig);
   __syncthreads();
   int jinv = nr;
-  constexpr int kStage = 4;  // points a thread loads at once
-  for (int j0 = tid; j0 < nr; j0 += kStage * nthreads) {
-    float2 p[kStage];
-    bool v[kStage];
+  // stage the ref points [j_lo, j_lo + tn) at rxy[0, tn), an invalid one as
+  // NaN; jinv keeps this thread's lowest invalid index
+  auto stage = [&](int j_lo, int tn) {
+    constexpr int kStage = 4;  // points a thread loads at once
+    for (int j0 = tid; j0 < tn; j0 += kStage * nthreads) {
+      float2 p[kStage];
+      bool v[kStage];
 #pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int j = j0 + u * nthreads;
-      v[u] = j < nr && rvn[j];
-      p[u] = j < nr ? refn[j] : make_float2(0.f, 0.f);
-    }
+      for (int u = 0; u < kStage; ++u) {
+        const int j = j0 + u * nthreads;
+        v[u] = j < tn && rvn[j_lo + j];
+        p[u] = j < tn ? refn[j_lo + j] : make_float2(0.f, 0.f);
+      }
 #pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int j = j0 + u * nthreads;
-      if (j >= nr) break;
-      rvs[j] = v[u];
-      rxy[j] = v[u] ? p[u] : make_float2(__int_as_float(0x7fc00000),
-                                         __int_as_float(0x7fc00000));
-      if (!v[u] && jinv == nr) jinv = j;  // this thread's lowest
+      for (int u = 0; u < kStage; ++u) {
+        const int j = j0 + u * nthreads;
+        if (j >= tn) break;
+        rvs[j] = v[u];
+        rxy[j] = v[u] ? p[u] : make_float2(__int_as_float(0x7fc00000),
+                                           __int_as_float(0x7fc00000));
+        if (!v[u] && jinv == nr) jinv = j_lo + j;  // this thread's lowest
+      }
     }
-  }
-  if (jinv < nr) atomicMin(&s_jinv, jinv);
-  __syncthreads();
-  jinv = s_jinv;
+  };
 
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int r0 = blockIdx.x * rows;
   const int r1 = min(b, r0 + rows);
   const size_t pair = static_cast<size_t>(n) * b;
-  for (int base = r0 + warp * R; base < r1; base += (nthreads / 32) * R) {
-    float cx[R], cy[R], bd[R];
-    int bj[R];
-    bool s_ok[R];
+  // R rows from `base` into registers (a row past r1 repeats the last)
+  auto load_rows = [&](int base, float (&cx)[R], float (&cy)[R],
+                       bool (&s_ok)[R], float (&bd)[R], int (&bj)[R]) {
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const size_t o = pair + min(base + k, r1 - 1);
@@ -152,81 +294,53 @@ plicp_corr_kernel(const float2* __restrict__ cur,
       bd[k] = __int_as_float(0x7f800000);  // +inf: above every finite d2
       bj[k] = INT_MAX;
     }
-    for (int j = lane; j < nr; j += 32) {
-      const float2 r = rxy[j];
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float d = sq_dist(cx[k], cy[k], r.x, r.y);
-        if (d < bd[k]) {  // strict: the lane keeps its lowest index
-          bd[k] = d;
-          bj[k] = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      for (int off = 16; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(kFull, bd[k], off);
-        const int oj = __shfl_xor_sync(kFull, bj[k], off);
-        if (od < bd[k] || (od == bd[k] && oj < bj[k])) {
-          bd[k] = od;
-          bj[k] = oj;
-        }
-      }
-    }
+  };
 
-    // lane k finishes row base + k: pick its row's values (a select
-    // chain: registers take no dynamic index)
-    float dk = bd[0], x = cx[0], y = cy[0];
-    int j1 = bj[0];
-    bool src = s_ok[0];
-#pragma unroll
-    for (int k = 1; k < R; ++k) {
-      if (lane == k) {
-        dk = bd[k];
-        j1 = bj[k];
-        x = cx[k];
-        y = cy[k];
-        src = s_ok[k];
-      }
+  if constexpr (!kTiled) {
+    stage(0, nr);
+    if (jinv < nr) atomicMin(&s_jinv, jinv);
+    __syncthreads();
+    jinv = s_jinv;
+    const RefView<false> view{rxy, rvs, refn, rvn};
+    for (int base = r0 + warp * R; base < r1; base += (nthreads / 32) * R) {
+      float cx[R], cy[R], bd[R];
+      int bj[R];
+      bool s_ok[R];
+      load_rows(base, cx, cy, s_ok, bd, bj);
+      lane_min<R>(rxy, nr, 0, lane, cx, cy, bd, bj);
+      butterfly<R>(bd, bj);
+      const int i = base + lane;
+      if (lane >= R || i >= r1) continue;
+      finish_row<R, false>(view, lane, i, pair, nr, jinv, max_d2, line,
+                           doubles, bd, bj, cx, cy, s_ok, q1, q2, d1, ok,
+                           j1s);
     }
+  } else {
+    // one group of R rows a warp; a warp without rows still stages tiles
+    // and meets every barrier
+    const int base = r0 + warp * R;
+    float cx[R], cy[R], bd[R];
+    int bj[R];
+    bool s_ok[R];
+    load_rows(base, cx, cy, s_ok, bd, bj);
+    for (int t0 = 0; t0 < nr; t0 += kTile) {
+      const int tn = min(kTile, nr - t0);
+      __syncthreads();  // the previous tile is consumed
+      stage(t0, tn);
+      __syncthreads();
+      if (base < r1) lane_min<R>(rxy, tn, t0, lane, cx, cy, bd, bj);
+    }
+    if (jinv < nr) atomicMin(&s_jinv, jinv);
+    __syncthreads();
+    jinv = s_jinv;
+    butterfly<R>(bd, bj);
     const int i = base + lane;
-    if (lane >= R || i >= r1) continue;
-    // the invalid ref points read BIG: the lowest of them wins unless a
-    // valid d2 is below BIG, or equals it at a lower index
-    if (jinv < nr && (dk > kBig || (dk == kBig && jinv < j1))) {
-      dk = kBig;
-      j1 = jinv;
+    if (base < r1 && lane < R && i < r1) {
+      const RefView<true> view{rxy, rvs, refn, rvn};
+      finish_row<R, true>(view, lane, i, pair, nr, jinv, max_d2, line,
+                          doubles, bd, bj, cx, cy, s_ok, q1, q2, d1, ok,
+                          j1s);
     }
-    if (!src) {  // every pair reads BIG: the lowest index
-      dk = kBig;
-      j1 = 0;
-    }
-    j1 = min(j1, nr - 1);  // in bounds even for non-finite input
-    const size_t o = pair + i;
-    // shared memory holds NaN where a point is invalid
-    const float2 p1 = rvs[j1] ? rxy[j1] : refn[j1];
-    float2 p2 = p1;
-    bool keep;
-    if (line) {
-      float d_r = kBig;
-      float d_l = kBig;
-      if (src && j1 + 1 < nr && rvs[j1 + 1])
-        d_r = sq_dist(x, y, rxy[j1 + 1].x, rxy[j1 + 1].y);
-      if (src && j1 >= 1 && rvs[j1 - 1])
-        d_l = sq_dist(x, y, rxy[j1 - 1].x, rxy[j1 - 1].y);
-      int j2 = d_r < d_l ? j1 + 1 : j1 - 1;
-      j2 = min(max(j2, 0), nr - 1);
-      p2 = rvs[j2] ? rxy[j2] : refn[j2];
-      keep = dk < kBig && fminf(d_r, d_l) < kBig && dk < max_d2;
-    } else {
-      keep = dk < kBig && dk < max_d2;
-    }
-    q1[o] = p1;
-    q2[o] = p2;
-    d1[o] = dk;
-    ok[o] = keep;  // before the doubles' gate
-    if (doubles) j1s[o] = keep ? j1 : -1;
   }
   if (!doubles) return;
 
@@ -242,6 +356,11 @@ plicp_corr_kernel(const float2* __restrict__ cur,
     __syncthreads();
     if (!s_last) return;
     __threadfence();
+  }
+  if constexpr (kTiled) {  // the pair's best[] in global memory
+    best = best_g + static_cast<size_t>(n) * nr;
+    for (int j = tid; j < nr; j += nthreads) best[j] = __float_as_int(kBig);
+    __syncthreads();
   }
   // each thread reads kGate rows at once (from L2 where other blocks
   // wrote them), j1 = -1 where a row is not ok; with the pair's rows in
@@ -275,26 +394,28 @@ plicp_corr_kernel(const float2* __restrict__ cur,
     for (int u = 0; u < kGate; ++u)
       if (jg[u] >= 0)
         ok[pair + i0 + u * nthreads] =
-            dg[u] <= __fadd_rn(__int_as_float(best[jg[u]]), 1e-12f);
+            dg[u] <= __fadd_rn(__int_as_float(kTiled ? __ldcg(best + jg[u])
+                                                     : best[jg[u]]),
+                               1e-12f);
   }
   if (tid == 0 && !solo) tickets[n] = 0;  // the next launch finds 0
 }
 
-template <int R>
+template <int R, bool kTiled>
 cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t s,
                    const float2* cur, const uint8_t* sv, const float2* ref,
                    const uint8_t* rv, int b, int nr, int rows, float max_d2,
                    int line, int doubles, float2* q1, float2* q2, float* d1,
-                   uint8_t* ok, int* j1s, unsigned* tickets) {
+                   uint8_t* ok, int* j1s, unsigned* tickets, int* best) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        plicp_corr_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        plicp_corr_kernel<R, kTiled>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  plicp_corr_kernel<R><<<grid, threads, smem, s>>>(
+  plicp_corr_kernel<R, kTiled><<<grid, threads, smem, s>>>(
       cur, sv, ref, rv, b, nr, rows, max_d2, line, doubles, q1, q2, d1, ok,
-      j1s, tickets);
+      j1s, tickets, best);
   return cudaGetLastError();
 }
 
@@ -306,24 +427,29 @@ extern "C" {
 // correspondences of cur [n, b, 2] f32 / sv [n, b] uint8 against
 // ref [n, nr, 2] f32 / rv [n, nr] uint8 (contract above), in one launch
 // of `blocks` blocks a pair holding `rows_per_warp` (1, 2 or 4) source
-// rows a warp.  With doubles: j1s [n, b] int32 is scratch and tickets [n]
-// uint32 must hold 0 (the launch leaves it so).  Returns
-// cudaGetLastError() after the launch.
+// rows a warp; n <= 65,535 (the grid's y).  With doubles: j1s [n, b]
+// int32 is scratch and tickets [n] uint32 must hold 0 (the launch leaves
+// it so).  With `tiled`, the ref goes through shared memory in tiles, a
+// warp must hold all its block's rows (rows <= 32 * rows_per_warp) and,
+// with doubles, best [n, nr] int32 is scratch; else the pair's ref (and
+// best[]) must fit a block's shared memory.  Returns cudaGetLastError()
+// after the launch.
 int tpuslam_plicp_corr(const void* cur, const void* sv, const void* ref,
                        const void* rv, int n, int b, int nr, float max_d2,
                        int line, int doubles, int blocks, int rows_per_warp,
-                       void* q1, void* q2, void* d1, void* ok, void* j1s,
-                       void* tickets, void* stream) {
+                       int tiled, void* q1, void* q2, void* d1, void* ok,
+                       void* j1s, void* tickets, void* best, void* stream) {
   cudaGetLastError();  // clear a stale error so the return value is ours
   if (n <= 0 || b <= 0 || nr <= 0) return static_cast<int>(cudaGetLastError());
   const int r = rows_per_warp;
-  if (blocks < 1 || (r != 1 && r != 2 && r != 4))
+  if (blocks < 1 || (r != 1 && r != 2 && r != 4) || n > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = (b + blocks - 1) / blocks;
   const int g = (b + rows - 1) / rows;  // no block without rows
   const int warps = min((rows + r - 1) / r, kMaxThreads / 32);
-  const int smem = smem_bytes(nr, doubles);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = tiled ? tiled_smem_bytes() : smem_bytes(nr, doubles);
+  if (smem > kMaxSmem || (tiled && rows > 32 * r))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(g, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launch_r) {
@@ -335,11 +461,18 @@ int tpuslam_plicp_corr(const void* cur, const void* sv, const void* ref,
                     line, doubles, static_cast<float2*>(q1),
                     static_cast<float2*>(q2), static_cast<float*>(d1),
                     static_cast<uint8_t*>(ok), static_cast<int*>(j1s),
-                    static_cast<unsigned*>(tickets));
+                    static_cast<unsigned*>(tickets), static_cast<int*>(best));
   };
-  const cudaError_t e = r == 1   ? args(launch<1>)
-                        : r == 2 ? args(launch<2>)
-                                 : args(launch<4>);
+  cudaError_t e;
+  if (tiled) {
+    e = r == 1   ? args(launch<1, true>)
+        : r == 2 ? args(launch<2, true>)
+                 : args(launch<4, true>);
+  } else {
+    e = r == 1   ? args(launch<1, false>)
+        : r == 2 ? args(launch<2, false>)
+                 : args(launch<4, false>);
+  }
   return static_cast<int>(e);
 }
 

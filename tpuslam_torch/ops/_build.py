@@ -52,12 +52,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, g, ay, ax, ok, n_a, b, s, stride, out, stream
     "tpuslam_patch_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    # pts, valid, vp, s, b, out, stream
-    "tpuslam_fvp": (_P, _P, _P, _I, _I, _P, _P),
+    # pts, valid, vp, s, b, scratch, out, stream
+    "tpuslam_fvp": (_P, _P, _P, _I, _I, _P, _P, _P),
     # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles, blocks,
-    # rows_per_warp, q1, q2, d1, ok, j1s, tickets, stream
+    # rows_per_warp, tiled, q1, q2, d1, ok, j1s, tickets, best, stream
     "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P, _P),
+                           _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # grid, h, w, pts, valid, pose0, s, b, window, num_iters, yaw_clamp,
     # ws, out_pose, out_h, out_score, out_inb, stream
     "tpuslam_hector_gn": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,

@@ -12,7 +12,10 @@ the walk's parallel form (the decisions are the orbit of the first valid
 point under ``next``; see ``csrc/fvp.cu``), which
 :func:`find_valid_points_chain` writes out in PyTorch for the tests.  All
 three evaluate the same f32 expressions on the same operands, so the
-masks are bit-identical.
+masks are bit-identical.  Scans of any width go to the kernel: where one
+scan's arrays (23 bytes a point) do not fit a block's shared memory,
+:func:`launch_plan` picks the kernel's wide form, which keeps them in a
+global scratch (``LAUNCHES["fvp_wide"]``).
 """
 
 from __future__ import annotations
@@ -21,10 +24,26 @@ import torch
 
 from tpuslam_torch.ops import _build
 
-# kernel launches since the last reset (the CPU path never counts)
-LAUNCHES = {"fvp": 0}
+# kernel launches since the last reset (the CPU path never counts), by
+# form: the scan in shared memory, or in a global scratch (wide scans)
+LAUNCHES = {"fvp": 0, "fvp_wide": 0}
 
 _MIN_SQ = 0.01  # points closer than 0.1 m never advance the anchor
+# a block's shared memory for one scan's arrays: 227 KB less 1 KB for the
+# kernel's static variables and what the system reserves
+SMEM_MAX = 232_448 - 1024
+POINT_BYTES = 23  # x, y, three int arrays and three byte arrays a point
+
+
+def launch_plan(b: int) -> tuple[str, int]:
+    """(form, scratch bytes a scan) of the kernel for scans of ``b``
+    points: "fvp" (no scratch) while a scan's ``23 (b + 1)`` bytes fit a
+    block's shared memory (b <= 10,060), else "fvp_wide" with a 16-byte
+    aligned global slice a scan.  Both forms give the same masks."""
+    need = POINT_BYTES * (b + 1)
+    if need <= SMEM_MAX:
+        return "fvp", 0
+    return "fvp_wide", -(-need // 16) * 16
 
 
 def find_valid_points_plain(
@@ -144,10 +163,16 @@ def find_valid_points(
     valid = valid.contiguous()
     vp = viewpoint.contiguous()
     out = torch.empty((s, b), dtype=torch.bool, device=pts.device)
+    form, slice_bytes = launch_plan(b)
+    scratch = None
+    if slice_bytes:
+        scratch = torch.empty(s * slice_bytes, dtype=torch.uint8,
+                              device=pts.device)
     rc = lib.tpuslam_fvp(
         pts.data_ptr(), valid.data_ptr(), vp.data_ptr(), s, b,
-        out.data_ptr(), torch.cuda.current_stream(pts.device).cuda_stream,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(pts.device).cuda_stream,
     )
     _build.check(rc, "tpuslam_fvp")
-    LAUNCHES["fvp"] += 1
+    LAUNCHES[form] += 1
     return out

@@ -25,7 +25,10 @@ alike but sum the beams in another order, and the card's ``sinf`` /
 ``cosf`` are not torch's, so they agree to f32 rounding, not bit for bit.
 :func:`match_level_lanes` writes the kernel's order out in PyTorch for the
 tests: each thread's in-order beam sums, the shuffle-down tree of a warp,
-the warps of a scan added in order.
+the warps of a scan added in order.  Scans of any beam count go to the
+kernel (:func:`launch_plan`): past 16 beams a thread at 8 warps (4,096
+beams) its wide form reads the beams past a thread's first 16 from global
+memory each iteration, in the same order (``LAUNCHES["hector_gn_wide"]``).
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ import torch
 from tpuslam_torch.ops import _build
 from tpuslam_torch.ops.bilinear import crop_origin
 
-# kernel launches since the last reset (the CPU path never counts)
-LAUNCHES = {"hector_gn": 0}
+# kernel launches since the last reset (the CPU path never counts), by
+# form: every beam in registers, or the wide form past 4,096 beams
+LAUNCHES = {"hector_gn": 0, "hector_gn_wide": 0}
 
 _MAX_WARPS = 8  # warps a scan at most (the kernel's blocks: 256 threads)
-_MAX_BEAMS = 16  # beams a thread at most (held in registers)
+_MAX_BEAMS = 16  # beams a thread held in registers
 
 
 def crop_origin_aligned(pose0: torch.Tensor, shape, window: int):
@@ -205,6 +209,17 @@ def warps_per_scan(s: int, b: int, sms: int) -> int:
     return ws
 
 
+def launch_plan(s: int, b: int, sms: int) -> tuple[str, int]:
+    """(form, warps a scan) of the kernel for S scans of B beams:
+    :func:`warps_per_scan`, and the wide form "hector_gn_wide" where a
+    thread of 8 warps would hold more than 16 beams (B > 4,096), else
+    "hector_gn".  The sums take the order of :func:`match_level_lanes`
+    with those warps either way."""
+    ws = warps_per_scan(s, b, sms)
+    wide = -(-b // (32 * ws)) > _MAX_BEAMS
+    return ("hector_gn_wide" if wide else "hector_gn"), ws
+
+
 def _check(prob_grid, pts_map, valid, poses_map):
     if pts_map.device.type != "cuda":
         raise ValueError(f"hector_gn: unsupported device {pts_map.device}")
@@ -232,9 +247,6 @@ def _check(prob_grid, pts_map, valid, poses_map):
     if min(h, w) < 2 or h * w >= 1 << 31 or not 1 <= s < 1 << 31:
         raise ValueError(f"grid {h}x{w} with {s} scans is outside the "
                          "kernel's range")
-    if b > 32 * _MAX_WARPS * _MAX_BEAMS:
-        raise ValueError(f"{b} beams a scan: the kernel holds at most "
-                         f"{32 * _MAX_WARPS * _MAX_BEAMS}")
 
 
 def _launch(prob_grid, pts_map, valid, poses_map, window, num_iters,
@@ -259,7 +271,7 @@ def _launch(prob_grid, pts_map, valid, poses_map, window, num_iters,
         pts = pts.clone()
     pose0 = poses_map.contiguous()
     dev = pts_map.device
-    ws = warps_per_scan(s, b, _build.sm_count(dev))
+    form, ws = launch_plan(s, b, _build.sm_count(dev))
     poses = torch.empty((s, 3), dtype=torch.float32, device=dev)
     hs = torch.empty((s, 3, 3), dtype=torch.float32, device=dev)
     scores = torch.empty((s,), dtype=torch.float32, device=dev)
@@ -271,7 +283,7 @@ def _launch(prob_grid, pts_map, valid, poses_map, window, num_iters,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "tpuslam_hector_gn")
-    LAUNCHES["hector_gn"] += 1
+    LAUNCHES[form] += 1
     return poses, hs, scores, n_inb
 
 

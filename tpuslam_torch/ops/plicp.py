@@ -19,13 +19,21 @@ distances as the JAX package's XLA chain does.  Both round every f32 op
 (no contraction), so they agree bit for bit in q1, q2, d1 and ok.  Where
 j1 +- 1 leaves the scan the row is never ok, and both take the clamped
 index (the JAX chain wraps around there and the Pallas kernel reads 0).
-The kernel (one launch a call, several blocks a pair) finds the
-minimum in another order, which :func:`correspondences_lanes` writes out
+The kernel (one launch a call up to 65,535 pairs, several blocks a
+pair) finds the minimum in another order, which :func:`correspondences_lanes` writes out
 in PyTorch for the tests: each lane's strict-less-than minimum of the
 valid points, a lexicographic butterfly, then the invalid points as BIG.
+Any reference size and any number of pairs go to the kernel
+(:func:`launch_plan`): past 17,801 reference points the kernel's tiled
+form stages the reference in tiles (``LAUNCHES["plicp_corr_wide"]`` /
+``["plicp_nearest_wide"]``), and past 65,535 pairs the call is further
+launches on the same stream, one for each chunk of pairs (each counted).
+No choice changes a result.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -33,12 +41,20 @@ from tpuslam_torch.ops import _build
 
 BIG = 1e9
 
-# kernel launches since the last reset (the CPU path never counts)
-LAUNCHES = {"plicp_corr": 0, "plicp_nearest": 0}
+# kernel launches since the last reset (the CPU path never counts), by
+# mode and form: the pair's reference in shared memory, or in tiles
+LAUNCHES = {"plicp_corr": 0, "plicp_nearest": 0, "plicp_corr_wide": 0,
+            "plicp_nearest_wide": 0}
 
 # a block stages the pair's ref in shared memory: x, y and valid, 9 bytes
 # a point, and with doubles best[], 4 more; at most 227 KB less 1 KB
 _MAX_SMEM = 232_448 - 1024
+# the most reference points the shared form takes (17,801)
+MAX_SHARED_REF = _MAX_SMEM // 13
+# pairs a launch: the launch grid's y dimension
+MAX_PAIRS = 65535
+# source rows a block of the tiled form: 32 warps of at most 4 rows each
+_TILED_ROWS = 128
 # per (device index, stream): the kernel's ticket counters, one a pair,
 # zeroed once and left at 0 by every launch (see csrc/plicp_corr.cu)
 _TICKETS: dict = {}
@@ -194,11 +210,8 @@ def _check(cur, src_valid, ref, ref_valid):
     for t in (src_valid, ref, ref_valid):
         if t.device != cur.device:
             raise ValueError("cur, ref and the masks must share one device")
-    if not 1 <= nr <= _MAX_SMEM // 13:
-        raise ValueError(f"{nr} reference points: the kernel holds 1 to "
-                         f"{_MAX_SMEM // 13} in one block's shared memory")
-    if not 1 <= n <= 65535 or n * b >= 1 << 31:
-        raise ValueError(f"{n} pairs of {b} points exceed the launch grid")
+    if nr < 1:
+        raise ValueError("no reference points: the nearest one is undefined")
 
 
 def launch_shape(n: int, b: int, sms: int) -> tuple[int, int]:
@@ -214,6 +227,37 @@ def launch_shape(n: int, b: int, sms: int) -> tuple[int, int]:
     while r < 4 and rows > 32 * r:
         r *= 2
     return blocks, r
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel runs a call: the form, blocks a pair, source rows
+    a warp, and the [n0, n1) chunks of pairs, one launch each."""
+
+    tiled: bool
+    blocks: int
+    rows_per_warp: int
+    chunks: tuple
+
+
+def launch_plan(n: int, b: int, nr: int, sms: int) -> LaunchPlan:
+    """The kernel's launches for N pairs of B source and B' (``nr``)
+    reference points on ``sms`` streaming multiprocessors: the shared
+    form while a pair's reference fits a block's shared memory (B' <=
+    17,801), else the tiled form, whose blocks hold at most 128 source
+    rows so that each warp keeps one group of rows across the tiles; the
+    :func:`launch_shape` rule within that; one launch for each chunk of
+    at most 65,535 pairs.  No choice changes a result."""
+    tiled = nr > MAX_SHARED_REF
+    blocks, r = launch_shape(n, b, sms)
+    if tiled and -(-b // blocks) > _TILED_ROWS:
+        blocks = -(-b // _TILED_ROWS)
+        rows = -(-b // blocks)
+        r = 1
+        while r < 4 and rows > 32 * r:
+            r *= 2
+    chunks = tuple((n0, min(n, n0 + MAX_PAIRS))
+                   for n0 in range(0, n, MAX_PAIRS))
+    return LaunchPlan(tiled, blocks, r, chunks)
 
 
 def _tickets(device: torch.device, stream, n: int) -> torch.Tensor:
@@ -241,20 +285,30 @@ def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
     d1 = torch.empty((n, b), dtype=torch.float32, device=cur.device)
     ok = torch.empty((n, b), dtype=torch.bool, device=cur.device)
     stream = torch.cuda.current_stream(cur.device)
+    plan = launch_plan(n, b, nr, _build.sm_count(cur.device))
     if doubles:
         j1 = torch.empty((n, b), dtype=torch.int32, device=cur.device)
         tickets = _tickets(cur.device, stream, n)
     else:
         j1 = tickets = d1  # not read
-    blocks, rows_per_warp = launch_shape(n, b, _build.sm_count(cur.device))
-    rc = lib.tpuslam_plicp_corr(
-        cur.data_ptr(), sv.data_ptr(), ref.data_ptr(), rv.data_ptr(),
-        n, b, nr, float(max_d2), int(line), int(doubles), blocks,
-        rows_per_warp, q1.data_ptr(), q2.data_ptr(), d1.data_ptr(),
-        ok.data_ptr(), j1.data_ptr(), tickets.data_ptr(), stream.cuda_stream,
-    )
-    _build.check(rc, "tpuslam_plicp_corr")
-    LAUNCHES[name] += 1
+    best = d1  # not read
+    if doubles and plan.tiled:
+        best = torch.empty((n, nr), dtype=torch.int32, device=cur.device)
+    key = f"{name}_wide" if plan.tiled else name
+    arrays = (cur, sv, ref, rv, q1, q2, d1, ok, j1, tickets, best)
+    for n0, n1 in plan.chunks:
+        # each chunk's own slice of every array: its first pair's address
+        (p_cur, p_sv, p_ref, p_rv, p_q1, p_q2, p_d1, p_ok, p_j1, p_t,
+         p_best) = (t.data_ptr() + n0 * t.stride(0) * t.element_size()
+                    for t in arrays)
+        rc = lib.tpuslam_plicp_corr(
+            p_cur, p_sv, p_ref, p_rv, n1 - n0, b, nr, float(max_d2),
+            int(line), int(doubles), plan.blocks, plan.rows_per_warp,
+            int(plan.tiled), p_q1, p_q2, p_d1, p_ok, p_j1, p_t, p_best,
+            stream.cuda_stream,
+        )
+        _build.check(rc, "tpuslam_plicp_corr")
+        LAUNCHES[key] += 1
     return q1, q2, d1, ok
 
 
