@@ -1,0 +1,7 @@
+"""Scans registered a second: the pairs matched in all the window's calls
+over all the window's seconds (host clock, from the first call's start to
+the synchronize that ends the last)."""
+
+
+def read(run):
+    return run.calls * run.pairs_per_call / run.window_s
