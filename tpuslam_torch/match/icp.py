@@ -20,6 +20,7 @@ import torch
 from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import IcpConfig
 from tpuslam_torch.ops import plicp as ops
+from tpuslam_torch.utils.timing import span
 
 
 class IcpResult(NamedTuple):
@@ -61,21 +62,31 @@ def icp_batch(cfg: IcpConfig, src, src_valid, dst, dst_valid,
     """ICP over N pairs: src/dst [N, B, 2] sensor-frame metres, masks
     [N, B], init_poses [N, 3].  The nearest neighbours come from
     ``ops.nearest`` whatever ``cfg.correspondence_method`` names: the
-    kernel on a CUDA device, ``nearest_plain`` on the CPU."""
+    kernel on a CUDA device, ``nearest_plain`` on the CPU.  Traced, the
+    call is the span ``icp_batch`` (``utils.timing.span``), each
+    iteration an ``icp.pass`` with its parts ``icp.transform``,
+    ``.nearest``, ``.fit`` and ``.error``."""
     max_d2 = cfg.max_correspondence_dist**2
-    pose = init_poses
-    n_in = err = None
-    for _ in range(cfg.max_iterations):
-        cur = se2.transform_points(pose, src)
-        matched, d2, ok = ops.nearest(cur, src_valid, dst, dst_valid, max_d2)
-        w = ok.to(src.dtype)
-        delta = rigid_fit_2d(cur, matched, w)
-        pose = se2.compose(delta, pose)
-        n_in = w.sum(-1)
-        err = (torch.sqrt(torch.clamp(d2, min=0.0)) * w).sum(-1) / (
-            torch.clamp(n_in, min=1.0))
-    # PCL's hasConverged ~ enough correspondences
-    return IcpResult(pose=pose, converged=n_in >= 10, mean_error=err)
+    with span("icp_batch", src):
+        pose = init_poses
+        n_in = err = None
+        for _ in range(cfg.max_iterations):
+            with span("icp.pass"):
+                with span("icp.transform"):
+                    cur = se2.transform_points(pose, src)
+                with span("icp.nearest"):
+                    matched, d2, ok = ops.nearest(cur, src_valid, dst,
+                                                  dst_valid, max_d2)
+                with span("icp.fit"):
+                    w = ok.to(src.dtype)
+                    delta = rigid_fit_2d(cur, matched, w)
+                    pose = se2.compose(delta, pose)
+                with span("icp.error"):
+                    n_in = w.sum(-1)
+                    err = (torch.sqrt(torch.clamp(d2, min=0.0)) * w).sum(
+                        -1) / torch.clamp(n_in, min=1.0)
+        # PCL's hasConverged ~ enough correspondences
+        return IcpResult(pose=pose, converged=n_in >= 10, mean_error=err)
 
 
 def icp(cfg: IcpConfig, src, src_valid, dst, dst_valid,

@@ -38,6 +38,7 @@ from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import PlicpConfig
 from tpuslam_torch.match.icp import rigid_fit_2d
 from tpuslam_torch.ops import plicp as ops
+from tpuslam_torch.utils.timing import span
 
 BIG = ops.BIG
 
@@ -136,7 +137,16 @@ def scan_orientations(pts, valid, neighbourhood: int,
 def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
                 init_poses) -> PlicpResult:
     """PL-ICP over N pairs: src [N, B, 2] onto ref [N, B', 2] (masks
-    [N, B] / [N, B']) from init_poses [N, 3]."""
+    [N, B] / [N, B']) from init_poses [N, 3].  Traced, the call is the
+    span ``plicp_batch`` (``utils.timing.span``), each iteration a
+    ``plicp.pass`` with its parts ``plicp.transform``, ``.correspond``,
+    ``.residual``, ``.trim`` and ``.system``, and the trust region,
+    validity and covariance ``plicp.finish``."""
+    with span("plicp_batch", src):
+        return _plicp_batch(cfg, src, src_valid, ref, ref_valid, init_poses)
+
+
+def _plicp_batch(cfg, src, src_valid, ref, ref_valid, init_poses):
     if cfg.do_visibility_test:
         ref_valid = visibility_mask(ref, ref_valid, init_poses[..., :2])
     max_d2 = cfg.max_correspondence_dist**2
@@ -185,21 +195,36 @@ def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
                 factor)
 
     def iteration(pose, done):
-        cur = se2.transform_points(pose, src)
-        q1, q2, d1, ok, factor = correspond(pose, cur)
-        r, nrm = _point_line_residual(cur, q1, q2)
-        dist = torch.abs(r)
+        with span("plicp.transform"):
+            cur = se2.transform_points(pose, src)
+        with span("plicp.correspond"):
+            q1, q2, d1, ok, factor = correspond(pose, cur)
+        with span("plicp.residual"):
+            r, nrm = _point_line_residual(cur, q1, q2)
+            dist = torch.abs(r)
+        with span("plicp.trim"):
+            ok = trim(dist, ok)
+        with span("plicp.system"):
+            new_pose, conv, h, w = system(pose, done, cur, q1, r, nrm, ok,
+                                          factor)
+        n_w = w.sum(-1)
+        mean_err = (dist * w).sum(-1) / torch.clamp(n_w, min=1.0)
+        return new_pose, done | conv, n_w, mean_err, h
 
-        # trim at the maxPerc quantile of the ok distances and the
-        # adaptive cut; k = int(n_ok * perc) in f32, as the reference
+    def trim(dist, ok):
+        """``ok`` cut at the maxPerc quantile of the ok distances and the
+        adaptive cut; k = int(n_ok * perc) in f32, as the reference."""
         n_ok = ok.sum(-1).to(torch.float32)
         ks = torch.stack([n_ok * cfg.outliers_maxPerc,
                           n_ok * cfg.outliers_adaptive_order], -1)
         ks = ks.to(torch.int32).clamp(0, dist.shape[-1] - 1).long()
         kth = _kth_smallest(dist, ok, ks)
         cut = torch.minimum(kth[..., 0], cfg.outliers_adaptive_mult * kth[..., 1])
-        ok = ok & (dist <= torch.clamp(cut, min=1e-9)[..., None])
+        return ok & (dist <= torch.clamp(cut, min=1e-9)[..., None])
 
+    def system(pose, done, cur, q1, r, nrm, ok, factor):
+        """The pass's new pose (frozen where ``done``), its convergence,
+        the normal system h and the weights."""
         w = (ok & src_valid).to(src.dtype)
         # use_sigma_weights scales every weight by the uniform 1/sigma^2:
         # the argmin is unchanged and the covariance applies sigma^2 below
@@ -240,9 +265,7 @@ def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
         conv = (torch.abs(delta[..., :2]).amax(-1) < cfg.epsilon_xy) & (
             torch.abs(delta[..., 2]) < cfg.epsilon_theta)
         new_pose = torch.where(done[..., None], pose, new_pose)
-        n_w = w.sum(-1)
-        mean_err = (dist * w).sum(-1) / torch.clamp(n_w, min=1.0)
-        return new_pose, done | conv, n_w, mean_err, h
+        return new_pose, conv, h, w
 
     def run(start):
         pose = start
@@ -250,7 +273,8 @@ def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
         n_w = err = torch.zeros(batch, dtype=src.dtype, device=src.device)
         h = torch.zeros(*batch, 3, 3, dtype=src.dtype, device=src.device)
         for _ in range(cfg.max_iterations):
-            pose, done, n_w, err, h = iteration(pose, done)
+            with span("plicp.pass"):
+                pose, done, n_w, err, h = iteration(pose, done)
         return pose, n_w, err, h
 
     pose, n_last, err_last, h_last = run(init_poses)
@@ -267,24 +291,26 @@ def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
         err_last = torch.where(take, e2, err_last)
         h_last = torch.where(take[..., None, None], h2, h_last)
 
-    # CSM clips corrections beyond the trust region and reports invalid
-    dpose = pose - init_poses
-    within = (
-        (torch.abs(dpose[..., 0]) <= cfg.max_linear_correction)
-        & (torch.abs(dpose[..., 1]) <= cfg.max_linear_correction)
-        & (torch.abs(se2.wrap_angle(dpose[..., 2])) <= max_ang)
-    )
-    valid = within & (n_last >= 3)
-    pose = torch.where(valid[..., None], pose, init_poses)
+    with span("plicp.finish"):
+        # CSM clips corrections beyond the trust region and reports invalid
+        dpose = pose - init_poses
+        within = (
+            (torch.abs(dpose[..., 0]) <= cfg.max_linear_correction)
+            & (torch.abs(dpose[..., 1]) <= cfg.max_linear_correction)
+            & (torch.abs(se2.wrap_angle(dpose[..., 2])) <= max_ang)
+        )
+        valid = within & (n_last >= 3)
+        pose = torch.where(valid[..., None], pose, init_poses)
 
-    eye = torch.eye(3, dtype=src.dtype, device=src.device).expand(*batch, 3, 3)
-    if cfg.do_compute_covariance:
-        # sigma^2 inv(J^T W J) of the last pass's normal system, built at
-        # the returned pose with the weighting that produced it
-        cov = cfg.sigma**2 * torch.linalg.inv_ex(h_last + 1e-9 * eye)[0]
-        cov = torch.where(valid[..., None, None], cov, eye * 1e6)
-    else:
-        cov = eye.clone()
+        eye = torch.eye(3, dtype=src.dtype, device=src.device).expand(
+            *batch, 3, 3)
+        if cfg.do_compute_covariance:
+            # sigma^2 inv(J^T W J) of the last pass's normal system, built
+            # at the returned pose with the weighting that produced it
+            cov = cfg.sigma**2 * torch.linalg.inv_ex(h_last + 1e-9 * eye)[0]
+            cov = torch.where(valid[..., None, None], cov, eye * 1e6)
+        else:
+            cov = eye.clone()
     return PlicpResult(pose=pose, valid=valid, mean_error=err_last,
                        num_inliers=n_last.to(torch.int32), covariance=cov)
 

@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from tpuslam_torch.ops import _build
+from tpuslam_torch.utils.timing import span
 
 BIG = 1e9
 
@@ -270,6 +271,8 @@ def _tickets(device: torch.device, stream, n: int) -> torch.Tensor:
 
 
 def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
+    """The kernel's launches for one call, which its callers time as the
+    span ``ops.plicp_corr``."""
     _check(cur, src_valid, ref, ref_valid)
     lib = _build.load()
     n, b = cur.shape[:2]
@@ -325,8 +328,9 @@ def correspondences(
     if cur.device.type == "cpu":
         return correspondences_plain(cur, src_valid, ref, ref_valid, max_d2,
                                      remove_doubles)
-    return _launch(cur, src_valid, ref, ref_valid, max_d2,
-                   remove_doubles, True, "plicp_corr")
+    with span("ops.plicp_corr"):
+        return _launch(cur, src_valid, ref, ref_valid, max_d2,
+                       remove_doubles, True, "plicp_corr")
 
 
 def nearest_plain(cur, src_valid, dst, dst_valid, max_d2: float):
@@ -341,6 +345,7 @@ def nearest(cur, src_valid, dst, dst_valid, max_d2: float):
     version on CPU."""
     if cur.device.type == "cpu":
         return nearest_plain(cur, src_valid, dst, dst_valid, max_d2)
-    q1, _, d1, ok = _launch(cur, src_valid, dst, dst_valid, max_d2, False,
-                            False, "plicp_nearest")
+    with span("ops.plicp_corr"):
+        q1, _, d1, ok = _launch(cur, src_valid, dst, dst_valid, max_d2,
+                                False, False, "plicp_nearest")
     return q1, d1, ok
