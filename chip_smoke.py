@@ -26,8 +26,14 @@ line):
    its timed calls each row calls the kernel once more on the same inputs,
    which must equal its first call bit for bit (``repeats``: the patch
    sums' float atomics, ``fvp``'s ``atomicMin`` and the correspondences'
-   tickets must not show their order).  Then the rows past the kernels'
-   old ceilings, each also at the ceiling (``check_wide``): ``fvp`` at
+   tickets must not show their order).  PL-ICP's step kernels
+   (``check_plicp_step``, ``STEP_SIZES``: 16,384 pairs and one pair of
+   1081 beams, one pair of 8,192, 8,193 and 18,000, one pass's inputs
+   from phase 4d's world): the trim bit for bit, the system within
+   ``STEP_BOUNDS`` of its plain version (its sums take another order)
+   and bit for bit its own order written in PyTorch (``system_lanes``),
+   one launch and one device op a call each.  Then the rows past the
+   kernels' old ceilings, each also at the ceiling (``check_wide``): ``fvp`` at
    10,060, 10,061 and 16,384 beams (its wide form, the scan's arrays in
    a global scratch), both correspondence modes at 17,801, 17,802 and
    32,768 reference points (the tiled form) and at 65,535 and 65,536
@@ -91,15 +97,17 @@ line):
    cut (``ENDURANCE.json``) by its ``COUNT_BAND`` and ``EPISODE_SLACK``;
    4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
    1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
-   below 0.05 m, the correspondence kernel launched, its first
-   ``REPEAT_SCANS`` (20) scans again from a fresh state give the same
-   poses bit for bit, and the same stream through the kernel's plain
-   version gives the same poses;
+   below 0.05 m, the correspondence kernel and PL-ICP's step kernels
+   (``plicp_trim``, ``plicp_system``) each launched once a pass
+   (``step_launches``), its first ``REPEAT_SCANS`` (20) scans again from
+   a fresh state give the same poses bit for bit, and the same stream
+   through the kernel's plain version gives the same poses;
    4e. frame-to-frame PL-ICP and ICP over the first 50 scans (ICP with
    "kernel" and with its default "auto", which must launch the nearest
-   mode and give the same poses bit for bit), and ``plicp_batch`` /
-   ``icp_batch`` (default methods, the kernel launched) of 256 pairs of
-   512 beams timed against the same calls through the plain versions
+   mode and give the same poses bit for bit; PL-ICP's step kernels once a
+   pass, ICP's none), and ``plicp_batch`` / ``icp_batch`` (default
+   methods, the kernels launched, the step kernels as in 4d) of 256 pairs
+   of 512 beams timed against the same calls through the plain versions
    (``plain_path``), same poses;
    4n. every method name of the JAX package (``RESPONSE_METHODS``,
    ``CORRESPONDENCE_METHODS``, ``IMPLS``) on the card: 4a's mapper's last
@@ -250,6 +258,18 @@ CORR_WIDE_SIZES = [(1, 1081, 17801, ("normal",)),
                    (65535, 64, 64, ("normal",)),
                    (65536, 64, 64, ("normal", "lattice"))]
 HECTOR_WIDE_SIZES = [(64, 4096), (64, 4097), (64, 8192)]
+# PL-ICP's step kernels (pairs, beams, ML factor): the benchmark's call,
+# the odometry's pair (also with ML weights), the last and the first
+# width of the trim's register form (``ops.plicp_step.MAX_REGISTER_ROWS``,
+# 8,192) and the wide odometry's 18,000 beams
+STEP_SIZES = [(16384, 1081, False), (1, 1081, False), (1, 1081, True),
+              (1, 8192, False), (1, 8193, False), (1, 18000, False)]
+# the system kernel against its plain version, one pass on the same
+# inputs: H against sqrt(H_ii H_jj), the pose (m, rad) and the mean error
+# (m).  The two share every row's f32 terms; the kernel sums them in its
+# fixed tree, the plain version in PyTorch's order, and solves in f64
+# where the plain version's LU is f32
+STEP_BOUNDS = {"h": 1e-5, "pose": 1e-6, "mean_error": 1e-6}
 # the patch sums' grid whose flat offsets pass 2^31 (a 2.1 GB byte grid):
 # (G, S, nA, B)
 PATCH_WIDE = (46341, 3, 2, 64)
@@ -293,6 +313,8 @@ MAIN_SHAPES = {
     "plicp_corr": "N=1 B=1081 line doubles normal",
     "plicp_nearest": "N=1 B=1081 nearest normal",
     "hector_gn": "map=1024 S=1024 B=512 window=896",
+    "plicp_trim": "N=1 B=1081",
+    "plicp_system": "N=1 B=1081",
 }
 
 
@@ -317,10 +339,12 @@ KERNEL_NAMES = {
     "plicp_corr": ("plicp_corr_kernel",),
     "plicp_nearest": ("plicp_corr_kernel",),
     "hector_gn": ("hector_gn_kernel",),
+    "plicp_trim": ("plicp_trim_kernel",),
+    "plicp_system": ("plicp_system_kernel",),
 }
 # kernels whose call must be one device op a launch (no fill, no second
 # pass; one launch a chunk of 65,535 pairs)
-ONE_OP = ("plicp_corr", "plicp_nearest")
+ONE_OP = ("plicp_corr", "plicp_nearest", "plicp_trim", "plicp_system")
 # the library yardstick's first call may take this long before it counts
 # as "not measured"
 LIBRARY_CAP_S = 5.0
@@ -361,6 +385,8 @@ CLI_KERNEL_COMMANDS = {
     "plicp_corr": ("plicp-odometry",),
     "plicp_nearest": ("scan-match-icp",),
     "hector_gn": (),
+    "plicp_trim": ("plicp-odometry",),
+    "plicp_system": ("plicp-odometry",),
 }
 
 
@@ -702,6 +728,7 @@ def check_kernels(card: str) -> list[dict]:
                fvp_bound(valid))
     rows += check_corr(card)
     rows += check_hector(card)
+    rows += check_plicp_step(card)
     return rows
 
 
@@ -837,6 +864,122 @@ def check_hector(card: str) -> list[dict]:
                    f"within bounds {diffs}, in gate {in_gate}"),
             "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
             "vs_lanes": lanes})
+    return rows
+
+
+def _step_inputs(n: int, b: int, seed: int = 31):
+    """One PL-ICP pass's inputs for n pairs of b beams: consecutive scans
+    of phase 4d's circle (1 cm range noise; at most 32 pairs, repeated),
+    each pair from a guess of N(0, [0.01, 0.01, 0.005]) about the truth,
+    q1, q2 and ok from the correspondence kernel (line mode, doubles);
+    every fifth pair frozen.  (cur, q1, q2, ok, pose, done, src, sv)."""
+    from tpuslam_torch.core import se2
+    from tpuslam_torch.core.scan import scan_to_points
+    from tpuslam_torch.ops import plicp as ops_p
+
+    m = min(n + 1, 33)
+    _, traj, scans = odometry_stream("cuda", b, m)
+    pts, valid = (torch.stack(x) for x in zip(*map(scan_to_points, scans)))
+    idx = torch.arange(n, device="cuda") % (m - 1)
+    t = torch.tensor(traj, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.tensor([0.01, 0.01, 0.005], device="cuda")
+    pose = (se2.relative(t[idx], t[idx + 1])
+            + torch.randn((n, 3), generator=gen, device="cuda") * noise)
+    src, sv = pts[idx + 1], valid[idx + 1]
+    cur = se2.transform_points(pose, src)
+    q1, q2, _, ok = ops_p.correspondences(cur, sv, pts[idx], valid[idx],
+                                          1.0, True)
+    done = torch.arange(n, device="cuda") % 5 == 4
+    return cur, q1, q2, ok, pose, done, src, sv
+
+
+def step_diffs(got, want) -> dict:
+    """System kernel against a version of it: the largest pose, H
+    (against sqrt(H_ii H_jj)) and mean-error differences, and the pairs
+    whose convergence flag or weight count differs."""
+    (pk, ck, hk, nk, ek), (pp, cp, hp, np_, ep) = got, want
+    d = torch.sqrt(torch.diagonal(hp, dim1=-2, dim2=-1).abs())
+    scale = (d[:, :, None] * d[:, None, :]).clamp(min=1e-30)
+    return {"pose": float((pk - pp).abs().max()),
+            "h": float(((hk - hp).abs() / scale).max()),
+            "mean_error": float((ek - ep).abs().max()),
+            "conv_differ": int((ck != cp).sum()),
+            "n_w_differ": int((nk != np_).sum())}
+
+
+def check_plicp_step(card: str) -> list[dict]:
+    """Phase 3, PL-ICP's step kernels (``csrc/plicp_step.cu``) at
+    ``STEP_SIZES`` on one pass's real inputs (``_step_inputs``): the trim
+    equal to its plain version bit for bit in r, nrm and the cut mask;
+    the system within ``STEP_BOUNDS`` of its plain version with the same
+    convergence flags and weight counts, and equal bit for bit to
+    ``system_lanes`` (the kernel's order in PyTorch on the card); each
+    wrapper call one launch (``LAUNCHES``) and one device op, and a
+    second call equal to the first bit for bit."""
+    from tpuslam_torch.ops import plicp_step as step
+
+    rows = []
+    perc = (0.9, 0.7, 2.0)  # PlicpConfig's trim
+    eps = (1e-6, 1e-6)
+    for n, b, ml in STEP_SIZES:
+        cur, q1, q2, ok, pose, done, src, sv = _step_inputs(n, b)
+        if not ml:
+            def trim_k(a=(cur, q1, q2, ok)):
+                return step.trim(*a, *perc)
+
+            def trim_p(a=(cur, q1, q2, ok)):
+                return step.trim_plain(*a, *perc)
+
+            got, moved = launched((step.LAUNCHES,), trim_k)
+            if moved != {"plicp_trim": 1}:
+                raise RuntimeError(f"plicp_trim N={n} B={b}: launches "
+                                   f"{moved}")
+            want = trim_p()
+            err = float((got[0] - want[0]).abs().max())
+            if not _same(got, want):
+                raise RuntimeError(f"plicp_trim N={n} B={b}: kernel != "
+                                   f"plain (max |r err| {err})")
+            kept = int(got[2].sum())
+            rows.append({**_row(
+                "plicp_trim", f"N={n} B={b}", err, trim_k, trim_p,
+                bound(n * b * 25 + n * b * 13, 0.0), card, got,
+                f"equal, kept {kept} of {int(ok.sum())} rows"),
+                "kept_rows": kept})
+        r, nrm, cut = step.trim_plain(cur, q1, q2, ok, *perc)
+        factor = (torch.rand(ok.shape, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(5))
+                  if ml else None)
+        args = (pose, done, src, sv, r, nrm, cut, factor, *eps)
+
+        def sys_k(a=args):
+            return step.system(*a)
+
+        def sys_p(a=args):
+            return step.system_plain(*a)
+
+        got, moved = launched((step.LAUNCHES,), sys_k)
+        if moved != {"plicp_system": 1}:
+            raise RuntimeError(f"plicp_system N={n} B={b}: launches {moved}")
+        diffs = step_diffs(got, sys_p())
+        order = step.system_lanes(*args)
+        lanes = step_diffs(got, order)
+        shape = f"N={n} B={b}{' ml' if ml else ''}"
+        bad = [k for k, v in STEP_BOUNDS.items() if not diffs[k] <= v]
+        if bad or diffs["conv_differ"] or diffs["n_w_differ"]:
+            raise RuntimeError(f"plicp_system {shape}: {diffs} against "
+                               f"the plain version, bounds {STEP_BOUNDS}")
+        if not _same(got, order):
+            raise RuntimeError(f"plicp_system {shape}: kernel != its order "
+                               f"in PyTorch (system_lanes): {lanes}")
+        nbytes = n * b * (22 + (4 if ml else 0)) + n * (12 + 1) + n * (
+            12 + 1 + 36 + 8)
+        rows.append({**_row(
+            "plicp_system", shape, diffs["pose"], sys_k, sys_p,
+            bound(nbytes, 0.0), card, got,
+            f"within {STEP_BOUNDS}: {diffs}; system_lanes bit for bit"),
+            "diffs": diffs, "lanes_diffs": lanes})
     return rows
 
 
@@ -1011,8 +1154,9 @@ def check_wide(card: str) -> list[dict]:
 def check_f64_refused(card: str) -> dict:
     """Phase 3: the f64 fidelity mode is CPU-only.  On the card each
     wrapper that takes floats (``fvp``, the correspondences in both
-    modes, ``hector_gn``, each also at a shape of its wide form or of
-    several pair chunks) and ``match.plicp.plicp``, which reaches one,
+    modes, ``hector_gn``, PL-ICP's trim and system, each also at a shape
+    of its wide form or of several pair chunks) and
+    ``match.plicp.plicp``, which reaches one,
     must raise ValueError on f64 input, launch no kernel and call no
     plain version (each plain version is swapped for one that raises
     while the check runs)."""
@@ -1022,6 +1166,7 @@ def check_f64_refused(card: str) -> dict:
     from tpuslam_torch.ops import fvp as ops_f
     from tpuslam_torch.ops import hector as ops_h
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     f64 = dict(dtype=torch.float64, device="cuda")
     pts = torch.rand((2, 64, 2), **f64)
@@ -1056,17 +1201,27 @@ def check_f64_refused(card: str) -> dict:
         "hector_gn_wide": lambda: ops_h.match_level_kernel(
             torch.rand((64, 64), **f64), wpts[:, :4097], wvalid[:, :4097],
             torch.zeros((2, 3), **f64), window=64, num_iters=1),
+        "plicp_trim": lambda: ops_s.trim(pts, pts, pts, valid, 0.9, 0.7,
+                                         2.0),
+        "plicp_trim_wide": lambda: ops_s.trim(
+            *(torch.rand((1, 8193, 2), **f64),) * 3,
+            torch.ones((1, 8193), dtype=torch.bool, device="cuda"), 0.9,
+            0.7, 2.0),
+        "plicp_system": lambda: ops_s.system(
+            torch.zeros((2, 3), **f64), valid[:, 0], pts, valid,
+            pts[..., 0], pts, valid, None, 1e-6, 1e-6),
     }
     plains = [(ops_f, "find_valid_points_plain"),
               (ops_p, "correspondences_plain"), (ops_p, "nearest_plain"),
-              (ops_h, "match_level_plain")]
+              (ops_h, "match_level_plain"), (ops_s, "trim_plain"),
+              (ops_s, "system_plain")]
     saved = [getattr(m, k) for m, k in plains]
 
     def refuse(*args, **kw):
         raise RuntimeError("an f64 call on the card reached a plain version")
 
     counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_h.LAUNCHES,
-                ops_p.LAUNCHES)
+                ops_p.LAUNCHES, ops_s.LAUNCHES)
     before = [dict(d) for d in counters]
     t0 = time.perf_counter()
     out = {}
@@ -1527,7 +1682,10 @@ def run_endurance(device, n_scans: int) -> dict:
 def plain_path():
     """Route the matcher through the kernels' plain versions, on whatever
     device the tensors are (a diagnostic: the wrappers themselves never
-    take the plain version for a CUDA tensor)."""
+    take the plain version for a CUDA tensor).  PL-ICP's step kernels
+    (``ops.plicp_step``) stay: the system kernel sums in another order
+    than its plain version (phase 3 holds it to ``STEP_BOUNDS``), and the
+    paths compared through this one must give the same bits."""
     from tpuslam_torch.match import correlative as match_c
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
@@ -1649,10 +1807,30 @@ def _timed(fn, on_card):
     return out, time.perf_counter() - t0
 
 
+def plicp_passes(cfg, calls: int) -> int:
+    """The PL-ICP passes of ``calls`` calls: each runs ``max_iterations``
+    passes, twice with ``restart``."""
+    return calls * cfg.max_iterations * (1 + int(bool(cfg.restart)))
+
+
+def step_launches(tag: str, launches: dict, passes: int) -> None:
+    """Raise unless a path of at most ``ops.plicp.MAX_PAIRS`` pairs a call
+    (one chunk) launched the step kernels and the correspondences once a
+    PL-ICP pass each, ``passes`` in all."""
+    want = {"plicp_trim": passes, "plicp_system": passes,
+            "plicp_corr": passes}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise RuntimeError(f"{tag}: launches {got}, want {want} "
+                           f"({passes} PL-ICP passes)")
+
+
 def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
                  profile: bool = False, repeat: int = 0):
     """Phase 4d: ``plicp_odometry.step`` over the stream; the launch
-    counters are set to 0 just before the stream and read just after.
+    counters (the correspondences' and the step kernels') are set to 0
+    just before the stream and read just after, beside the stream's
+    PL-ICP passes (``passes``: every scan after the first is matched).
     With ``repeat``, the first ``repeat`` scans run again from a fresh
     ``OdomState`` and must give the same poses bit for bit (else raise).
     With ``profile`` (on the card), the stream runs again under
@@ -1660,6 +1838,7 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
     from tpuslam_torch.core.config import PlicpConfig
     from tpuslam_torch.models import plicp_odometry
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     truth, _, scans = odometry_stream(device, num_beams, n_scans)
     cfg = PlicpConfig(num_beams=num_beams, kf_scan_count=6)
@@ -1675,10 +1854,10 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
         return (torch.stack(poses).cpu().numpy(),
                 int(torch.stack(kfs).sum()), int(torch.stack(valid).sum()))
 
-    _reset(ops_p.LAUNCHES)
+    _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
     (poses, n_kf, n_valid), wall = _timed(
         stream, torch.device(device).type == "cuda")
-    launches = dict(ops_p.LAUNCHES)
+    launches = {**ops_p.LAUNCHES, **ops_s.LAUNCHES}
     err = np.hypot(*(poses[:, :2] - truth[:, :2]).T)
     out = {
         "scans": len(scans),
@@ -1691,6 +1870,7 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
         "valid_matches": n_valid,
         "launches": launches,
         "launches_per_scan": launches["plicp_corr"] / len(scans),
+        "passes": plicp_passes(cfg, len(scans) - 1),
     }
     if repeat:
         (again, _, _), secs = _timed(lambda: stream(scans[:repeat]),
@@ -1713,12 +1893,14 @@ def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50,
     """Phase 4e: scan_match_plicp and scan_match_icp (20 iterations as
     ``cli.py``; "kernel" and the default "auto", both the nearest mode)
     over the first scans of the stream (of ``stream_scans``); each run
-    resets the counters just before it and reads them just after.  Errors
-    are against the true frame-to-frame motion."""
+    resets the counters just before it and reads them just after (PL-ICP
+    also its ``passes``).  Errors are against the true frame-to-frame
+    motion."""
     from tpuslam_torch.core import se2
     from tpuslam_torch.core.config import IcpConfig, PlicpConfig
     from tpuslam_torch.models import scan_match_icp, scan_match_plicp
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     _, traj, scans = odometry_stream(device, num_beams, stream_scans)
     scans = scans[:n_scans]
@@ -1744,14 +1926,17 @@ def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50,
                 poses.append(res.pose)
             return torch.stack(poses[1:]).cpu().numpy()
 
-        _reset(ops_p.LAUNCHES)
+        _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
         poses, wall = _timed(stream, on_card)
         err = np.hypot(*(poses[:, :2] - want[:, :2]).T)
         out[tag] = {"scans": len(scans), "seconds": wall,
                     "scans_per_s": len(scans) / wall,
                     "median_err_m": float(np.median(err)),
                     "max_err_m": float(err.max()),
-                    "launches": dict(ops_p.LAUNCHES), "poses": poses}
+                    "launches": {**ops_p.LAUNCHES, **ops_s.LAUNCHES},
+                    "poses": poses}
+        if tag == "plicp":
+            out[tag]["passes"] = plicp_passes(cfg, len(scans) - 1)
     return out
 
 
@@ -1779,20 +1964,22 @@ def batch_fixture(n: int = 256, num_beams: int = 512, device="cuda"):
 
 def time_batches(card: str, runs: int = 5) -> dict:
     """Phase 4e: plicp_batch and icp_batch at N=256, B=512 with their
-    default methods (the kernel; the counters set to 0 just before the
-    first call and read just after) against the same calls through the
+    default methods (the kernels; the counters set to 0 just before the
+    first call and read just after: PL-ICP launches one trim and one
+    system kernel a pass, ICP neither) against the same calls through the
     plain versions (``plain_path``), in turns (plain, kernel, kernel,
     plain)."""
     from tpuslam_torch.core.config import IcpConfig, PlicpConfig
     from tpuslam_torch.match.icp import icp_batch
     from tpuslam_torch.match.plicp import plicp_batch
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     args = batch_fixture()
     n = args[0].shape[0]
+    pcfg = PlicpConfig(num_beams=512)
     calls = {
-        "plicp_batch": lambda: plicp_batch(PlicpConfig(num_beams=512),
-                                           *args),
+        "plicp_batch": lambda: plicp_batch(pcfg, *args),
         "icp_batch": lambda: icp_batch(
             IcpConfig(num_beams=512, max_iterations=10), *args),
     }
@@ -1802,10 +1989,10 @@ def time_batches(card: str, runs: int = 5) -> dict:
             with plain_path():
                 return kern()
 
-        _reset(ops_p.LAUNCHES)
+        _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
         k = kern()
         torch.cuda.synchronize()
-        launches = dict(ops_p.LAUNCHES)
+        launches = {**ops_p.LAUNCHES, **ops_s.LAUNCHES}
         p = plain()
         same = bool(_same(tuple(k), tuple(p)))
         t = [cuda_ms(f, runs) for f in (plain, kern, kern, plain)]
@@ -1822,6 +2009,8 @@ def time_batches(card: str, runs: int = 5) -> dict:
             raise RuntimeError(f"{name}: kernel and plain results differ")
         if not sum(launches.values()):
             raise RuntimeError(f"{name} launched no kernel")
+        passes = plicp_passes(pcfg, 1) if name == "plicp_batch" else 0
+        step_launches(name, launches, passes)
     return out
 
 
@@ -3041,9 +3230,10 @@ def run_cli(cmd: str, args: list, device: str, card: str, scans: int,
     from tpuslam_torch.ops import fvp as ops_f
     from tpuslam_torch.ops import hector as ops_h
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_p.LAUNCHES,
-                ops_h.LAUNCHES)
+                ops_h.LAUNCHES, ops_s.LAUNCHES)
     argv = [cmd, *args, "--device", device]
     buf = io.StringIO()
     _reset(*counters)
@@ -3269,9 +3459,13 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
         got = runs[tag]["launches"]
         if device != "cpu" and not (got["fvp"] > 0 and got["patch_sums"] > 0):
             fails.append(f"{tag} launched {got}")
-    if device != "cpu" and runs["plicp-odometry"]["launches"][
-            "plicp_corr"] <= 0:
+    got = runs["plicp-odometry"]["launches"]
+    if device != "cpu" and got["plicp_corr"] <= 0:
         fails.append("plicp-odometry never launched plicp_corr")
+    if device != "cpu" and not (got["plicp_trim"] == got["plicp_system"]
+                                == got["plicp_corr"]):
+        fails.append(f"plicp-odometry: launches {got}, want one trim and "
+                     "one system a correspondence launch (a pass)")
     held_kernels = {k.split()[0] for k in held}
     if not {"patch_sums", "fvp"} <= held_kernels:
         fails.append(f"the held karto runs held only {sorted(held_kernels)}")
@@ -3915,9 +4109,10 @@ def run_oracle_phase(cfg, device, card: str, graph,
     from tpuslam_torch.ops import fvp as ops_f
     from tpuslam_torch.ops import hector as ops_h
     from tpuslam_torch.ops import plicp as ops_p
+    from tpuslam_torch.ops import plicp_step as ops_s
 
     counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_p.LAUNCHES,
-                ops_h.LAUNCHES)
+                ops_h.LAUNCHES, ops_s.LAUNCHES)
     t_phase = time.perf_counter()
     _reset(*counters)
     out, fails = {}, []
@@ -4225,6 +4420,8 @@ def main() -> int:
     if od["launches"]["plicp_corr"] <= 0:
         raise RuntimeError("the correspondence kernel never launched in the "
                            "odometry")
+    # one trim, one system and one correspondence launch a pass (one pair)
+    step_launches("odometry", od["launches"], od["passes"])
     with plain_path():
         odp, odp_poses = run_odometry("cuda")
     dpose = float(np.abs(odp_poses - od_poses).max())
@@ -4248,6 +4445,10 @@ def main() -> int:
         if ff[tag]["launches"]["plicp_nearest"] <= 0:
             raise RuntimeError(f"{tag} never launched the kernel's nearest "
                                "mode")
+    step_launches("frame-to-frame PL-ICP", ff["plicp"]["launches"],
+                  ff["plicp"]["passes"])
+    for tag in ("icp", "icp_auto"):
+        step_launches(f"frame-to-frame {tag}", ff[tag]["launches"], 0)
     if not np.array_equal(ff["icp"]["poses"], ff["icp_auto"]["poses"]):
         raise RuntimeError("ICP: \"kernel\" and \"auto\" poses differ")
     # PL-ICP lands within millimetres; point-to-point ICP converges
@@ -4335,6 +4536,9 @@ def main() -> int:
                           "tpuslam/ops/pallas_plicp.py:260"),
         "hector_gn": ("tpuslam_torch/csrc/hector_gn.cu",
                       "tpuslam/ops/pallas_hector.py:220"),
+        # no TPU kernel: the JAX package's pass is jnp
+        "plicp_trim": ("tpuslam_torch/csrc/plicp_step.cu", "none"),
+        "plicp_system": ("tpuslam_torch/csrc/plicp_step.cu", "none"),
     }
     # each kernel's count from the paths that run it: Karto's over the room
     # and courtyard streams and the sequential batch run over the
@@ -4353,7 +4557,8 @@ def main() -> int:
                 "hector_gn": hb["launches"]["hector_gn"]}
     launches = {k: v for k, v in launches.items() if k in KERNEL_NAMES}
     path_scans = {**{k: karto_scans for k in s["launches"]},
-                  "plicp_corr": od["scans"],
+                  "plicp_corr": od["scans"], "plicp_trim": od["scans"],
+                  "plicp_system": od["scans"],
                   "plicp_nearest": (ff["icp"]["scans"]
                                     + ff["icp_auto"]["scans"]),
                   "hector_gn": hb["calls"] * hb["scans"]}

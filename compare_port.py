@@ -27,12 +27,16 @@ counts the kernels of either tree's design (``OTHER_NAMES``).
 Fails unless the outputs agree across the trees: bit for bit (a sha256)
 for the patch sums, FindValidPoints, ``plicp_corr``, ``plicp_nearest``,
 the Karto room and courtyard poses (the latter through its loop
-closures' solves), the odometry poses and the three ICP results; within
+closures' solves) and the three ICP results; within
 ``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate counts) for
 ``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
 batched Hector result, whose beam sums may take another order in each
-tree.  Prints a line a run with the card's name and power limit and
-writes ``chiprun_out/compare_port.json``.
+tree; the odometry poses within (keyframes + 1) x
+``chip_smoke.STEP_BOUNDS["pose"]`` (m and rad; :func:`_odometry_gaps`),
+since PL-ICP's Gauss-Newton sums take another order on either side of
+the ``plicp_system`` kernel (whether they are identical is printed).
+Prints a line a run with the card's name and power limit and writes
+``chiprun_out/compare_port.json``.
 """
 
 from __future__ import annotations
@@ -81,7 +85,10 @@ def child(tree: Path) -> dict:
     import tpuslam_torch
 
     if tree != ROOT:  # modules the other tree lacks come from this one
+        import tpuslam_torch.ops
+
         tpuslam_torch.__path__.append(str(ROOT / "tpuslam_torch"))
+        tpuslam_torch.ops.__path__.append(str(ROOT / "tpuslam_torch" / "ops"))
     smoke = _load_smoke()
 
     from tpuslam_torch.core.config import outdoor_karto_config
@@ -161,11 +168,12 @@ def child(tree: Path) -> dict:
             "loop_closures", "ate_m")}
     od, od_poses = smoke.run_odometry("cuda", 1081, 320, profile=True)
     out["odometry"] = {k: od[k] for k in (
-        "scans", "seconds", "scans_per_s", "ate_rmse_m", "launches",
-        "launches_per_scan", "device_ms_per_scan", "device_ops_per_scan",
-        "busy_share")}
+        "scans", "seconds", "scans_per_s", "ate_rmse_m", "keyframes",
+        "launches", "launches_per_scan", "device_ms_per_scan",
+        "device_ops_per_scan", "busy_share")}
     out["odometry"]["poses_sha256"] = hashlib.sha256(
         od_poses.tobytes()).hexdigest()
+    out["odometry"]["poses"] = od_poses.tolist()
     hb = smoke.run_hector_batch("cuda", 1024, impls=("kernel",))
     out["hector_batch"] = {
         "scans": hb["scans"], "ms": hb["kernel"]["ms"],
@@ -212,6 +220,28 @@ def _bounded(smoke, runs, key, bounds, res=1.0) -> dict:
     ok = all(worst.get(k, 0) <= b for k, b in bounds.items()) and not (
         worst.get("inb_differ", 0))
     return {"ok": ok, "diffs": worst}
+
+
+def _odometry_gaps(smoke, runs) -> dict:
+    """The largest xy (m) and heading (rad) gaps of every run's odometry
+    poses from the first's.  A scan's pose composes its keyframe's (each
+    keyframe's pose carries one match) with its own match, and a match's
+    last pass lies within ``STEP_BOUNDS["pose"]`` of the other summation
+    order's at the same inputs, so each gap is held to (keyframes + 1)
+    times that (the most keyframes of the runs)."""
+    base = np.asarray(runs[0]["odometry"]["poses"])
+    xy = th = 0.0
+    for r in runs[1:]:
+        p = np.asarray(r["odometry"]["poses"])
+        xy = max(xy, float(np.hypot(*(p[:, :2] - base[:, :2]).T).max()))
+        th = max(th, float(np.abs(np.angle(np.exp(
+            1j * (p[:, 2] - base[:, 2])))).max()))
+    bound = (max(r["odometry"]["keyframes"] for r in runs) + 1) * (
+        smoke.STEP_BOUNDS["pose"])
+    return {"ok": xy <= bound and th <= bound, "bound": bound,
+            "diffs": {"xy": xy, "theta": th},
+            "identical": len({r["odometry"]["poses_sha256"]
+                              for r in runs}) == 1}
 
 
 def main(other: str) -> int:
@@ -263,8 +293,6 @@ def main(other: str) -> int:
     for where in ("room", "courtyard"):
         same[f"{where}_poses"] = len({r[where]["poses_sha256"]
                                       for r in runs}) == 1
-    same["odometry_poses"] = len({r["odometry"]["poses_sha256"]
-                                  for r in runs}) == 1
     for key, field in (("icp", "poses_sha256"), ("icp_batch", "sha256"),
                        ("cli_icp", "sha256")):
         same[key] = len({r[key][field] for r in runs}) == 1
@@ -273,10 +301,12 @@ def main(other: str) -> int:
     within["hector_batch"] = _bounded(
         smoke, runs, lambda r: r["hector_batch"]["result"],
         smoke.HECTOR_PATH_BOUNDS, runs[0]["hector_batch"]["resolution"])
+    within["odometry_poses"] = _odometry_gaps(smoke, runs)
     for r in runs:  # the outputs are long: keep the verdicts
         for k in BOUNDED:
             r["kernels"][k].pop("output")
         r["hector_batch"].pop("result")
+        r["odometry"].pop("poses")
     print(f"outputs identical across the trees: {same}", flush=True)
     print(f"outputs within bounds across the trees: {within}", flush=True)
     OUT.parent.mkdir(parents=True, exist_ok=True)

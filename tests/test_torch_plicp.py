@@ -46,6 +46,7 @@ from tpuslam_torch.match import plicp as tplicp
 from tpuslam_torch.models import plicp_odometry as todom
 from tpuslam_torch.models import scan_match_plicp as tsmp
 from tpuslam_torch.ops import plicp as tops
+from tpuslam_torch.ops import plicp_step as tstep
 
 # tiny tensors: one intra-op thread, so that parallel test workers do
 # not oversubscribe the cores
@@ -331,7 +332,10 @@ def test_kth_smallest_exact(seed):
     if seed == 2:
         mask[:] = False  # every value masked: BIG
     ks = np.array([0, 5, int(mask.sum() * 0.9), int(mask.sum() * 0.7), b - 1])
-    got = tplicp._kth_smallest(_t(vals), _t(mask), _t(ks)).numpy()
+    got = tstep.kth_smallest(_t(vals), _t(mask), _t(ks)).numpy()
+    # the trim kernel's radix-2 select: the same elements
+    radix = tstep.kth_radix(_t(vals), _t(mask), _t(ks)).numpy()
+    assert radix.tobytes() == got.tobytes()
     for k, g in zip(ks, got):
         want = np.asarray(jplicp._kth_smallest(
             jnp.asarray(vals), jnp.asarray(mask), jnp.int32(k)))

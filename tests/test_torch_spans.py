@@ -32,7 +32,6 @@ PLICP_TREE = {
     "plicp.pass": "plicp_batch",
     "plicp.transform": "plicp.pass",
     "plicp.correspond": "plicp.pass",
-    "plicp.residual": "plicp.pass",
     "plicp.trim": "plicp.pass",
     "plicp.system": "plicp.pass",
     "plicp.finish": "plicp_batch",

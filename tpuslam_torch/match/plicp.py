@@ -14,7 +14,9 @@ package:
 - trimming at the ``outliers_maxPerc`` quantile of the line distances and
   at ``outliers_adaptive_mult x`` the ``outliers_adaptive_order`` quantile,
 - a 3x3 Gauss-Newton step on the point-to-line error (or the closed-form
-  point-to-point fit with ``use_point_to_line_distance=0``),
+  point-to-point fit with ``use_point_to_line_distance=0``); the residual
+  and trim, and the point-to-line step, are ``ops/plicp_step.py``: the
+  ``csrc/plicp_step.cu`` kernels on a CUDA device,
 - optional alpha test, ML incidence weights, visibility test, restart and
   covariance; the trust-region clip of the result and ``valid``.
 
@@ -38,6 +40,7 @@ from tpuslam_torch.core import se2
 from tpuslam_torch.core.config import PlicpConfig
 from tpuslam_torch.match.icp import rigid_fit_2d
 from tpuslam_torch.ops import plicp as ops
+from tpuslam_torch.ops import plicp_step as step
 from tpuslam_torch.utils.timing import span
 
 BIG = ops.BIG
@@ -51,24 +54,6 @@ class PlicpResult(NamedTuple):
     # [..., 3, 3] sigma^2 * inv(J^T W J) of the final normal system;
     # identity when do_compute_covariance=0
     covariance: torch.Tensor
-
-
-def _kth_smallest(values, mask, k):
-    """``sorted(where(mask, values, BIG))[k]`` along the last axis for the
-    indices k [..., K]: the exact elements (the JAX package's 31-step bit
-    search exists only because a sort is slow on the TPU)."""
-    xm = torch.where(mask, values, BIG)
-    return torch.gather(torch.sort(xm, dim=-1).values, -1, k)
-
-
-def _point_line_residual(cur, q1, q2):
-    """Signed distance of cur to line(q1, q2) and the unit normal."""
-    t = q2 - q1
-    tn = torch.clamp(torch.sqrt(t[..., 0] * t[..., 0] + t[..., 1] * t[..., 1]),
-                     min=1e-9)
-    n = torch.stack([-t[..., 1], t[..., 0]], dim=-1) / tn[..., None]
-    r = ((cur - q1) * n).sum(-1)
-    return r, n
 
 
 def visibility_mask(ref, ref_valid, viewpoint):
@@ -140,8 +125,8 @@ def plicp_batch(cfg: PlicpConfig, src, src_valid, ref, ref_valid,
     [N, B] / [N, B']) from init_poses [N, 3].  Traced, the call is the
     span ``plicp_batch`` (``utils.timing.span``), each iteration a
     ``plicp.pass`` with its parts ``plicp.transform``, ``.correspond``,
-    ``.residual``, ``.trim`` and ``.system``, and the trust region,
-    validity and covariance ``plicp.finish``."""
+    ``.trim`` (the point-to-line residual and the cut) and ``.system``,
+    and the trust region, validity and covariance ``plicp.finish``."""
     with span("plicp_batch", src):
         return _plicp_batch(cfg, src, src_valid, ref, ref_valid, init_poses)
 
@@ -199,73 +184,51 @@ def _plicp_batch(cfg, src, src_valid, ref, ref_valid, init_poses):
             cur = se2.transform_points(pose, src)
         with span("plicp.correspond"):
             q1, q2, d1, ok, factor = correspond(pose, cur)
-        with span("plicp.residual"):
-            r, nrm = _point_line_residual(cur, q1, q2)
-            dist = torch.abs(r)
         with span("plicp.trim"):
-            ok = trim(dist, ok)
+            r, nrm, ok = step.trim(cur, q1, q2, ok, cfg.outliers_maxPerc,
+                                   cfg.outliers_adaptive_order,
+                                   cfg.outliers_adaptive_mult)
         with span("plicp.system"):
-            new_pose, conv, h, w = system(pose, done, cur, q1, r, nrm, ok,
-                                          factor)
-        n_w = w.sum(-1)
-        mean_err = (dist * w).sum(-1) / torch.clamp(n_w, min=1.0)
+            if cfg.use_point_to_line_distance:
+                new_pose, conv, h, n_w, mean_err = step.system(
+                    pose, done, src, src_valid, r, nrm, ok, factor,
+                    cfg.epsilon_xy, cfg.epsilon_theta)
+            else:
+                new_pose, conv, h, n_w, mean_err = point_to_point(
+                    pose, done, cur, q1, r, ok, factor)
         return new_pose, done | conv, n_w, mean_err, h
 
-    def trim(dist, ok):
-        """``ok`` cut at the maxPerc quantile of the ok distances and the
-        adaptive cut; k = int(n_ok * perc) in f32, as the reference."""
-        n_ok = ok.sum(-1).to(torch.float32)
-        ks = torch.stack([n_ok * cfg.outliers_maxPerc,
-                          n_ok * cfg.outliers_adaptive_order], -1)
-        ks = ks.to(torch.int32).clamp(0, dist.shape[-1] - 1).long()
-        kth = _kth_smallest(dist, ok, ks)
-        cut = torch.minimum(kth[..., 0], cfg.outliers_adaptive_mult * kth[..., 1])
-        return ok & (dist <= torch.clamp(cut, min=1e-9)[..., None])
-
-    def system(pose, done, cur, q1, r, nrm, ok, factor):
-        """The pass's new pose (frozen where ``done``), its convergence,
-        the normal system h and the weights."""
+    def point_to_point(pose, done, cur, q1, r, ok, factor):
+        """The closed-form point-to-point fit's pass: the new pose (frozen
+        where ``done``), its convergence, h = sum_i w_i J_i^T J_i of the
+        2-row residual with J_i = [[1, 0, dx], [0, 1, dy]], n_w and the
+        mean inlier point-to-line distance."""
         w = (ok & src_valid).to(src.dtype)
-        # use_sigma_weights scales every weight by the uniform 1/sigma^2:
-        # the argmin is unchanged and the covariance applies sigma^2 below
         wsys = w if factor is None else w * factor
         c, s = torch.cos(pose[..., 2:3]), torch.sin(pose[..., 2:3])
         px, py = src[..., 0], src[..., 1]
         drot = torch.stack([-s * px - c * py, c * px - s * py], dim=-1)
-        if cfg.use_point_to_line_distance:
-            # GN on r = n.(R p + t - q1): J = [nx, ny, n.(dR/dth p)]
-            jth = (nrm * drot).sum(-1)
-            jac = torch.cat([nrm, jth[..., None]], dim=-1)  # [..., B, 3]
-            h = (jac[..., :, None] * jac[..., None, :]
-                 * wsys[..., None, None]).sum(-3)
-            g = (jac * (r * wsys)[..., None]).sum(-2)
-            eye = torch.eye(3, dtype=h.dtype, device=h.device)
-            delta = -torch.linalg.solve_ex(h + 1e-9 * eye, g[..., None])[0][..., 0]
-            new_pose = pose + delta
-            new_pose = torch.cat(
-                [new_pose[..., :2], se2.wrap_angle(new_pose[..., 2:3])], -1)
-        else:
-            # point-to-point: the closed-form fit; h = sum_i w_i J_i^T J_i
-            # of the 2-row residual with J_i = [[1, 0, dx], [0, 1, dy]]
-            new_pose = se2.compose(rigid_fit_2d(cur, q1, wsys), pose)
-            delta = new_pose - pose
-            # compose wraps the heading: near +-pi the raw difference is
-            # ~2 pi and convergence would never be seen
-            delta = torch.cat(
-                [delta[..., :2], se2.wrap_angle(delta[..., 2:3])], -1)
-            sw = wsys.sum(-1)
-            swd = (wsys[..., None] * drot).sum(-2)
-            swdd = (wsys * (drot * drot).sum(-1)).sum(-1)
-            zero = torch.zeros_like(sw)
-            h = torch.stack([
-                torch.stack([sw, zero, swd[..., 0]], -1),
-                torch.stack([zero, sw, swd[..., 1]], -1),
-                torch.stack([swd[..., 0], swd[..., 1], swdd], -1),
-            ], -2)
+        new_pose = se2.compose(rigid_fit_2d(cur, q1, wsys), pose)
+        delta = new_pose - pose
+        # compose wraps the heading: near +-pi the raw difference is ~2 pi
+        # and convergence would never be seen
+        delta = torch.cat(
+            [delta[..., :2], se2.wrap_angle(delta[..., 2:3])], -1)
+        sw = wsys.sum(-1)
+        swd = (wsys[..., None] * drot).sum(-2)
+        swdd = (wsys * (drot * drot).sum(-1)).sum(-1)
+        zero = torch.zeros_like(sw)
+        h = torch.stack([
+            torch.stack([sw, zero, swd[..., 0]], -1),
+            torch.stack([zero, sw, swd[..., 1]], -1),
+            torch.stack([swd[..., 0], swd[..., 1], swdd], -1),
+        ], -2)
         conv = (torch.abs(delta[..., :2]).amax(-1) < cfg.epsilon_xy) & (
             torch.abs(delta[..., 2]) < cfg.epsilon_theta)
         new_pose = torch.where(done[..., None], pose, new_pose)
-        return new_pose, conv, h, w
+        n_w = w.sum(-1)
+        mean_err = (torch.abs(r) * w).sum(-1) / torch.clamp(n_w, min=1.0)
+        return new_pose, conv, h, n_w, mean_err
 
     def run(start):
         pose = start

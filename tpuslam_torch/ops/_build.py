@@ -12,9 +12,10 @@ a plain C interface::
 and loaded with ``ctypes``.  ``<hash>`` is a hash of the sources and the
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into an FMA:
-the FindValidPoints walk and the correspondence distances must evaluate
-their f32 expressions in the reference's exact order, and the Hector GN
-kernel's per-beam terms those of its plain version.
+the FindValidPoints walk, the correspondence distances and PL-ICP's
+residual must evaluate their f32 expressions in the reference's exact
+order, and the Hector GN kernel's and PL-ICP system's per-row terms those
+of their plain versions.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p``, its sizes as ``c_int`` and its f32 scalars as ``c_float``,
@@ -62,6 +63,14 @@ SIGNATURES = {
     # ws, out_pose, out_h, out_score, out_inb, stream
     "tpuslam_hector_gn": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                           _P, _P, _P, _P, _P),
+    # cur, q1, q2, ok, n, b, max_perc, adaptive_order, adaptive_mult,
+    # threads, wide, r, nrm, ok_out, stream
+    "tpuslam_plicp_trim": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P,
+                           _P, _P, _P),
+    # pose, done, src, sv, r, nrm, ok, factor, n, b, eps_xy, eps_theta,
+    # pose_out, conv, h, n_w, err, stream
+    "tpuslam_plicp_system": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                             _P, _P, _P, _P, _P, _P),
 }
 _ERROR_STRING = "tpuslam_error_string"  # int code -> const char*
 
