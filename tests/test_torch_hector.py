@@ -50,6 +50,7 @@ from tpuslam.oracle.hector import OracleHectorMap, OracleHectorMatcher
 from tpuslam_torch import convert
 from tpuslam_torch.core import config as tconfig
 from tpuslam_torch.core.grid import GridSpec as TGridSpec
+from tpuslam_torch.core.grid import recip
 from tpuslam_torch.core.scan import make_scan as tmake_scan
 from tpuslam_torch.core.scan import scan_to_points as tscan_to_points
 from tpuslam_torch.match import hector as thector
@@ -145,6 +146,22 @@ def test_grid_spec_equals_jax(args):
                                   _np(js.in_bounds(ix, iy, 2)))
     np.testing.assert_array_equal(ts.flat_index(_t(ix), _t(iy)).numpy(),
                                   _np(js.flat_index(ix, iy)))
+
+
+def test_grid_spec_origin_is_made_once_a_dtype_and_device():
+    """The transforms take one origin tensor a (spec origin, dtype,
+    device), made once: on a card a tensor made from Python numbers waits
+    for the stream, several times a match otherwise."""
+    spec = TGridSpec.centered(0.05, 2048)
+    w = torch.tensor([[1.0, -2.0]])
+    first = spec._origin(w)
+    assert spec.coarsen()._origin(w) is first
+    assert TGridSpec.centered(0.05, 2048)._origin(w) is first
+    assert spec._origin(w.double()) is not first
+    assert spec._origin(w.double()).dtype == torch.float64
+    made = torch.tensor([spec.origin_x, spec.origin_y])
+    assert torch.equal(first, made) and first.dtype == torch.float32
+    assert torch.equal(spec.world_to_map(w), (w - made) * recip(0.05))
 
 
 # --------------------------------------------------------------- raycast

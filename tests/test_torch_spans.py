@@ -7,7 +7,9 @@ op nested as the matchers nest their work, never a user annotation (which
 kineto would copy onto the device's timeline), and ``span_totals()`` counts
 every one.  Tracing moves no tensor op: the outputs are the same bits with
 it on and off, on the fixtures of ``test_torch_plicp.py`` and
-``test_torch_icp.py``.
+``test_torch_icp.py``.  ``match_pyramid_batched``'s kernel route opens
+``hector_batch`` once a call, with ``hector.coarse`` and ``hector.fine``
+inside it.
 """
 
 from collections import Counter
@@ -20,8 +22,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from tpuslam_torch.core import config as tconfig
+from tpuslam_torch.match import hector as thector
 from tpuslam_torch.match import icp as ticp
 from tpuslam_torch.match import plicp as tplicp
+from tpuslam_torch.models import hector_slam as tslam
 from tpuslam_torch.utils import timing
 
 torch.set_num_threads(1)
@@ -60,6 +64,33 @@ def _icp(knobs: dict):
     return lambda: ticp.icp_batch(cfg, src, sv, dst, dv, init)
 
 
+HECTOR_TREE = {
+    "hector_batch": None,
+    "hector.coarse": "hector_batch",
+    "hector.fine": "hector_batch",
+}
+
+
+def _hector():
+    """4 scans of 181 beams against a 3-level pyramid of a 128-cell room
+    (walls 0.9, inside 0.3), through the kernel route (its plain finest
+    level on the CPU)."""
+    specs = tslam.make_specs(tconfig.HectorConfig(map_size=128))
+    grid = torch.full((128, 128), 0.3)
+    grid[[30, 98], 30:99] = 0.9
+    grid[30:99, [30, 98]] = 0.9
+    grids = tuple(grid[::2 ** i, ::2 ** i].contiguous() for i in range(3))
+    gen = torch.Generator().manual_seed(5)
+    angles = torch.linspace(-2.3, 2.3, 181)
+    ranges = 1.2 + 0.5 * torch.rand(4, 181, generator=gen)
+    pts = torch.stack([ranges * angles.cos(), ranges * angles.sin()], -1)
+    valid = torch.rand(4, 181, generator=gen) > 0.1
+    guesses = 0.05 * torch.randn(4, 3, generator=gen)
+    return lambda: thector.match_pyramid_batched(
+        specs, grids, pts, valid, guesses, max_point_range=3.0,
+        compute_dtype=torch.bfloat16, impl="kernel")
+
+
 # (the call, its spans, passes a call)
 CASES = {
     "plicp": (lambda: _plicp({}), PLICP_TREE, 10),
@@ -68,6 +99,7 @@ CASES = {
     "plicp_point_to_point": (lambda: _plicp(plicp_t.KNOBS["point_to_point"]),
                              PLICP_TREE, 10),
     "icp": (lambda: _icp({}), ICP_TREE, 10),
+    "hector": (_hector, HECTOR_TREE, 0),
 }
 
 
@@ -119,14 +151,28 @@ def test_spans_nest_as_the_matcher_and_are_counted(case):
 
 @pytest.mark.parametrize(
     "matcher, knob",
-    [("plicp", k) for k in plicp_t.KNOBS] + [("icp", "default")])
+    [("plicp", k) for k in plicp_t.KNOBS] + [("icp", "default"),
+                                              ("hector", "default")])
 def test_tracing_leaves_the_outputs_bit_equal(matcher, knob):
     call = (_plicp(plicp_t.KNOBS[knob]) if matcher == "plicp"
-            else _icp({}))
+            else _icp({}) if matcher == "icp" else _hector())
     off = call()
     on, _, totals = _traced(call)
     assert totals[f"{matcher}_batch"].count == 1
     _assert_bits_equal(off, on)
+
+
+def test_hector_spans_open_once_a_call():
+    call = _hector()
+    timing.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+        call()
+    totals = timing.span_totals()
+    assert set(totals) == set(HECTOR_TREE)
+    for name, parent in HECTOR_TREE.items():
+        assert totals[name].count == totals[name].calls == 2
+        assert totals[name].parents == {parent}
 
 
 def test_a_span_closes_when_its_work_raises():

@@ -10,9 +10,20 @@ OccGridMapUtil.h:139-228).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _origin_tensor(x: float, y: float, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """[x, y] on ``device``, made once: a tensor made from Python numbers on
+    a CUDA device is a copy that waits for the device's stream, and the
+    transforms run several times a match.  Read-only: callers take it as
+    an operand."""
+    return torch.tensor([x, y], dtype=dtype, device=device)
 
 
 def recip(d: float) -> float:
@@ -63,8 +74,8 @@ class GridSpec:
         )
 
     def _origin(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor([self.origin_x, self.origin_y], dtype=like.dtype,
-                            device=like.device)
+        return _origin_tensor(self.origin_x, self.origin_y, like.dtype,
+                              like.device)
 
     # --- point transforms -------------------------------------------------
     def world_to_map(self, pts: torch.Tensor) -> torch.Tensor:

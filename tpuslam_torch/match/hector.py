@@ -33,6 +33,7 @@ from tpuslam_torch.ops.bilinear import (
     interp_value_grad_window,
     round_up,
 )
+from tpuslam_torch.utils.timing import span
 
 # the JAX package's names and the port's "kernel"; "pallas" is "kernel"
 IMPLS = ("mxu", "gather", "pallas", "kernel")
@@ -243,7 +244,12 @@ def match_pyramid_batched(
     rounded up to 128 (the +256 is the slack for the kernel's (8, 128)
     crop alignment) and the coarse levels through the windowed sampler
     with ``2R/res + 64``.  "pallas", the JAX package's name for that
-    route, is "kernel": no other formulation is selected by it."""
+    route, is "kernel": no other formulation is selected by it.
+
+    On that route, under ``torch.profiler``, the call is the span
+    ``hector_batch``, its coarse levels ``hector.coarse`` and its finest
+    level (the grid's bf16 cast and the kernel's launch, the plain level
+    on the CPU) ``hector.fine`` (``utils/timing.span``)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r}; known: {IMPLS}")
     if impl not in ("kernel", "pallas"):
@@ -257,28 +263,26 @@ def match_pyramid_batched(
         )
     if max_point_range is None:
         raise ValueError(f"impl={impl!r} requires max_point_range")
-    poses = poses_world
-    s = poses.shape[0]
-    hess = torch.eye(3, dtype=poses.dtype, device=poses.device).expand(
-        s, 3, 3)
-    scores = torch.zeros(s, dtype=poses.dtype, device=poses.device)
-    for lvl in range(len(specs) - 1, -1, -1):
-        spec = specs[lvl]
-        pts_map = pts_base * recip(spec.resolution)
-        poses_map = spec.world_pose_to_map(poses)
-        iters = iterations_finest if lvl == 0 else iterations_coarse
-        if lvl == 0:
+    with span("hector_batch", pts_base):
+        poses = poses_world
+        with span("hector.coarse"):
+            for lvl in range(len(specs) - 1, 0, -1):
+                spec = specs[lvl]
+                poses_map, hess, scores = match_level(
+                    prob_grids[lvl], pts_base * recip(spec.resolution), valid,
+                    spec.world_pose_to_map(poses),
+                    num_iters=iterations_coarse, yaw_clamp=yaw_clamp,
+                    window=_window(spec, max_point_range, 64),
+                    compute_dtype=compute_dtype,
+                )
+                poses = spec.map_pose_to_world(poses_map)
+        with span("hector.fine"):
+            spec = specs[0]
             poses_map, hess, scores = ops_hector.match_level_kernel(
-                prob_grids[lvl], pts_map, valid, poses_map,
+                prob_grids[0], pts_base * recip(spec.resolution), valid,
+                spec.world_pose_to_map(poses),
                 window=_window(spec, max_point_range, 64 + 256),
-                num_iters=iters, yaw_clamp=yaw_clamp,
+                num_iters=iterations_finest, yaw_clamp=yaw_clamp,
             )
-        else:
-            poses_map, hess, scores = match_level(
-                prob_grids[lvl], pts_map, valid, poses_map, num_iters=iters,
-                yaw_clamp=yaw_clamp,
-                window=_window(spec, max_point_range, 64),
-                compute_dtype=compute_dtype,
-            )
-        poses = spec.map_pose_to_world(poses_map)
+            poses = spec.map_pose_to_world(poses_map)
     return MatchResult(pose=poses, hessian=hess, score=scores)
