@@ -13,8 +13,10 @@ line):
 3. every kernel against its plain PyTorch version on the card at the
    production sizes (and FindValidPoints' edge cases: one valid point a
    scan, B=1, whole scans inside 0.1 m): bit for bit, except the Hector
-   GN level (``hector_gn``), whose beam sums take another order, held to
-   ``HECTOR_BOUNDS`` with equal in-gate counts.  Each row gets the
+   GN level (``hector_gn``, on every pyramid level), whose beam sums take
+   another order, held to ``HECTOR_BOUNDS`` (``HECTOR_LEVEL_BOUNDS`` on a
+   coarse level) with equal in-gate counts and bit for bit to its own
+   order written in PyTorch (``match_level_lanes``).  Each row gets the
    wrapper's and the plain version's CUDA-event time (one pair of events
    around 20 calls), the kernel's own device time from ``torch.profiler``
    (``kernel_us``, summed by kernel name over 20 calls), its roofline bound
@@ -118,11 +120,13 @@ line):
    Hector "pallas" is "kernel", "mxu" and "gather" themselves) and launch
    its kernel (Hector's "mxu" and "gather" none);
    4f. ``match_pyramid_batched`` at bench.py's operating point (map 1024,
-   512 beams, 1024 scans): impl "kernel" (the GN kernel on the finest
-   level), "mxu" (the windowed sampler throughout) and the kernel path
-   through the kernel's plain version; each converges as bench.py
-   requires, the kernel launches once a call, and the kernel path agrees
-   with the plain one within ``HECTOR_PATH_BOUNDS``;
+   512 beams, 1024 scans): impl "kernel" (the GN kernel on every level
+   at the configuration's bfloat16), "mxu" (the windowed sampler
+   throughout) and the kernel path through the kernel's plain version on
+   every level; each converges as bench.py requires, the kernel launches
+   once a pyramid level a call, the kernel path agrees with the plain
+   one within ``HECTOR_PATH_BOUNDS`` and with the same pyramid in float64
+   within ``HECTOR_F64_BOUNDS``;
    4p. the paths past the kernels' old ceilings (``run_wide_phase``,
    the ``WIDE_*`` constants): Karto at the outdoor configuration with
    12,000 beams over the first 6 scans of the room circuit (the ATE
@@ -285,8 +289,9 @@ PROFILE_SCANS = 80
 # must repeat the first run bit for bit (tests/test_determinism.py)
 REPEAT_SCANS = 20
 # (fixture, scans): bench.py's batch (map 1024, 512 beams, R = 12 m:
-# window 896), the reference defaults (map 2048, 1081 beams, R = 20 m:
-# window 1152) for one scan and for a batch of 256
+# windows 896, 512 and 256 by level), the reference defaults (map 2048,
+# 1081 beams, R = 20 m: windows 1152, 768 and 512) for one scan and for a
+# batch of 256; check_hector runs each on every pyramid level
 HECTOR_SIZES = [("bench", 1024), ("reference", 1), ("reference", 256)]
 # kernel vs plain bounds (cells, rad, score, H entries over their
 # diagonal pair's scale): the two share every per-beam f32 expression and
@@ -304,17 +309,49 @@ HECTOR_BOUNDS = {"xy": 1e-3, "yaw": 1e-5, "score": 1e-5, "h_p99": 1e-4,
 # 1 a cell) + R/res |dyaw| (240 cells at 12 m): the ~4e-5 cells and
 # ~1.6e-7 rad by which the two paths' poses part allow ~1.2e-4
 HECTOR_PATH_BOUNDS = {**HECTOR_BOUNDS, "score": 1e-4}
+# phase 3's coarse-level rows (the grid's cells 2x and 4x the finest's, 5
+# iterations from the batch's guesses) against the plain version.  The
+# kernel is held to its own order (``match_level_lanes``) bit for bit on
+# every row, so these bounds allow for the plain version's summation
+# order alone.  That order moves a pose by an ulp, and an ulp of heading
+# can put one beam in another cell in one version only: its gradient's
+# jump g (~0.06 here) then moves the next step by ~g / H_xx in x and up
+# to g R/res / H_yaw in heading.  In bench.py's rect room, 512 beams
+# give H_xx ~31-42 and H_yaw ~8,400 at map 256 (R/res 60): ~2e-3 cells
+# and up to ~4e-4 rad for one such beam.  Read on the card (1024 scans):
+# map 512 xy 1.50e-3 cells, yaw 4.0e-6, score 4.5e-5; map 256 xy 2.15e-3,
+# yaw 2.8e-5, score 2.8e-6
+HECTOR_LEVEL_BOUNDS = {**HECTOR_PATH_BOUNDS, "xy": 5e-3, "yaw": 2e-4}
+# phase 4f (and compare_port.py, in either tree) holds the kernel path to
+# the same pyramid in float64 (the windowed sampler, no bf16): the keys of
+# HECTOR_BOUNDS and "xy_mean", the mean xy gap in cells.  The bf16 grid
+# moves a scan that the 5 + 3 + 3 iterations leave short of its optimum:
+# with the plain level in the kernel's place (on the CPU), the kernel on
+# every level reads xy 0.187 cells, xy_mean 0.0076, yaw 2.25e-3 rad,
+# score 0.023, h_p99 0.047 and h 0.084, and the windowed sampler at bf16
+# on the coarse levels 0.213, 0.0075, 2.33e-3, 0.029, 0.044 and 0.111.
+# The bounds are about twice those.  Coarse levels cut to one iteration
+# read xy_mean 0.027, yaw 4.7e-3, score 0.048, h_p99 0.125 and h 0.21,
+# and coarse windows without their slack xy 0.51 and xy_mean 0.10: both
+# fail
+HECTOR_F64_BOUNDS = {"xy": 0.4, "xy_mean": 0.015, "yaw": 4e-3,
+                     "score": 0.04, "h_p99": 0.08, "h": 0.2}
 # each path's shapes (outdoor Karto, the odometry at 1081 beams, batched
-# Hector at bench.py's operating point) for the kernel table
+# Hector at bench.py's operating point) for the kernel table: every shape
+# the path launches the kernel at, the first the one the table's row
+# times (batched Hector launches hector_gn once a pyramid level, finest
+# first)
 MAIN_SHAPES = {
-    "patch_sums": "G=2007 S=9 nA=21 B=1081",
-    "patch_sums_stride2": "G=1151 s2=76 nA=21 B=1081",
-    "fvp": "S=110 B=1081",
-    "plicp_corr": "N=1 B=1081 line doubles normal",
-    "plicp_nearest": "N=1 B=1081 nearest normal",
-    "hector_gn": "map=1024 S=1024 B=512 window=896",
-    "plicp_trim": "N=1 B=1081",
-    "plicp_system": "N=1 B=1081",
+    "patch_sums": ("G=2007 S=9 nA=21 B=1081",),
+    "patch_sums_stride2": ("G=1151 s2=76 nA=21 B=1081",),
+    "fvp": ("S=110 B=1081",),
+    "plicp_corr": ("N=1 B=1081 line doubles normal",),
+    "plicp_nearest": ("N=1 B=1081 nearest normal",),
+    "hector_gn": ("map=1024 S=1024 B=512 window=896",
+                  "map=512 S=1024 B=512 window=512",
+                  "map=256 S=1024 B=512 window=256"),
+    "plicp_trim": ("N=1 B=1081",),
+    "plicp_system": ("N=1 B=1081",),
 }
 
 
@@ -699,7 +736,7 @@ def check_kernels(card: str) -> list[dict]:
                          lambda: ops_c.patch_sums(q, ay, ax, ok, s),
                          lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s),
                          patch_bound(q, ay, ax, ok, s))
-            if shape == MAIN_SHAPES["patch_sums"]:
+            if shape in MAIN_SHAPES["patch_sums"]:
                 row.update(library_ms(q, ay, ax, ok, s, 1))
     for g, s2 in STRIDE2_SIZES:
         span = 2 * (s2 - 1) + 1
@@ -714,7 +751,7 @@ def check_kernels(card: str) -> list[dict]:
                      lambda: ops_c.patch_sums_stride2(q, ay, ax, ok, s2),
                      lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s2, 2),
                      patch_bound(q, ay, ax, ok, s2, 2))
-        if shape == MAIN_SHAPES["patch_sums_stride2"]:
+        if shape in MAIN_SHAPES["patch_sums_stride2"]:
             row.update(library_ms(q, ay, ax, ok, s2, 2))
     rng = np.random.default_rng(23)
     for s, b, kind in FVP_SIZES:
@@ -825,7 +862,12 @@ def _within(tag, diffs, bounds):
 
 def check_hector(card: str) -> list[dict]:
     """Phase 3, the Hector GN level: the kernel against its plain version
-    at the paths' shapes, 5 iterations from the batch's guesses."""
+    at the paths' shapes, on every pyramid level (each level's grid, the
+    scans scaled to its cells, its window by the path's rule), 5
+    iterations from the batch's guesses: bit for bit its own order in
+    PyTorch (``match_level_lanes``), and within ``HECTOR_BOUNDS`` of the
+    plain version on the finest level, ``HECTOR_LEVEL_BOUNDS`` on a
+    coarse one."""
     from tpuslam_torch.core.grid import recip
     from tpuslam_torch.match.hector import _window
     from tpuslam_torch.ops import _build
@@ -836,34 +878,39 @@ def check_hector(card: str) -> list[dict]:
                 "reference": hector_fixture("cuda", 256, "reference")}
     for where, n in HECTOR_SIZES:
         cfg, specs, grids, pts, valid, _, guesses = fixtures[where]
-        spec = specs[0]
         r = min(cfg.laser_max_dist, cfg.use_max_scan_range)
-        window = min(_window(spec, r, 64 + 256), *spec.shape)
-        args = (grids[0], pts[:n] * recip(spec.resolution), valid[:n],
-                spec.world_pose_to_map(guesses[:n]), window, 5, 0.2)
-        got, want = ops_h._launch(*args), ops_h._plain(*args)
-        diffs = hector_gn_diffs(got, want)
-        shape = (f"map={spec.size_x} S={n} B={cfg.num_beams} "
-                 f"window={window}")
-        _within(f"hector_gn {shape}", diffs, HECTOR_BOUNDS)
-        # the kernel's own order of the beam sums, in PyTorch on the card
-        ws = ops_h.warps_per_scan(n, cfg.num_beams,
-                                  _build.sm_count(grids[0].device))
-        lanes = hector_gn_diffs(got, ops_h.match_level_lanes(
-            *args[:4], window=window, num_iters=5, ws=ws))
-        print(f"  hector_gn {shape}: {ws} warps a scan; kernel vs its order "
-              f"in PyTorch {lanes}", flush=True)
+        for lvl, spec in enumerate(specs):
+            window = min(_window(spec, r, 64 + 256), *spec.shape)
+            args = (grids[lvl], pts[:n] * recip(spec.resolution), valid[:n],
+                    spec.world_pose_to_map(guesses[:n]), window, 5, 0.2)
+            got, want = ops_h._launch(*args), ops_h._plain(*args)
+            diffs = hector_gn_diffs(got, want)
+            shape = (f"map={spec.size_x} S={n} B={cfg.num_beams} "
+                     f"window={window}")
+            # the kernel's own order of the beam sums, in PyTorch on the
+            # card
+            ws = ops_h.warps_per_scan(n, cfg.num_beams,
+                                      _build.sm_count(grids[lvl].device))
+            lanes = hector_gn_diffs(got, ops_h.match_level_lanes(
+                *args[:4], window=window, num_iters=5, ws=ws))
+            print(f"  hector_gn {shape}: {ws} warps a scan; kernel vs its "
+                  f"order in PyTorch {lanes}, vs plain {diffs}", flush=True)
+            if any(lanes.values()):
+                raise RuntimeError(f"hector_gn {shape}: kernel != its order "
+                                   f"in PyTorch {lanes}")
+            _within(f"hector_gn {shape}", diffs,
+                    HECTOR_LEVEL_BOUNDS if lvl else HECTOR_BOUNDS)
 
-        in_gate = int(got[3].sum())
-        rows.append({
-            **_row("hector_gn", shape,
-                   max(diffs["xy"], diffs["yaw"], diffs["score"]),
-                   lambda args=args: ops_h._launch(*args),
-                   lambda args=args: ops_h._plain(*args),
-                   hector_bound(grids[0], valid[:n], 5), card, got,
-                   f"within bounds {diffs}, in gate {in_gate}"),
-            "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
-            "vs_lanes": lanes})
+            in_gate = int(got[3].sum())
+            rows.append({
+                **_row("hector_gn", shape,
+                       max(diffs["xy"], diffs["yaw"], diffs["score"]),
+                       lambda args=args: ops_h._launch(*args),
+                       lambda args=args: ops_h._plain(*args),
+                       hector_bound(grids[lvl], valid[:n], 5), card, got,
+                       f"within bounds {diffs}, in gate {in_gate}"),
+                "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
+                "vs_lanes": lanes})
     return rows
 
 
@@ -2017,11 +2064,14 @@ def time_batches(card: str, runs: int = 5) -> dict:
 def run_hector_batch(device, n: int = 1024, runs: int = 5,
                      impls=("kernel", "mxu", "plain")) -> dict:
     """Phase 4f: ``match_pyramid_batched`` at bench.py's operating point,
-    impl "kernel" (the main path: the counter is set to 0 just before its
-    first call and read just after), "mxu", and the kernel path with
-    ``match_level_plain`` in the kernel's place (``impls`` of these; the
-    kernel always); each must pass bench.py's convergence check.  On the
-    card, CUDA-event times in turns."""
+    impl "kernel" (the main path, the kernel on every pyramid level at
+    bfloat16: the counter is set to 0 just before its first call and read
+    just after), "mxu", and the kernel path with ``match_level_plain`` in
+    the kernel's place on every level (``impls`` of these; the kernel
+    always); each must pass bench.py's convergence check.  The kernel
+    path's gaps from the same pyramid in float64 (the windowed sampler on
+    f64 grids, points and guesses) are ``kernel_vs_f64``.  On the card,
+    CUDA-event times in turns."""
     from tpuslam_torch.match.hector import match_pyramid_batched
     from tpuslam_torch.ops import hector as ops_h
 
@@ -2047,8 +2097,11 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5,
     res = {"kernel": match("kernel")}
     launches = dict(ops_h.LAUNCHES)
     res.update({k: f() for k, f in fns.items() if k != "kernel"})
+    f64 = match_pyramid_batched(
+        specs, [g.double() for g in grids], pts.double(), valid,
+        guesses.double(), impl="mxu", **{**kw, "compute_dtype": torch.double})
     out = {"scans": n, "beams": cfg.num_beams, "map": cfg.map_size,
-           "launches": launches, "calls": 1}
+           "launches": launches, "calls": 1, "levels": len(specs)}
     for name, r in res.items():
         err = np.abs(r.pose.cpu().numpy() - truths)
         out[name] = {"mean_xy_err_m": float(err[:, :2].mean()),
@@ -2056,8 +2109,14 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5,
     if "plain" in res:
         out["kernel_vs_plain"] = hector_gn_diffs(
             res["kernel"], res["plain"], res=specs[0].resolution)
+    res_m = specs[0].resolution
+    out["kernel_vs_f64"] = {
+        **hector_gn_diffs(res["kernel"], f64, res=res_m),
+        "xy_mean": float((res["kernel"].pose[:, :2] - f64.pose[:, :2])
+                         .abs().mean()) / res_m}
     out["kernel_result"] = tuple(res["kernel"])  # pose, H, score
-    out["resolution"] = specs[0].resolution
+    out["f64_pose"], out["truths"] = f64.pose.tolist(), truths.tolist()
+    out["resolution"] = res_m
     if torch.device(device).type == "cuda":
         order = [k for k in ("plain", "kernel", "mxu", "mxu", "kernel",
                              "plain") if k in fns]
@@ -4476,13 +4535,18 @@ def main() -> int:
         if not r["mean_xy_err_m"] < 0.05:  # bench.py's convergence check
             raise RuntimeError(f"hector batch {impl} did not converge")
     print(f"  kernel path vs plain path: {hb['kernel_vs_plain']} (xy in "
-          f"cells), launches {hb['launches']} in {hb['calls']} call",
-          flush=True)
-    if hb["launches"]["hector_gn"] != hb["calls"]:
+          f"cells), launches {hb['launches']} in {hb['calls']} call of "
+          f"{hb['levels']} levels", flush=True)
+    if hb["launches"]["hector_gn"] != hb["levels"] * hb["calls"]:
         raise RuntimeError(f"hector_gn launched {hb['launches']} times in "
-                           f"{hb['calls']} batched call")
+                           f"{hb['calls']} batched call, not once for each "
+                           f"of its {hb['levels']} levels")
     _within("hector batch, kernel vs plain path", hb["kernel_vs_plain"],
             HECTOR_PATH_BOUNDS)
+    print(f"  kernel path vs the float64 pyramid: {hb['kernel_vs_f64']} "
+          f"(xy in cells)", flush=True)
+    _within("hector batch, kernel path vs the float64 pyramid",
+            hb["kernel_vs_f64"], HECTOR_F64_BOUNDS)
 
     # 4p. the paths past the kernels' old ceilings: every wide form
     mark("4p. past the kernels' old ceilings")
@@ -4575,7 +4639,8 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main = next(r for r in mine if r["shape"] == MAIN_SHAPES[name])
+        main, *others = (next(r for r in mine if r["shape"] == shape)
+                         for shape in MAIN_SHAPES[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name],
@@ -4585,6 +4650,10 @@ def main() -> int:
             "library_ms": main.get("library_ms"),
             "kernel_us": main["kernel_us"],
             "device_ops_a_call": main["device_ops"], "shape": main["shape"],
+            # the path's other shapes (batched Hector's coarse levels)
+            "other_shapes": [{k: r[k] for k in (
+                "shape", "kernel_us", "ms", "plain_ms", "bound_us",
+                "bound_by")} for r in others],
             "launches_per_scan": per_scan[name],
             "cli_launches": cli_launches[name],
             "cli_launches_per_scan": (cli_launches[name] / cli_scans[name]

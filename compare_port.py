@@ -31,7 +31,15 @@ closures' solves) and the three ICP results; within
 ``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate counts) for
 ``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
 batched Hector result, whose beam sums may take another order in each
-tree; the odometry poses within (keyframes + 1) x
+tree.  Where the trees launch ``hector_gn`` a different number of times a
+call (one a pyramid level against one for the finest), their coarse
+levels run different samplers: each tree's batched result is then held
+to its own runs within ``HECTOR_PATH_BOUNDS``, and the gap across the
+trees is reported with, at the scan where it is widest, each tree's gap
+from its float64 pyramid and from the truth.  In every case each tree's
+batched result is held to the same pyramid in float64 within
+``chip_smoke.HECTOR_F64_BOUNDS``, so the gap across the trees is within
+twice those bounds; the odometry poses within (keyframes + 1) x
 ``chip_smoke.STEP_BOUNDS["pose"]`` (m and rad; :func:`_odometry_gaps`),
 since PL-ICP's Gauss-Newton sums take another order on either side of
 the ``plicp_system`` kernel (whether they are identical is printed).
@@ -45,6 +53,7 @@ import dataclasses
 import hashlib
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -136,7 +145,7 @@ def child(tree: Path) -> dict:
         got = fn()
         torch.cuda.synchronize()
         names = smoke.KERNEL_NAMES[name] + OTHER_NAMES.get(name, ())
-        row = {"shape": smoke.MAIN_SHAPES[name],
+        row = {"shape": smoke.MAIN_SHAPES[name][0],
                **smoke.profile_call(fn, names), "ms": smoke.cuda_ms(fn),
                **bnd}
         if name in BOUNDED:
@@ -180,6 +189,8 @@ def child(tree: Path) -> dict:
         "matches_per_s": hb["kernel"]["matches_per_s"],
         "mean_xy_err_m": hb["kernel"]["mean_xy_err_m"],
         "launches": hb["launches"], "resolution": hb["resolution"],
+        "vs_f64": hb["kernel_vs_f64"], "f64_pose": hb["f64_pose"],
+        "truths": hb["truths"],
         "result": [t.tolist() for t in hb["kernel_result"]]}
     from tpuslam_torch.core.config import IcpConfig
     from tpuslam_torch.match.icp import icp_batch
@@ -220,6 +231,37 @@ def _bounded(smoke, runs, key, bounds, res=1.0) -> dict:
     ok = all(worst.get(k, 0) <= b for k, b in bounds.items()) and not (
         worst.get("inb_differ", 0))
     return {"ok": ok, "diffs": worst}
+
+
+def _f64_gaps(smoke, runs) -> dict:
+    """The largest gaps of the runs' batched Hector results from their
+    float64 pyramid, against ``chip_smoke.HECTOR_F64_BOUNDS``."""
+    worst = {k: max(r["hector_batch"]["vs_f64"][k] for r in runs)
+             for k in runs[0]["hector_batch"]["vs_f64"]}
+    ok = all(worst.get(k, math.inf) <= b
+             for k, b in smoke.HECTOR_F64_BOUNDS.items())
+    return {"ok": ok, "diffs": worst}
+
+
+def _widest_hector_gap(sides: dict) -> dict:
+    """At the scan where the two trees' batched Hector poses part most
+    (by xy), each tree's xy (cells) and heading gaps from its float64
+    pyramid and from the truth, and which tree lies nearer the float64
+    pyramid there (by xy, then heading)."""
+    first = {s: rs[0]["hector_batch"] for s, rs in sides.items()}
+    res = first["this"]["resolution"]
+    pose = {s: np.asarray(hb["result"][0]) for s, hb in first.items()}
+    i = int(np.hypot(*(pose["this"] - pose["other"])[:, :2].T).argmax())
+    out = {"scan": i}
+    for s, hb in first.items():
+        for ref in ("f64_pose", "truths"):
+            d = pose[s][i] - np.asarray(hb[ref][i])
+            out[f"{s}_vs_{ref}"] = {"xy": float(np.hypot(*d[:2])) / res,
+                                    "yaw": float(abs(d[2]))}
+    near = {s: (out[f"{s}_vs_f64_pose"]["xy"], out[f"{s}_vs_f64_pose"]["yaw"])
+            for s in first}
+    out["nearer_f64"] = min(near, key=near.get)
+    return out
 
 
 def _odometry_gaps(smoke, runs) -> dict:
@@ -298,14 +340,30 @@ def main(other: str) -> int:
         same[key] = len({r[key][field] for r in runs}) == 1
     within = {k: _bounded(smoke, runs, lambda r, k=k: r["kernels"][k]["output"],
                           smoke.HECTOR_BOUNDS) for k in BOUNDED}
-    within["hector_batch"] = _bounded(
-        smoke, runs, lambda r: r["hector_batch"]["result"],
-        smoke.HECTOR_PATH_BOUNDS, runs[0]["hector_batch"]["resolution"])
+    def hector_within(rs):
+        return _bounded(smoke, rs, lambda r: r["hector_batch"]["result"],
+                        smoke.HECTOR_PATH_BOUNDS,
+                        rs[0]["hector_batch"]["resolution"])
+
+    routes = {r["side"]: r["hector_batch"]["launches"]["hector_gn"]
+              for r in runs}
+    sides = {s: [r for r in runs if r["side"] == s] for s in routes}
+    if len(set(routes.values())) == 1:
+        within["hector_batch"] = hector_within(runs)
+    else:
+        for side, rs in sides.items():
+            within[f"hector_batch_{side}"] = hector_within(rs)
+        print(f"hector batch across the trees (hector_gn launches a call "
+              f"{routes}): {hector_within(runs)['diffs']}; at the widest "
+              f"scan: {_widest_hector_gap(sides)}", flush=True)
+    for side, rs in sides.items():
+        within[f"hector_batch_vs_f64_{side}"] = _f64_gaps(smoke, rs)
     within["odometry_poses"] = _odometry_gaps(smoke, runs)
     for r in runs:  # the outputs are long: keep the verdicts
         for k in BOUNDED:
             r["kernels"][k].pop("output")
-        r["hector_batch"].pop("result")
+        for k in ("result", "f64_pose", "truths"):
+            r["hector_batch"].pop(k)
         r["odometry"].pop("poses")
     print(f"outputs identical across the trees: {same}", flush=True)
     print(f"outputs within bounds across the trees: {within}", flush=True)

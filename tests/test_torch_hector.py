@@ -21,6 +21,8 @@ Tolerances and why:
 import contextlib
 import dataclasses
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -559,6 +561,25 @@ def _batch_fixture(map_size=256, num_beams=361):
     return jspecs, tspecs, grids, pts, valid, guesses, truth
 
 
+def _pallas_pyramid(jspecs, tspecs, max_point_range):
+    """The port's bf16 kernel route composed of the JAX package's own
+    kernel: ``match_level_pallas`` on every level, coarse to fine, with the
+    finest level's window rule (``_window(spec, R, 64 + 256)``), jitted as
+    ``(grids, pts, valid, guesses) -> (pose, H, score)``."""
+    def fn(grids, pts_base, valid, poses):
+        for lvl in range(len(jspecs) - 1, -1, -1):
+            spec = jspecs[lvl]
+            poses_map, hess, scores = pallas_hector.match_level_pallas(
+                grids[lvl], pts_base / spec.resolution, valid,
+                spec.world_pose_to_map(poses),
+                window=thector._window(tspecs[lvl], max_point_range,
+                                       64 + 256),
+                num_iters=5 if lvl == 0 else 3, yaw_clamp=0.2)
+            poses = spec.map_pose_to_world(poses_map)
+        return poses, hess, scores
+    return jax.jit(fn)
+
+
 @pytest.mark.parametrize("impl,dtype", [
     ("gather", "float32"), ("mxu", "float32"), ("mxu", "bfloat16"),
     ("kernel", "float32"), ("kernel", "bfloat16"),
@@ -566,15 +587,21 @@ def _batch_fixture(map_size=256, num_beams=361):
 def test_match_pyramid_batched_matches_jax(impl, dtype):
     """Each impl against its JAX twin under jit ("kernel" against
     "pallas" in interpret mode): poses to 1e-4 m and 1e-5 rad, scores to
-    1e-4."""
+    1e-4.  In bf16 the "kernel" route runs the kernel on every level, so
+    its twin is ``match_level_pallas`` composed coarse to fine
+    (:func:`_pallas_pyramid`); JAX's "pallas" route runs its MXU sampler
+    on the coarse levels."""
     jspecs, tspecs, grids, pts, valid, guesses, truth = _batch_fixture()
     kw = dict(max_point_range=12.0, impl=impl)
     jimpl = "pallas" if impl == "kernel" else impl
-    fn = jax.jit(lambda g, p, v, q: jhector.match_pyramid_batched(
-        jspecs, g, p, v, q, max_point_range=12.0, impl=jimpl,
-        compute_dtype=getattr(jnp, dtype)))
+    if impl == "kernel" and dtype == "bfloat16":
+        fn = _pallas_pyramid(jspecs, tspecs, 12.0)
+    else:
+        fn = jax.jit(lambda g, p, v, q: jhector.match_pyramid_batched(
+            jspecs, g, p, v, q, max_point_range=12.0, impl=jimpl,
+            compute_dtype=getattr(jnp, dtype)))
     with _interpret():
-        want = fn(tuple(grids), pts, valid, guesses)
+        want = jhector.MatchResult(*fn(tuple(grids), pts, valid, guesses))
     got = thector.match_pyramid_batched(
         tspecs, tuple(_t(g) for g in grids), _t(pts), _t(valid),
         _t(guesses), compute_dtype=getattr(torch, dtype), **kw)
@@ -591,6 +618,84 @@ def test_match_pyramid_batched_matches_jax(impl, dtype):
     scale = d[:, :, None] * d[:, None, :]
     err = np.abs(got.hessian.numpy() - wh) / scale
     assert err.max() < (1e-3 if dtype == "float32" else 5e-3), err.max()
+
+
+def test_kernel_route_matches_pallas_on_every_level(monkeypatch):
+    """The bf16 kernel route level by level: each ``match_level_kernel``
+    call of the pyramid (coarse, coarse, finest) held to the JAX package's
+    ``match_level_pallas`` in interpret mode on the call's own inputs, with
+    test_match_pyramid_batched_matches_jax's tolerances in the level's
+    cells (that test holds the whole route to the kernel composed coarse
+    to fine)."""
+    _, tspecs, grids, pts, valid, guesses, _ = _batch_fixture()
+    calls = []
+    orig = tops.match_level_kernel
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(tops, "match_level_kernel", spy)
+    thector.match_pyramid_batched(
+        tspecs, tuple(_t(g) for g in grids), _t(pts), _t(valid),
+        _t(guesses), max_point_range=12.0, compute_dtype=torch.bfloat16,
+        impl="kernel")
+    assert [a[0].shape[0] for a, _, _ in calls] == [64, 128, 256]
+    for lvl, (args, kw, out) in zip((2, 1, 0), calls):
+        assert kw["window"] == thector._window(tspecs[lvl], 12.0, 64 + 256)
+        with _interpret():
+            want = pallas_hector.match_level_pallas(
+                *(a.numpy() for a in args), **kw)
+        cells = 1e-4 / tspecs[lvl].resolution
+        np.testing.assert_allclose(out[0][:, :2].numpy(),
+                                   _np(want[0])[:, :2], rtol=0, atol=cells)
+        np.testing.assert_allclose(out[0][:, 2].numpy(), _np(want[0])[:, 2],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_allclose(out[2].numpy(), _np(want[2]), atol=1e-4)
+        wh = _np(want[1])
+        d = np.sqrt(np.abs(np.diagonal(wh, axis1=-2, axis2=-1)))
+        err = np.abs(out[1].numpy() - wh) / (d[:, :, None] * d[:, None, :])
+        assert err.max() < 5e-3, (lvl, err.max())
+
+
+@pytest.mark.parametrize("dtype,levels", [
+    (torch.bfloat16, [2, 1, 0]), (torch.float32, [0]),
+])
+def test_kernel_route_takes_the_kernel_on_levels_by_dtype(monkeypatch,
+                                                          dtype, levels):
+    """The kernel route calls ``ops.hector.match_level_kernel`` once a
+    pyramid level at bfloat16, and only on the finest level at float32
+    (its coarse levels on the windowed sampler)."""
+    _, tspecs, grids, pts, valid, guesses, _ = _batch_fixture()
+    seen = []
+    orig = tops.match_level_kernel
+
+    def spy(prob_grid, *args, **kw):
+        seen.append(tuple(prob_grid.shape))
+        return orig(prob_grid, *args, **kw)
+
+    monkeypatch.setattr(tops, "match_level_kernel", spy)
+    thector.match_pyramid_batched(
+        tspecs, tuple(_t(g) for g in grids), _t(pts), _t(valid),
+        _t(guesses), max_point_range=12.0, compute_dtype=dtype,
+        impl="kernel")
+    assert seen == [tuple(grids[lvl].shape) for lvl in levels]
+
+
+def test_chip_smoke_hector_batch_within_f64_bounds_on_the_cpu():
+    """chip_smoke.py's phase-4f check of the kernel route against the same
+    pyramid in float64, rehearsed on the CPU at its 1024 scans (the plain
+    level in the kernel's place, the kernel on every level at the
+    fixture's bfloat16): within ``HECTOR_F64_BOUNDS``, and nothing
+    launched."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    hb = chip_smoke.run_hector_batch("cpu", 1024, impls=("kernel",))
+    assert hb["levels"] == 3 and hb["launches"]["hector_gn"] == 0
+    chip_smoke._within("hector batch, kernel path vs the float64 pyramid",
+                       hb["kernel_vs_f64"], chip_smoke.HECTOR_F64_BOUNDS)
 
 
 def test_match_pyramid_batched_rejects_unported_impls():

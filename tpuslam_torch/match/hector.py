@@ -242,9 +242,14 @@ def match_pyramid_batched(
     through the full-grid gathers; "kernel" runs the FINEST level through
     ``ops/hector.match_level_kernel`` with the window ``2R/res + 64 + 256``
     rounded up to 128 (the +256 is the slack for the kernel's (8, 128)
-    crop alignment) and the coarse levels through the windowed sampler
-    with ``2R/res + 64``.  "pallas", the JAX package's name for that
-    route, is "kernel": no other formulation is selected by it.
+    crop alignment).  Its coarse levels take the same kernel and window
+    rule when ``compute_dtype`` is bfloat16: the kernel rounds each cell
+    and row difference to bf16 and keeps the y weight in f32, at least as
+    precise as the windowed sampler at bf16.  At float32 they take the
+    windowed sampler with ``2R/res + 64``, since the kernel would round an
+    f32 grid below the precision asked for.  "pallas", the JAX package's
+    name for that route, is "kernel": no other formulation is selected by
+    it.
 
     On that route, under ``torch.profiler``, the call is the span
     ``hector_batch``, its coarse levels ``hector.coarse`` and its finest
@@ -263,26 +268,27 @@ def match_pyramid_batched(
         )
     if max_point_range is None:
         raise ValueError(f"impl={impl!r} requires max_point_range")
+
+    def level(lvl, poses, num_iters):
+        spec = specs[lvl]
+        args = (prob_grids[lvl], pts_base * recip(spec.resolution), valid,
+                spec.world_pose_to_map(poses))
+        if lvl == 0 or compute_dtype == torch.bfloat16:
+            poses_map, hess, scores = ops_hector.match_level_kernel(
+                *args, window=_window(spec, max_point_range, 64 + 256),
+                num_iters=num_iters, yaw_clamp=yaw_clamp)
+        else:
+            poses_map, hess, scores = match_level(
+                *args, num_iters=num_iters, yaw_clamp=yaw_clamp,
+                window=_window(spec, max_point_range, 64),
+                compute_dtype=compute_dtype)
+        return spec.map_pose_to_world(poses_map), hess, scores
+
     with span("hector_batch", pts_base):
         poses = poses_world
         with span("hector.coarse"):
             for lvl in range(len(specs) - 1, 0, -1):
-                spec = specs[lvl]
-                poses_map, hess, scores = match_level(
-                    prob_grids[lvl], pts_base * recip(spec.resolution), valid,
-                    spec.world_pose_to_map(poses),
-                    num_iters=iterations_coarse, yaw_clamp=yaw_clamp,
-                    window=_window(spec, max_point_range, 64),
-                    compute_dtype=compute_dtype,
-                )
-                poses = spec.map_pose_to_world(poses_map)
+                poses, hess, scores = level(lvl, poses, iterations_coarse)
         with span("hector.fine"):
-            spec = specs[0]
-            poses_map, hess, scores = ops_hector.match_level_kernel(
-                prob_grids[0], pts_base * recip(spec.resolution), valid,
-                spec.world_pose_to_map(poses),
-                window=_window(spec, max_point_range, 64 + 256),
-                num_iters=iterations_finest, yaw_clamp=yaw_clamp,
-            )
-            poses = spec.map_pose_to_world(poses_map)
+            poses, hess, scores = level(0, poses, iterations_finest)
     return MatchResult(pose=poses, hessian=hess, score=scores)
