@@ -9,5 +9,7 @@
   runs pairs [a, b) of the bag and returns its outputs by name;
 - ``reference(params, bag, a, b, dtype)``: the plain reference's outputs
   for the same pairs, computed in ``dtype``;
-- ``compare(out, ref)``: the numbers that decide ``correct``, by name.
+- ``compare(out, ref)``: the numbers that decide ``correct``, by name;
+- optionally ``levels(params)``: the levels of a multi-level matcher,
+  finest first, as (grid cells, iterations), for its roofline count.
 """

@@ -1,22 +1,14 @@
 """``tpuslam_torch.match.hector.match_pyramid_batched(impl="kernel")``:
 every call relocalizes a chunk of the bag's scans against a saved map,
 Hector's three-level pyramid of the first lap (``reference/hector.py``).
-The finest level runs the ``csrc/hector_gn.cu`` kernel, the coarse levels
-the windowed sampler.
+At the configuration's ``matcher_dtype`` bfloat16 every level, the finest
+and the two coarse ones, runs the ``csrc/hector_gn.cu`` kernel: one launch
+a level, ``levels`` gives each level's grid and iterations.
 
 Scan i+1's guess is scan i's true pose (in scan 0's frame, the map's)
 after odometry's guess ``bag.init[i]``; its beams are gated by the Hector
 engine's ``gated_points``.  Each output pose is the matched pose in scan
 i's true frame, as ``bag.init`` and ``bag.truth`` are given.
-
-The harness keeps every call's outputs on the card until its check, about
-1 MB a call of blocks under 1 MB.  Made as the window runs, they would take
-a fresh 2 MB segment of the allocator's pool of small blocks every other
-call, and now and then a segment's ``cudaMalloc`` holds the issuing host
-for 30-90 ms (on an H100: 6 calls in 200 slower by a fifth or more with
-the outputs kept, none without).  So the set-up reserves those blocks for
-``RESERVED_CALLS`` calls, as a deployment that keeps a bag's results on
-the card would.
 """
 
 from __future__ import annotations
@@ -35,9 +27,6 @@ from portbench.reference import hector as ref_hector
 from portbench.reference.common import compose
 
 COUNTERS = ops.LAUNCHES
-# calls whose kept outputs the set-up reserves room for (a window of 10 s
-# makes ~190 calls)
-RESERVED_CALLS = 512
 # the last bag's map: (its points tensor, its World); the program and the
 # reference of one bag share it
 _LAST: list = [None, None]
@@ -45,6 +34,15 @@ _LAST: list = [None, None]
 
 def passes(params: dict) -> int:
     return params["iterations_finest"]
+
+
+def levels(params: dict) -> list:
+    """The pyramid's levels, finest first, as (grid cells, iterations):
+    each level halves the grid's side (``make_specs``)."""
+    return [((params["map_size"] >> lvl) ** 2,
+             params["iterations_finest"] if lvl == 0
+             else params["iterations_coarse"])
+            for lvl in range(params["map_multi_res_levels"])]
 
 
 def world(params: dict, bag) -> ref_hector.World:
@@ -71,13 +69,6 @@ def program(params: dict, bag):
     guess = compose(prev, bag.init.double()).float()
     reach = min(cfg.laser_max_dist, cfg.use_max_scan_range)
     dtype = getattr(torch, cfg.matcher_dtype)
-    if bag.points.device.type == "cuda":
-        # 1 MB blocks, the largest of the small pool; freed, their segments
-        # stay with the allocator
-        blocks = [torch.empty(1 << 20, dtype=torch.uint8,
-                              device=bag.points.device)
-                  for _ in range(RESERVED_CALLS)]
-        del blocks
 
     def call(a: int, b: int) -> dict:
         r = match_pyramid_batched(

@@ -1,7 +1,7 @@
-"""``csrc/hector_gn.cu``, the finest level of Hector's pyramid: its share
-of its roofline, in per cent (``roofline_hector.gn_share``): the least time
-of one call's work (every beam, ``iterations_finest`` iterations, the grid
-read once) times the calls traced, over the kernel's profiled time."""
+"""``csrc/hector_gn.cu``, every level of Hector's pyramid that it runs: its
+share of its roofline, in per cent (``roofline_hector.gn_share``): the
+least time of a call's launches (each at its level's grid and iterations,
+every beam) times the calls traced, over the kernel's profiled time."""
 
 from portbench import roofline_hector
 

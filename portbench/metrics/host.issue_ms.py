@@ -1,7 +1,8 @@
 """Host milliseconds a call spends issuing its work: the program's
-outermost span (``plicp_batch`` or ``icp_batch``, named as the cell's
-entry), from entry to return, with nothing synchronized inside it.  Read
-under the profiler, so it holds the profiler's own cost per op too."""
+outermost span (``plicp_batch``, ``icp_batch`` or ``hector_batch``, named
+as the cell's entry), from entry to return, with nothing synchronized
+inside it.  Read under the profiler, so it holds the profiler's own cost
+per op too."""
 
 from portbench import spans
 

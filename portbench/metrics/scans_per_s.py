@@ -1,6 +1,7 @@
 """Scans registered a second: the pairs matched in all the window's calls
 over all the window's seconds (host clock, from the first call's start to
-the synchronize that ends the last)."""
+the synchronize, after the last call was issued, that waits for every
+call to end)."""
 
 
 def read(run):

@@ -19,6 +19,9 @@ def test_a_cell_added_as_data_runs(tiny_root):
                    world={"room_m": [8.0, 6.0], "boxes": [[-3.0, 0.0, 1.0]]})
     (root / "portbench/traffic/room.json").write_text(json.dumps(traffic))
     bench = json.loads((root / "BENCHMARK.json").read_text())
+    # the readers BENCHMARK.json lists for the PL-ICP cell the new one copies
+    plicp_readers = {m["name"] for m in bench["per_layer"]
+                     if "plicp_utm30lx.bag" in m.get("workloads", [])}
     bench["configs"].append({"name": "plicp_lms100", "source": "made up",
                              "file": "portbench/configs/plicp_lms100.json",
                              "reduced": [], "why": "a test"})
@@ -37,8 +40,8 @@ def test_a_cell_added_as_data_runs(tiny_root):
     assert result["correct"]
     assert set(result["metrics"]) == {"scans_per_s", "setup_s"}
     traced = run.find_cell("plicp_lms100.room", True, root)
-    assert set(traced.readers) == {
-        "plicp_corr.line_roofline", "plicp_batch.rest_device_ms",
-        "host.launches_per_call", "device.idle_pct"}
+    assert set(traced.readers) == plicp_readers
+    assert {"plicp_corr.line_roofline", "plicp_batch.rest_device_ms",
+            "host.launches_per_call", "device.idle_pct"} <= plicp_readers
     result, _, _ = run.run_cell(traced, 6, 0.2, True, "cpu")
     assert result["correct"] and "busy_s" in result["device"]

@@ -2,8 +2,10 @@
 the traced calls, from ``torch.profiler`` (CPU and CUDA activity).
 
 The window is the span of the traced calls, from the start of the first
-``portbench.call`` span to the end of the last; each call ends in a
-synchronize, so every device operation a call issued lies inside it.
+``portbench.call`` span to the end of the last.  The traced calls start on
+an idle card and are issued one after another, as the window issues
+them; the last ends in a synchronize inside its span, so every device
+operation that they issued lies inside the window.
 """
 
 from __future__ import annotations
