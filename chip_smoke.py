@@ -16,16 +16,9 @@ line):
    GN level (``hector_gn``, on every pyramid level), whose beam sums take
    another order, held to ``HECTOR_BOUNDS`` (``HECTOR_LEVEL_BOUNDS`` on a
    coarse level) with equal in-gate counts and bit for bit to its own
-   order written in PyTorch (``match_level_lanes``).  Each row gets the
-   wrapper's and the plain version's CUDA-event time (one pair of events
-   around 20 calls), the kernel's own device time from ``torch.profiler``
-   (``kernel_us``, summed by kernel name over 20 calls), its roofline bound
-   computed from this run's inputs (``bound_us``: bytes in and out at
-   3.35 TB/s, the patch sums' grid counted as the cells their patches
-   cover, or f32 operations at 67 TFLOP/s, whichever is larger) and, for the
-   patch sums, the time of ``F.conv2d`` on the JAX "conv" method's point
-   indicator (``library_ms``, TF32 off, never called by the port).  After
-   its timed calls each row calls the kernel once more on the same inputs,
+   order written in PyTorch (``match_level_lanes``).  A kernel of
+   ``ONE_OP`` must be one device op a launch (``torch.profiler``, one
+   call).  Each row then calls the kernel once more on the same inputs,
    which must equal its first call bit for bit (``repeats``: the patch
    sums' float atomics, ``fvp``'s ``atomicMin`` and the correspondences'
    tickets must not show their order).  PL-ICP's step kernels
@@ -50,20 +43,18 @@ line):
    with 1081 beams on the card, over a 24 x 18 m rectangular circuit; it
    must stay within the ATE bound and launch every kernel.  The same
    stream through the kernels' plain versions on the card must give the
-   same poses, edges and map bit for bit.  Both Karto streams run once more
-   under ``torch.profiler`` for the device busy share and device ms a scan.
-   Over a longer circuit in the 36 x 28 m courtyard of
-   ``tpuslam_torch.io.simulate`` it must close a loop, and a second run
-   must repeat the first bit for bit (the pose-graph solve sums in a fixed
-   order); the solve of one ``correct_poses`` runs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host read), timed, with
-   its count of LM graph replays; so does the solve of a
-   ``GARLAND_NODES`` (16,384) garland of ``solve_scaling.py``, past the
-   dense step's limit (the band step), which must repeat itself bit for
-   bit and cut its gradient to ``GARLAND_GRAD_SHARE``, its seconds and
-   peak memory printed, and at ``GARLAND_BAND_NODES`` one band step
-   must equal the card's dense step and the host's band step.  The JAX
-   package's call forms of the solve on the courtyard closure's graph
+   same poses, edges and map bit for bit.  Over a longer circuit in the
+   36 x 28 m courtyard of ``tpuslam_torch.io.simulate`` it must close a
+   loop, and a second run must repeat the first bit for bit (the
+   pose-graph solve sums in a fixed order); the solve of one
+   ``correct_poses`` runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host read), with its count of LM graph replays; so does the solve
+   of a ``GARLAND_NODES`` (16,384) garland of ``solve_scaling.py``, past
+   the dense step's limit (the band step), which must repeat itself bit
+   for bit and cut its gradient to ``GARLAND_GRAD_SHARE``, its peak
+   memory printed, and at ``GARLAND_BAND_NODES`` one band step must equal
+   the card's dense step and the host's band step.  The JAX package's
+   call forms of the solve on the courtyard closure's graph
    (``check_call_forms``): ``empty_graph(...)._replace(...)`` of its
    arrays must solve through the captured step to the built graph's
    poses bit for bit after exactly one reindex, and the loop edge masked
@@ -91,7 +82,7 @@ line):
    levels, 1081 beams), ``MESH_SCANS`` scans, on a 1-D mesh and on a
    (2, 2) mesh, each bit for bit ``batch_step``,
    ``batch_match``'s mean and largest xy errors below
-   ``MESH_XY_BOUNDS_M``, and matches/s;
+   ``MESH_XY_BOUNDS_M``;
    4j. ``benchmarks/endurance.py``'s lossy garland (120 beams, seed 11),
    its first ``ENDURANCE_SCANS`` (512) of 1,536 scans, through
    ``process_batch(batch_size=16, pipeline=4)``: every scan accepted, and
@@ -109,7 +100,7 @@ line):
    mode and give the same poses bit for bit; PL-ICP's step kernels once a
    pass, ICP's none), and ``plicp_batch`` / ``icp_batch`` (default
    methods, the kernels launched, the step kernels as in 4d) of 256 pairs
-   of 512 beams timed against the same calls through the plain versions
+   of 512 beams against the same calls through the plain versions
    (``plain_path``), same poses;
    4n. every method name of the JAX package (``RESPONSE_METHODS``,
    ``CORRESPONDENCE_METHODS``, ``IMPLS``) on the card: 4a's mapper's last
@@ -144,10 +135,9 @@ line):
    plain version on its own inputs); kept within 60 s;
    4g. the Hector engine (``hector_slam.step``) at the reference's
    defaults (map 2048, 3 levels) with 1081 beams over the 320-scan
-   ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, scans/s, its
-   first ``REPEAT_SCANS`` scans twice more from a fresh state, each with
-   the stream's poses and both with the same level-0 log-odds, bit for
-   bit, and the device busy share of 80 scans under ``torch.profiler``;
+   ``bench_ate_hector`` stream: ATE RMSE below 0.05 m, its first
+   ``REPEAT_SCANS`` scans twice more from a fresh state, each with the
+   stream's poses and both with the same level-0 log-odds, bit for bit;
    4k. the CLI (``tpuslam_torch.cli.main``, in this process) over a ROS1
    bag written by the port's ``write_bag`` from ``bag.synthesize``'s 160
    motion-distorted scans of 1081 beams (four laps of the boxes world):
@@ -157,7 +147,7 @@ line):
    (``CLI_EPOCH_S``), which must give the points and poses of the bag
    from 0 s within ``CLI_POINTS_ATOL_M``, occupancy-map from the truth
    poses, synth and scan-info of its .tslg; each prints its
-   JSON line and its scans/s; karto launches ``fvp`` and the patch sums,
+   JSON line and its launches; karto launches ``fvp`` and the patch sums,
    plicp-odometry ``plicp_corr``, scan-match-icp ``plicp_nearest``, and
    karto and scan-match-icp run once more with every kernel call held
    against its plain version on the path's own inputs (``held_path``),
@@ -166,7 +156,7 @@ line):
    ``CLI_ATE_BOUND_M``; the occupancy map passes the wall test; features,
    undistort and the GMapping counters agree with the CPU's within the
    ``CLI_*`` bounds; the synth log loads alike through both ``.tslg``
-   codecs (each load timed), and each writes it again byte for byte;
+   codecs, and each writes it again byte for byte;
    4o. the card's paths against the f64 oracles of
    ``tpuslam_torch.oracle`` on the same inputs, each with the bound
    tests/test_oracle_parity.py holds for the contract (the
@@ -190,16 +180,19 @@ line):
    glibc's) against ``ORACLE_CELL_SHARE``.  Depth is the only cut: the
    oracles are scalar NumPy on the host (CSM's correspondence search
    ~13 s a 1081-beam pair), and the phase is kept within 60 s;
-5. the ``{"kernels": [...]}`` table and, last, the ``{"ok": true, ...}``
-   line.  A row's ``launches`` counts its paths' runs, phase 4k's CLI
-   commands, phase 4m's sharded runs and phase 4o's checks;
-   ``launches_per_scan`` the paths and the CLI; ``cli_launches``,
-   ``mesh_launches`` and ``oracle_launches`` each phase alone; beside
-   each row its wide form (``wide_form``), that form's launches in phase
-   4p (``wide_launches``) and its phase-3 rows past the old ceiling
-   (``wide_rows``).
+5. the ``{"kernels": [...]}`` line, an entry a kernel, and, last, the
+   ``{"ok": true, ...}`` line.  An entry's ``launches`` counts its paths'
+   runs, phase 4k's CLI commands, phase 4m's sharded runs and phase 4o's
+   checks; ``launches_per_scan`` the paths and the CLI; beside them the
+   largest difference from the plain version in phase 3
+   (``max_abs_err``), whether every phase-3 row repeated itself
+   (``repeats``), the wide form (``wide_form``) and that form's launches
+   in phase 4p (``wide_launches``).
 
-Writes the full results to ``chiprun_out/chip_smoke.json``.  Imports
+A gate, not a benchmark: it times nothing but its phases (the ``[t s]``
+marks, the run's budget).  The card's time by kernel and by layer comes
+from the benchmark's traced run, ``python3 -m portbench.run --trace 1``.
+Writes every check's output to ``chiprun_out/chip_smoke.json``.  Imports
 nothing of JAX and nothing of the JAX package ``tpuslam``: the synthetic
 worlds come from the port's own copy, ``tpuslam_torch.io.simulate``, and
 the oracles from ``tpuslam_torch.oracle``; the run fails if ``jax``,
@@ -213,7 +206,6 @@ import dataclasses
 import functools
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -225,7 +217,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
-TIMED_RUNS = 20
 
 # (G, S): default sequential 0.3 m @ 0.01 / 12 m, outdoor sequential
 # 0.3 m @ 0.05 / 50 m (coarse S=9, fine S=5, angular sweep S=3), outdoor
@@ -277,14 +268,10 @@ STEP_BOUNDS = {"h": 1e-5, "pose": 1e-6, "mean_error": 1e-6}
 # the patch sums' grid whose flat offsets pass 2^31 (a 2.1 GB byte grid):
 # (G, S, nA, B)
 PATCH_WIDE = (46341, 3, 2, 64)
-# the plain walk takes seconds a call at these widths: one timed call
-WIDE_PLAIN_RUNS = 1
 # the wide forms, by the kernel that has them
 WIDE_FORMS = {"fvp": "fvp_wide", "plicp_corr": "plicp_corr_wide",
               "plicp_nearest": "plicp_nearest_wide",
               "hector_gn": "hector_gn_wide"}
-# the engine's scans run again under torch.profiler (phase 4g)
-PROFILE_SCANS = 80
 # phases 4d and 4g run their first scans again from a fresh state, which
 # must repeat the first run bit for bit (tests/test_determinism.py)
 REPEAT_SCANS = 20
@@ -336,55 +323,13 @@ HECTOR_LEVEL_BOUNDS = {**HECTOR_PATH_BOUNDS, "xy": 5e-3, "yaw": 2e-4}
 # fail
 HECTOR_F64_BOUNDS = {"xy": 0.4, "xy_mean": 0.015, "yaw": 4e-3,
                      "score": 0.04, "h_p99": 0.08, "h": 0.2}
-# each path's shapes (outdoor Karto, the odometry at 1081 beams, batched
-# Hector at bench.py's operating point) for the kernel table: every shape
-# the path launches the kernel at, the first the one the table's row
-# times (batched Hector launches hector_gn once a pyramid level, finest
-# first)
-MAIN_SHAPES = {
-    "patch_sums": ("G=2007 S=9 nA=21 B=1081",),
-    "patch_sums_stride2": ("G=1151 s2=76 nA=21 B=1081",),
-    "fvp": ("S=110 B=1081",),
-    "plicp_corr": ("N=1 B=1081 line doubles normal",),
-    "plicp_nearest": ("N=1 B=1081 nearest normal",),
-    "hector_gn": ("map=1024 S=1024 B=512 window=896",
-                  "map=512 S=1024 B=512 window=512",
-                  "map=256 S=1024 B=512 window=256"),
-    "plicp_trim": ("N=1 B=1081",),
-    "plicp_system": ("N=1 B=1081",),
-}
-
-
-# the card's published peaks (NVIDIA H100 SXM data sheet): memory rate
-# and the f32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 operations a unit of work, from each kernel's contract: the walk's
-# distance test (2 sub, 2 mul, add, compare) and side test (3 sub, 4 mul,
-# 2 add, compare) a valid point; one squared distance and compare a
-# (source, reference) pair; the GN level's per-beam terms (transform,
-# bf16 lerp and tent weights, J, J^T J, J^T r, score: ~60) a valid beam
-# an iteration
-FVP_OPS_PER_POINT = 16
-CORR_OPS_PER_PAIR = 6
-HECTOR_OPS_PER_BEAM = 60
-# kernel names in the profiler, by table row: every kernel of a call
-KERNEL_NAMES = {
-    "patch_sums": ("patch_sums_kernel",),
-    "patch_sums_stride2": ("patch_sums_kernel",),
-    "fvp": ("fvp_kernel",),
-    "plicp_corr": ("plicp_corr_kernel",),
-    "plicp_nearest": ("plicp_corr_kernel",),
-    "hector_gn": ("hector_gn_kernel",),
-    "plicp_trim": ("plicp_trim_kernel",),
-    "plicp_system": ("plicp_system_kernel",),
-}
 # kernels whose call must be one device op a launch (no fill, no second
-# pass; one launch a chunk of 65,535 pairs)
-ONE_OP = ("plicp_corr", "plicp_nearest", "plicp_trim", "plicp_system")
-# the library yardstick's first call may take this long before it counts
-# as "not measured"
-LIBRARY_CAP_S = 5.0
+# pass; one launch a chunk of 65,535 pairs), by their names in the
+# profiler
+ONE_OP = {"plicp_corr": "plicp_corr_kernel",
+          "plicp_nearest": "plicp_corr_kernel",
+          "plicp_trim": "plicp_trim_kernel",
+          "plicp_system": "plicp_system_kernel"}
 # phase 4i: a map passes when this share of its occupied cells lies within
 # this distance of a segment of the world
 MAP_NEAR_SHARE = 0.9
@@ -427,91 +372,12 @@ CLI_KERNEL_COMMANDS = {
 }
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """Roofline bound in microseconds: the larger of the bytes over the
-    memory rate and the operations over the f32 rate, and which binds."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
-    t_ops = ops / F32_OPS_PER_S * 1e6
-    return {"bound_us": max(t_bytes, t_ops), "bytes": nbytes, "ops": ops,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def cells_read(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
-    """Distinct cells of the G x G grid that some kept point's patch covers
-    (``s`` x ``s`` cells from its corner on the ``stride`` lattice; every
-    corner on the grid, as phase 3 draws them): the corners' indicator on
-    each parity class dilated by an s x s max pool."""
-    import torch.nn.functional as F
-
-    if g * g > 1 << 28:  # a grid too large to dilate: the cells themselves
-        return cells_listed(g, ay, ax, ok, s, stride)
-    hit = torch.zeros(g * g, device=ay.device)
-    hit[(ay.long() * g + ax.long())[ok]] = 1.0
-    hit = hit.view(g, g)
-    n = 0
-    for py in range(stride):
-        for px in range(stride):
-            sub = F.pad(hit[py::stride, px::stride][None, None],
-                        (s - 1, 0, s - 1, 0))
-            n += int(F.max_pool2d(sub, s, stride=1).sum())
-    return n
-
-
-def cells_listed(g: int, ay, ax, ok, s: int, stride: int = 1) -> int:
-    """:func:`cells_read` from the covered cells themselves (flat int64
-    indices, made unique): for grids too large to dilate, whose points
-    are few.  Cells off the grid do not count."""
-    steps = stride * torch.arange(s, device=ay.device)
-    ys = ay[ok].long()[:, None] + steps  # [P, s]
-    xs = ax[ok].long()[:, None] + steps
-    iny = (ys >= 0) & (ys < g)
-    inx = (xs >= 0) & (xs < g)
-    flat = ys[:, :, None] * g + xs[:, None, :]
-    return int(torch.unique(flat[iny[:, :, None] & inx[:, None, :]]).numel())
-
-
-def patch_bound(q, ay, ax, ok, s, stride: int = 1) -> dict:
-    """The grid's cells inside the kept points' patches (u8), ay/ax
-    [nA, B] i32, ok [nA, B] in; [nA, s, s] f32 out; one add a kept point
-    and output cell."""
-    n_a, b = ay.shape
-    return bound(cells_read(q.shape[0], ay, ax, ok, s, stride)
-                 + n_a * b * 9 + n_a * s * s * 4, float(ok.sum()) * s * s)
-
-
-def fvp_bound(valid) -> dict:
-    """pts [S, B, 2] f32, valid [S, B], viewpoint [2] in; [S, B] out."""
-    n = valid.numel()
-    return bound(n * 8 + n + 8 + n, float(valid.sum()) * FVP_OPS_PER_POINT)
-
-
-def corr_bound(cur, ref) -> dict:
-    """cur [N, B, 2], ref [N, B', 2] f32 and their valid bytes in; q1, q2
-    [N, B, 2] f32, d1 [N, B] f32, ok [N, B] out; every pair compared."""
-    n, b = cur.shape[:2]
-    nr = ref.shape[1]
-    return bound(n * b * 9 + n * nr * 9 + n * b * (16 + 4 + 1),
-                 float(n * b * nr * CORR_OPS_PER_PAIR))
-
-
-def hector_bound(grid, valid, iters) -> dict:
-    """The bf16 grid, pts [S, B, 2] f32, valid [S, B], poses [S, 3] in;
-    pose [S, 3], H [S, 3, 3], score, in-gate count out."""
-    s, b = valid.shape
-    return bound(grid.numel() * 2 + s * b * 9 + s * 12 + s * (12 + 36 + 8),
-                 float(valid.sum()) * iters * HECTOR_OPS_PER_BEAM)
-
-
-def profile_call(fn, names, runs: int = TIMED_RUNS, tries: int = 3) -> dict:
-    """A call of ``fn`` on the device, from ``runs`` calls under
-    ``torch.profiler`` (CUDA activity only): ``kernel_us``, the
-    microseconds in the kernels named ``names`` (substrings of the
-    profiler's kernel names; each kernel's time summed over its launches
-    and divided by their count, times its launches a call), and
-    ``device_ops``, the device ops (kernels, fills, copies) a call.
-    CUPTI may drop records, now and then all of a session's: a session
-    that saw fewer than half the named launches is run again, up to
-    ``tries`` sessions, and then ``kernel_us`` is not measured (None)."""
+def profile_call(fn, name: str, tries: int = 3) -> int:
+    """The device ops (kernels, fills, copies) of one call of ``fn``
+    under ``torch.profiler`` (CUDA activity only).  CUPTI may drop
+    records, now and then all of a session's: a session that did not see
+    the kernel ``name`` (a substring of the profiler's kernel names) is
+    run again, up to ``tries`` sessions, and then the last count stands."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -519,75 +385,15 @@ def profile_call(fn, names, runs: int = TIMED_RUNS, tries: int = 3) -> dict:
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
+            fn()
             torch.cuda.synchronize()
-        per_name, ops = {}, 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            ops += e.count
-            if any(n in e.key for n in names):
-                us = getattr(e, "self_device_time_total", None)
-                t, c = per_name.get(e.key, (0.0, 0))
-                per_name[e.key] = (t + (e.self_cuda_time_total if us is None
-                                        else us), c + e.count)
-        if per_name and min(c for _, c in per_name.values()) >= runs // 2:
-            return {"kernel_us": sum(t / c * max(1, round(c / runs))
-                                     for t, c in per_name.values()),
-                    "device_ops": ops / runs}
-    print(f"  the profiler saw {per_name} for {names} in {runs} calls, "
-          f"{tries} times: kernel_us not measured", file=sys.stderr)
-    return {"kernel_us": None, "device_ops": ops / runs}
-
-
-def library_ms(q, ay, ax, ok, s, stride) -> dict:
-    """The yardstick for the patch sums: one ``F.conv2d`` of the byte grid
-    (zero-padded past its far edges) with each angle's point indicator as
-    a G x G filter, as the JAX package's "conv" response method computes
-    the surface.  TF32 off, so the integer sums are exact; the result is
-    checked against the plain version's.  "not measured" when the first
-    call exceeds ``LIBRARY_CAP_S``, the call fails, or its sums are not
-    exactly the plain version's (then it computes another function)."""
-    import torch.nn.functional as F
-
-    from tpuslam_torch.ops.correlative import patch_sums_plain
-
-    n_a = ay.shape[0]
-    g = q.shape[0]
-    span = stride * (s - 1)
-    flat = ay.long() * g + ax.long()
-    ind = torch.zeros((n_a, g * g), device=q.device)
-    ind.scatter_add_(1, flat, ok.float())
-    ind = ind.view(n_a, 1, g, g)
-    gpad = F.pad(q.float(), (0, span, 0, span))[None, None]
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        def call():
-            return F.conv2d(gpad, ind, stride=stride)[0]
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = call()
-        torch.cuda.synchronize()
-        first = time.perf_counter() - t0
-        if first > LIBRARY_CAP_S:
-            return {"library_ms": None, "library_note":
-                    f"not measured: first call {first:.1f} s > cap"}
-        want = patch_sums_plain(q, ay, ax, ok, s, stride)
-        err = float((out - want).abs().max())
-        if err != 0.0:
-            return {"library_ms": None, "library_max_abs_err": err,
-                    "library_note": f"not measured: F.conv2d's sums differ "
-                                    f"from the plain version's by {err}"}
-        runs = TIMED_RUNS if first < 0.05 else 3
-        return {"library_ms": cuda_ms(call, runs), "library_max_abs_err": err}
-    except RuntimeError as e:  # cuDNN refusal or out of memory
-        return {"library_ms": None,
-                "library_note": f"not measured: {str(e)[:120]}"}
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        ops = sum(e.count for e in events)
+        if any(name in e.key for e in events):
+            return ops
+    print(f"  the profiler saw no {name} in {tries} sessions", file=sys.stderr)
+    return ops
 
 
 def reference_modules() -> list[str]:
@@ -604,22 +410,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     return out.splitlines()[0]
-
-
-def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Milliseconds a call of ``fn``: one pair of CUDA events around
-    ``runs`` calls after a warm-up call, so that the host's enqueue of one
-    call overlaps the device's work on the one before."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / runs
 
 
 def _patch_inputs(gen, g, span, b, n_a=21):
@@ -666,47 +456,36 @@ def _same(a, b) -> bool:
     return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
 
 
-def repeats(tag, fn_k, first) -> float:
+def repeats(tag, fn_k, first) -> None:
     """Call the kernel once more on the same inputs: the output must equal
     ``first`` bit for bit (the kernels that meet across threads through
     atomics, ``patch_sums.cu``'s float adds, ``fvp.cu``'s ``atomicMin``
     and ``plicp_corr.cu``'s tickets, are built so that their order does
     not show), else raise.  State that a call leaves behind would show
-    here too.  Returns the synced seconds of the call and the compare."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = fn_k()
-    same = _same(again, first)
-    seconds = time.perf_counter() - t0
-    if not same:
+    here too."""
+    if not _same(fn_k(), first):
         raise RuntimeError(f"{tag}: a second call on the same inputs "
                            "differs from the first")
-    return seconds
 
 
-def _row(kernel, shape, err, fn_k, fn_p, bnd, card, first, note="",
-         plain_runs: int = TIMED_RUNS, launches: int = 1):
-    """A phase-3 row: the wrapper's and the plain version's CUDA-event
-    times (the plain version over ``plain_runs`` calls), the kernel's
-    profiled device time and device ops a call, and the bound; then,
-    after the timed calls, one more call on the same inputs, which must
-    equal ``first`` (the row's first call) bit for bit (``repeats``).
-    ``launches``: the kernel's launches a call."""
-    row = {"kernel": kernel, "shape": shape, "max_abs_err": err,
-           "ms": cuda_ms(fn_k), "plain_ms": cuda_ms(fn_p, plain_runs),
-           **profile_call(fn_k, KERNEL_NAMES[kernel]), **bnd}
-    row["repeat_s"] = repeats(f"{kernel} {shape}", fn_k, first)
+def _row(kernel, shape, err, fn_k, card, first, note="",
+         launches: int = 1) -> dict:
+    """A phase-3 row: for a kernel of ``ONE_OP``, its device ops a call,
+    at most ``launches`` (its launches a call); then one more call on the
+    same inputs, which must equal ``first`` (the row's first call) bit
+    for bit (``repeats``)."""
+    row = {"kernel": kernel, "shape": shape, "max_abs_err": err}
+    ops = ""
+    if kernel in ONE_OP:
+        row["device_ops"] = profile_call(fn_k, ONE_OP[kernel])
+        if row["device_ops"] > launches:
+            raise RuntimeError(f"{kernel} {shape}: {row['device_ops']} "
+                               f"device ops a call, not {launches}")
+        ops = f", {row['device_ops']} device ops a call"
+    repeats(f"{kernel} {shape}", fn_k, first)
     row["repeats"] = True
-    if kernel in ONE_OP and row["device_ops"] > launches:
-        raise RuntimeError(f"{kernel} {shape}: {row['device_ops']} device "
-                           f"ops a call, not {launches}")
-    ku = row["kernel_us"]
-    ku = "not measured" if ku is None else f"{ku:.2f} us"
-    print(f"  {kernel:19s} {shape:34s} {note or 'equal'}  kernel {ku} "
-          f"(wrapper {row['ms']:.4f} ms, {row['device_ops']:g} device ops a "
-          f"call, bound {row['bound_us']:.3f} us by {row['bound_by']})  "
-          f"plain {row['plain_ms']:.4f} ms  repeats bit for bit "
-          f"({row['repeat_s'] * 1e3:.2f} ms)  [{card}]", flush=True)
+    print(f"  {kernel:19s} {shape:34s} {note or 'equal'}{ops}, repeats bit "
+          f"for bit [{card}]", flush=True)
     return row
 
 
@@ -717,13 +496,12 @@ def check_kernels(card: str) -> list[dict]:
 
     rows = []
 
-    def record(kernel, shape, got, want, fn_k, fn_p, bnd):
+    def record(kernel, shape, got, want, fn_k):
         err = float((got.float() - want.float()).abs().max())
         if not torch.equal(got, want):
             raise RuntimeError(f"{kernel} {shape}: kernel != plain "
                                f"(max |err| {err})")
-        rows.append(_row(kernel, shape, err, fn_k, fn_p, bnd, card, got))
-        return rows[-1]
+        rows.append(_row(kernel, shape, err, fn_k, card, got))
 
     gen = torch.Generator().manual_seed(0)
     for b in (512, 1081):
@@ -731,13 +509,8 @@ def check_kernels(card: str) -> list[dict]:
             q, ay, ax, ok = _patch_inputs(gen, g, s, b)
             got = ops_c.patch_sums(q, ay, ax, ok, s)
             want = ops_c.patch_sums_plain(q, ay, ax, ok, s)
-            shape = f"G={g} S={s} nA=21 B={b}"
-            row = record("patch_sums", shape, got, want,
-                         lambda: ops_c.patch_sums(q, ay, ax, ok, s),
-                         lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s),
-                         patch_bound(q, ay, ax, ok, s))
-            if shape in MAIN_SHAPES["patch_sums"]:
-                row.update(library_ms(q, ay, ax, ok, s, 1))
+            record("patch_sums", f"G={g} S={s} nA=21 B={b}", got, want,
+                   lambda: ops_c.patch_sums(q, ay, ax, ok, s))
     for g, s2 in STRIDE2_SIZES:
         span = 2 * (s2 - 1) + 1
         q, ay, ax, ok = _patch_inputs(gen, g, span, 1081)
@@ -746,13 +519,8 @@ def check_kernels(card: str) -> list[dict]:
         full = ops_c.patch_sums(q, ay, ax, ok, span)[:, ::2, ::2]
         if not torch.equal(got, full):
             raise RuntimeError(f"stride-2 G={g} s2={s2} != full[::2, ::2]")
-        shape = f"G={g} s2={s2} nA=21 B=1081"
-        row = record("patch_sums_stride2", shape, got, want,
-                     lambda: ops_c.patch_sums_stride2(q, ay, ax, ok, s2),
-                     lambda: ops_c.patch_sums_plain(q, ay, ax, ok, s2, 2),
-                     patch_bound(q, ay, ax, ok, s2, 2))
-        if shape in MAIN_SHAPES["patch_sums_stride2"]:
-            row.update(library_ms(q, ay, ax, ok, s2, 2))
+        record("patch_sums_stride2", f"G={g} s2={s2} nA=21 B=1081", got,
+               want, lambda: ops_c.patch_sums_stride2(q, ay, ax, ok, s2))
     rng = np.random.default_rng(23)
     for s, b, kind in FVP_SIZES:
         pts, valid, vp = _fvp_inputs(rng, s, b, kind)
@@ -760,9 +528,7 @@ def check_kernels(card: str) -> list[dict]:
         want = ops_f.find_valid_points_plain(pts, valid, vp)
         tag = "" if kind == "normal" else f" {kind}"
         record("fvp", f"S={s} B={b}{tag}", got, want,
-               lambda: ops_f.find_valid_points(pts, valid, vp),
-               lambda: ops_f.find_valid_points_plain(pts, valid, vp),
-               fvp_bound(valid))
+               lambda: ops_f.find_valid_points(pts, valid, vp))
     rows += check_corr(card)
     rows += check_hector(card)
     rows += check_plicp_step(card)
@@ -814,12 +580,7 @@ def check_corr(card: str) -> list[dict]:
                     def kern(line=line, rd=rd, args=args, name=name):
                         return ops_p._launch(*args, 1.0, rd, line, name)
 
-                    def plain(line=line, rd=rd, args=args):
-                        return ops_p.correspondences_plain(*args, 1.0, rd,
-                                                           line)
-
-                    want = plain()
-
+                    want = ops_p.correspondences_plain(*args, 1.0, rd, line)
                     got = kern()
                     err = max(float((g.float() - w.float()).abs().max())
                               for g, w in zip(got, want))
@@ -828,10 +589,8 @@ def check_corr(card: str) -> list[dict]:
                                            f"plain (max |err| {err})")
                     ok_rows = int(got[3].sum())
                     rows.append({**_row(
-                        name, shape, err, kern, plain,
-                        corr_bound(args[0], args[2]), card, got,
-                        f"equal, ok rows {ok_rows}"),
-                        "ok_rows": ok_rows})
+                        name, shape, err, kern, card, got,
+                        f"equal, ok rows {ok_rows}"), "ok_rows": ok_rows})
     return rows
 
 
@@ -905,9 +664,7 @@ def check_hector(card: str) -> list[dict]:
             rows.append({
                 **_row("hector_gn", shape,
                        max(diffs["xy"], diffs["yaw"], diffs["score"]),
-                       lambda args=args: ops_h._launch(*args),
-                       lambda args=args: ops_h._plain(*args),
-                       hector_bound(grids[lvl], valid[:n], 5), card, got,
+                       lambda args=args: ops_h._launch(*args), card, got,
                        f"within bounds {diffs}, in gate {in_gate}"),
                 "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
                 "vs_lanes": lanes})
@@ -975,22 +732,18 @@ def check_plicp_step(card: str) -> list[dict]:
             def trim_k(a=(cur, q1, q2, ok)):
                 return step.trim(*a, *perc)
 
-            def trim_p(a=(cur, q1, q2, ok)):
-                return step.trim_plain(*a, *perc)
-
             got, moved = launched((step.LAUNCHES,), trim_k)
             if moved != {"plicp_trim": 1}:
                 raise RuntimeError(f"plicp_trim N={n} B={b}: launches "
                                    f"{moved}")
-            want = trim_p()
+            want = step.trim_plain(cur, q1, q2, ok, *perc)
             err = float((got[0] - want[0]).abs().max())
             if not _same(got, want):
                 raise RuntimeError(f"plicp_trim N={n} B={b}: kernel != "
                                    f"plain (max |r err| {err})")
             kept = int(got[2].sum())
             rows.append({**_row(
-                "plicp_trim", f"N={n} B={b}", err, trim_k, trim_p,
-                bound(n * b * 25 + n * b * 13, 0.0), card, got,
+                "plicp_trim", f"N={n} B={b}", err, trim_k, card, got,
                 f"equal, kept {kept} of {int(ok.sum())} rows"),
                 "kept_rows": kept})
         r, nrm, cut = step.trim_plain(cur, q1, q2, ok, *perc)
@@ -1003,13 +756,10 @@ def check_plicp_step(card: str) -> list[dict]:
         def sys_k(a=args):
             return step.system(*a)
 
-        def sys_p(a=args):
-            return step.system_plain(*a)
-
         got, moved = launched((step.LAUNCHES,), sys_k)
         if moved != {"plicp_system": 1}:
             raise RuntimeError(f"plicp_system N={n} B={b}: launches {moved}")
-        diffs = step_diffs(got, sys_p())
+        diffs = step_diffs(got, step.system_plain(*args))
         order = step.system_lanes(*args)
         lanes = step_diffs(got, order)
         shape = f"N={n} B={b}{' ml' if ml else ''}"
@@ -1020,11 +770,8 @@ def check_plicp_step(card: str) -> list[dict]:
         if not _same(got, order):
             raise RuntimeError(f"plicp_system {shape}: kernel != its order "
                                f"in PyTorch (system_lanes): {lanes}")
-        nbytes = n * b * (22 + (4 if ml else 0)) + n * (12 + 1) + n * (
-            12 + 1 + 36 + 8)
         rows.append({**_row(
-            "plicp_system", shape, diffs["pose"], sys_k, sys_p,
-            bound(nbytes, 0.0), card, got,
+            "plicp_system", shape, diffs["pose"], sys_k, card, got,
             f"within {STEP_BOUNDS}: {diffs}; system_lanes bit for bit"),
             "diffs": diffs, "lanes_diffs": lanes})
     return rows
@@ -1068,8 +815,7 @@ def check_wide(card: str) -> list[dict]:
     ``PATCH_WIDE``): every row equal to its plain version bit for bit
     (``hector_gn`` within ``HECTOR_BOUNDS`` with equal in-gate counts),
     launching the form its wrapper's ``launch_plan`` names, once a
-    launch plan chunk (``form``, ``launches_a_call``).  The plain walk
-    of FindValidPoints is timed over ``WIDE_PLAIN_RUNS`` call."""
+    launch plan chunk (``form``, ``launches_a_call``)."""
     from tpuslam_torch.core.grid import recip
     from tpuslam_torch.match.hector import _window
     from tpuslam_torch.ops import _build
@@ -1095,17 +841,14 @@ def check_wide(card: str) -> list[dict]:
         def kern(a=(pts, valid, vp)):
             return ops_f.find_valid_points(*a)
 
-        def plain(a=(pts, valid, vp)):
-            return ops_f.find_valid_points_plain(*a)
-
         shape = f"S={n_s} B={b}"
         got, moved = launched((ops_f.LAUNCHES,), kern)
         form = formed("fvp", shape, moved, {ops_f.launch_plan(b)[0]: 1})
-        if not torch.equal(got, plain()):
+        if not torch.equal(got, ops_f.find_valid_points_plain(pts, valid,
+                                                              vp)):
             raise RuntimeError(f"fvp {shape}: kernel != plain")
-        rows.append({**_row("fvp", shape, 0.0, kern, plain, fvp_bound(valid),
-                            card, got, f"equal, {form['form']}",
-                            plain_runs=WIDE_PLAIN_RUNS), **form})
+        rows.append({**_row("fvp", shape, 0.0, kern, card, got,
+                            f"equal, {form['form']}"), **form})
 
     rng = np.random.default_rng(37)
     for n, b, nr, fixtures in CORR_WIDE_SIZES:
@@ -1122,15 +865,11 @@ def check_wide(card: str) -> list[dict]:
                     def kern(line=line, rd=rd, args=args, name=name):
                         return ops_p._launch(*args, 1.0, rd, line, name)
 
-                    def plain(line=line, rd=rd, args=args):
-                        return ops_p.correspondences_plain(*args, 1.0, rd,
-                                                           line)
-
                     got, moved = launched((ops_p.LAUNCHES,), kern)
                     want_form = WIDE_FORMS[name] if plan.tiled else name
                     form = formed(name, shape, moved,
                                   {want_form: len(plan.chunks)})
-                    want = plain()
+                    want = ops_p.correspondences_plain(*args, 1.0, rd, line)
                     err = max(float((g.float() - w.float()).abs().max())
                               for g, w in zip(got, want))
                     if not _same(got, want):
@@ -1139,8 +878,7 @@ def check_wide(card: str) -> list[dict]:
                     del want
                     ok_rows = int(got[3].sum())
                     rows.append({**_row(
-                        name, shape, err, kern, plain,
-                        corr_bound(args[0], args[2]), card, got,
+                        name, shape, err, kern, card, got,
                         f"equal, {form['form']} x{len(plan.chunks)}, ok "
                         f"rows {ok_rows}", launches=len(plan.chunks)),
                         "ok_rows": ok_rows, **form})
@@ -1169,9 +907,7 @@ def check_wide(card: str) -> list[dict]:
         rows.append({
             **_row("hector_gn", shape,
                    max(diffs["xy"], diffs["yaw"], diffs["score"]),
-                   lambda args=args: ops_h._launch(*args),
-                   lambda args=args: ops_h._plain(*args),
-                   hector_bound(grids[0], valid, 5), card, got,
+                   lambda args=args: ops_h._launch(*args), card, got,
                    f"within bounds {diffs}, in gate {in_gate}, "
                    f"{form_name}"),
             "diffs": diffs, "in_gate": in_gate, "warps_per_scan": ws,
@@ -1184,10 +920,8 @@ def check_wide(card: str) -> list[dict]:
     if not torch.equal(got, ops_c.patch_sums_plain(q, ay, ax, ok, ps)):
         raise RuntimeError(f"patch_sums {shape}: kernel != plain")
     rows.append({**_row("patch_sums", shape, 0.0,
-                        lambda: ops_c.patch_sums(q, ay, ax, ok, ps),
-                        lambda: ops_c.patch_sums_plain(q, ay, ax, ok, ps),
-                        patch_bound(q, ay, ax, ok, ps), card, got,
-                        "equal, 64-bit offsets", plain_runs=WIDE_PLAIN_RUNS),
+                        lambda: ops_c.patch_sums(q, ay, ax, ok, ps), card,
+                        got, "equal, 64-bit offsets"),
                  "form": "patch_sums", "launches_a_call": 1})
     del q
     torch.cuda.empty_cache()
@@ -1270,7 +1004,6 @@ def check_f64_refused(card: str) -> dict:
     counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_h.LAUNCHES,
                 ops_p.LAUNCHES, ops_s.LAUNCHES)
     before = [dict(d) for d in counters]
-    t0 = time.perf_counter()
     out = {}
     try:
         for m, k in plains:
@@ -1287,11 +1020,10 @@ def check_f64_refused(card: str) -> dict:
             setattr(m, k, f)
     if [dict(d) for d in counters] != before:
         raise RuntimeError("an f64 call on the card launched a kernel")
-    seconds = time.perf_counter() - t0
     print(f"  f64 input on the card: {len(out)} calls refused "
-          f"({', '.join(out)}), no launch, no plain version, "
-          f"{seconds:.3f} s [{card}]", flush=True)
-    return {"refused": out, "seconds": seconds}
+          f"({', '.join(out)}), no launch, no plain version [{card}]",
+          flush=True)
+    return {"refused": out}
 
 
 def _box_segs(center, half=0.6):
@@ -1371,37 +1103,27 @@ def karto_stream(where: str, num_beams: int, device):
 
 
 @contextlib.contextmanager
-def solve_timer(inputs: list | None = None):
-    """Time every ``KartoMapper.correct_poses`` (the pose-graph solve of a
-    loop closure) on the host clock between two synchronizes; yields the
-    list of seconds.  With ``inputs``, each solve's graph is appended to
-    it first: (a copy of the poses, the list of edges)."""
+def solve_graphs(graphs: list):
+    """Append the graph of every ``KartoMapper.correct_poses`` (the
+    pose-graph solve of a loop closure) to ``graphs`` before it solves:
+    (a copy of the poses, the list of edges)."""
     from tpuslam_torch.models.karto import KartoMapper
 
     orig = KartoMapper.correct_poses
-    seconds = []
 
-    def timed(self):
-        if inputs is not None:
-            n = len(self.records)
-            inputs.append((self.poses[:n].copy(), list(self.edges)))
-        on_card = self.device.type == "cuda"
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def captured(self):
+        n = len(self.records)
+        graphs.append((self.poses[:n].copy(), list(self.edges)))
         orig(self)
-        if on_card:
-            torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
 
-    KartoMapper.correct_poses = timed
+    KartoMapper.correct_poses = captured
     try:
-        yield seconds
+        yield
     finally:
         KartoMapper.correct_poses = orig
 
 
-def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
+def _karto_numbers(m, stream, results, launches, odom, true) -> dict:
     """The numbers of a Karto run over ``stream`` (per-scan or batch)."""
     truths = [t for (t, _, _), r in zip(stream, results) if r.processed]
     n = len(m.records)
@@ -1411,8 +1133,6 @@ def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
         "scans": len(stream),
         "processed": n,
         "processed_flags": [bool(r.processed) for r in results],
-        "seconds": wall,
-        "scans_per_s": len(stream) / wall,
         "ate_m": ate,
         "ate_bound_m": max(0.35, float(np.hypot(*(odom - true)[:2]))),
         "loop_closures": m.stats["loop_closures"],
@@ -1420,7 +1140,6 @@ def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
         "edges": len(m.edges),
         "fetch_count": m.stats["fetch_count"],
         "fetches_per_scan": m.stats["fetch_count"] / len(stream),
-        "fetch_seconds": m.stats["fetch_seconds"],
         "expansion_retries": m.stats["expansion_retries"],
         "seq_grid": m.seq_spec.grid_size,
         "loop_grid": m.loop_spec.grid_size,
@@ -1431,19 +1150,16 @@ def _karto_numbers(m, stream, results, wall, launches, odom, true) -> dict:
 
 
 def run_slice(cfg, device, num_beams: int, where: str = "room",
-              max_scans: int = 256, profile: bool = False,
-              mapper_kw: dict | None = None,
+              max_scans: int = 256, mapper_kw: dict | None = None,
               solve_inputs: list | None = None,
               n_scans: int | None = None):
     """Phase 4: the Karto path over the circuit of ``world(where)``.
 
     Returns (numbers, mapper); the launch counters are set to 0 just
-    before the stream and read just after it.  With ``profile`` (on the
-    card), the stream runs again through a fresh mapper under
-    ``torch.profiler``: the device busy share and device ms a scan.
-    ``mapper_kw`` goes to ``KartoMapper`` (phase 4m's ``loop_mesh``);
-    ``solve_inputs`` to ``solve_timer`` (phase 4o's graph); ``n_scans``
-    cuts the stream to its first scans (phase 4p)."""
+    before the stream and read just after it.  ``mapper_kw`` goes to
+    ``KartoMapper`` (phase 4m's ``loop_mesh``); ``solve_inputs`` to
+    ``solve_graphs`` (phase 4o's graph); ``n_scans`` cuts the stream to
+    its first scans (phase 4p)."""
     from tpuslam_torch.models.karto import KartoMapper
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
@@ -1451,33 +1167,15 @@ def run_slice(cfg, device, num_beams: int, where: str = "room",
     stream = karto_stream(where, num_beams, device)[:n_scans]
     m = KartoMapper(cfg, max_scans=max_scans, device=device,
                     **(mapper_kw or {}))
-    on_card = torch.device(device).type == "cuda"
     _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
-    results = []
-    with solve_timer(solve_inputs) as solves:
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _, odom, scan in stream:
-            results.append(m.process(scan, odom, time=0.0))
-        if on_card:
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    with (contextlib.nullcontext() if solve_inputs is None
+          else solve_graphs(solve_inputs)):
+        results = [m.process(scan, odom, time=0.0)
+                   for _, odom, scan in stream]
     launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
-    out = _karto_numbers(m, stream, results, wall, launches, stream[-1][1],
+    out = _karto_numbers(m, stream, results, launches, stream[-1][1],
                          stream[-1][0])
-    out.update(world=where, solve_seconds=solves)
-    if profile and on_card:
-        def again():
-            fresh = KartoMapper(cfg, max_scans=max_scans, device=device)
-            for _, odom, scan in stream:
-                fresh.process(scan, odom, time=0.0)
-
-        prof = busy_share(again, cpu=False)
-        out["profile"] = prof
-        out["device_ms_per_scan"] = prof["device_s"] * 1e3 / len(stream)
-        # the same device work over the unprofiled run's wall time
-        out["busy_share"] = prof["device_s"] / wall
+    out["world"] = where
     return out, m
 
 
@@ -1562,27 +1260,19 @@ def run_batch(cfg, device, num_beams: int, where: str = "courtyard",
 
     stream = karto_stream(where, num_beams, device)
     m = KartoMapper(cfg, max_scans=256, device=device, **(mapper_kw or {}))
-    on_card = torch.device(device).type == "cuda"
     check = (sync_checked_dispatch() if check_sync
              else contextlib.nullcontext({"checked": 0}))
     _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
-    with solve_timer() as solves, check as checked, \
-            near_chain_counter() as near:
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    with check as checked, near_chain_counter() as near:
         results = m.process_batch([sc for _, _, sc in stream],
                                   [od for _, od, _ in stream],
                                   batch_size=BATCH_SIZE,
                                   **BATCH_MODES[mode])
-        if on_card:
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
-    out = _karto_numbers(m, stream, results, wall, launches, stream[-1][1],
+    out = _karto_numbers(m, stream, results, launches, stream[-1][1],
                          stream[-1][0])
     out.update(world=where, mode=mode, batch_size=BATCH_SIZE,
-               solve_seconds=solves, checked_dispatches=checked["checked"],
+               checked_dispatches=checked["checked"],
                near_chain_matches=near,
                response_expansion=cfg.use_response_expansion)
     return out, m
@@ -1603,7 +1293,7 @@ def segment_distance(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
 
 
 def wall_check(spec, a: np.ndarray, segs, tag: str, card: str,
-               secs: float, scans: int) -> dict:
+               scans: int) -> dict:
     """An int8 map ``a`` on ``spec``: at least ``MAP_NEAR_SHARE`` of its
     occupied cells must lie within ``MAP_NEAR_M`` of a segment of the
     world."""
@@ -1614,13 +1304,12 @@ def wall_check(spec, a: np.ndarray, segs, tag: str, card: str,
         xy) else 0.0
     out = {"shape": list(a.shape), "resolution": spec.resolution,
            "occupied": int(len(xy)), "free": int((a == 0).sum()),
-           "unknown": int((a == -1).sum()), "seconds": secs,
-           "near_share": near, "scans": scans}
+           "unknown": int((a == -1).sum()), "near_share": near,
+           "scans": scans}
     print(f"map {tag}: {a.shape[1]} x {a.shape[0]} cells at "
           f"{spec.resolution} m, {out['occupied']} occupied, {out['free']} "
           f"free, {near:.4f} of the occupied within {MAP_NEAR_M} m of a "
-          f"wall, export {secs:.3f} s for {out['scans']} scans [{card}]",
-          flush=True)
+          f"wall, {out['scans']} scans [{card}]", flush=True)
     if not near >= MAP_NEAR_SHARE or not out["occupied"]:
         raise RuntimeError(f"map {tag}: {near} of the occupied cells near a "
                            f"wall < {MAP_NEAR_SHARE}")
@@ -1628,11 +1317,11 @@ def wall_check(spec, a: np.ndarray, segs, tag: str, card: str,
 
 
 def map_check(m, segs, tag: str, card: str) -> tuple[dict, np.ndarray]:
-    """Phase 4i: ``occupancy_grid()`` of a mapper, timed between two
-    synchronizes, through ``wall_check``."""
-    (spec, img), secs = _timed(m.occupancy_grid, m.device.type == "cuda")
+    """Phase 4i: ``occupancy_grid()`` of a mapper through
+    ``wall_check``."""
+    spec, img = m.occupancy_grid()
     a = img.cpu().numpy()
-    return wall_check(spec, a, segs, tag, card, secs, len(m.records)), a
+    return wall_check(spec, a, segs, tag, card, len(m.records)), a
 
 
 def endurance_cfg(nb: int):
@@ -1695,10 +1384,10 @@ def run_endurance(device, n_scans: int) -> dict:
     o_events = [e for e in oracle["closure_events_oracle"] if e < n_scans]
     m = KartoMapper(cfg, max_scans=n_scans + 64, device=device)
     _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
-    with solve_timer() as solves, near_chain_counter() as near:
-        res, wall = _timed(lambda: m.process_batch(
-            scans, odoms, batch_size=batch_size, pipeline=pipeline),
-            torch.device(device).type == "cuda")
+    graphs = []
+    with solve_graphs(graphs), near_chain_counter() as near:
+        res = m.process_batch(scans, odoms, batch_size=batch_size,
+                              pipeline=pipeline)
     events = [i for i, r in enumerate(res) if r.loop_closed]
     n = len(m.records)
     err = np.hypot(*(m.poses[:n, :2] - trues[[i for i, r in enumerate(res)
@@ -1707,8 +1396,7 @@ def run_endurance(device, n_scans: int) -> dict:
     lo = min(m.stats["loop_closures"], len(o_events))
     return {
         "scans": n_scans, "beams": nb, "batch_size": batch_size,
-        "pipeline": pipeline, "accepted": n, "seconds": wall,
-        "scans_per_s": n_scans / wall,
+        "pipeline": pipeline, "accepted": n,
         "closures": m.stats["loop_closures"],
         "closures_oracle": len(o_events),
         "count_ok": hi - lo <= max(2, COUNT_BAND * hi),
@@ -1718,7 +1406,7 @@ def run_endurance(device, n_scans: int) -> dict:
         "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
         "fetches_per_scan": m.stats["fetch_count"] / n_scans,
         "expansion_retries": m.stats["expansion_retries"],
-        "solves": len(solves), "solve_seconds_total": sum(solves),
+        "solves": len(graphs),
         "near_chain_matches": near,
         "response_expansion": cfg.use_response_expansion,
         "launches": {**ops_c.LAUNCHES, **ops_f.LAUNCHES},
@@ -1844,16 +1532,6 @@ def _reset(*counters):
             d[k] = 0
 
 
-def _timed(fn, on_card):
-    if on_card:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    if on_card:
-        torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def plicp_passes(cfg, calls: int) -> int:
     """The PL-ICP passes of ``calls`` calls: each runs ``max_iterations``
     passes, twice with ``restart``."""
@@ -1873,15 +1551,13 @@ def step_launches(tag: str, launches: dict, passes: int) -> None:
 
 
 def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
-                 profile: bool = False, repeat: int = 0):
+                 repeat: int = 0):
     """Phase 4d: ``plicp_odometry.step`` over the stream; the launch
     counters (the correspondences' and the step kernels') are set to 0
     just before the stream and read just after, beside the stream's
     PL-ICP passes (``passes``: every scan after the first is matched).
     With ``repeat``, the first ``repeat`` scans run again from a fresh
-    ``OdomState`` and must give the same poses bit for bit (else raise).
-    With ``profile`` (on the card), the stream runs again under
-    ``torch.profiler``: device ms and device ops a scan, busy share."""
+    ``OdomState`` and must give the same poses bit for bit (else raise)."""
     from tpuslam_torch.core.config import PlicpConfig
     from tpuslam_torch.models import plicp_odometry
     from tpuslam_torch.ops import plicp as ops_p
@@ -1902,15 +1578,12 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
                 int(torch.stack(kfs).sum()), int(torch.stack(valid).sum()))
 
     _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
-    (poses, n_kf, n_valid), wall = _timed(
-        stream, torch.device(device).type == "cuda")
+    poses, n_kf, n_valid = stream()
     launches = {**ops_p.LAUNCHES, **ops_s.LAUNCHES}
     err = np.hypot(*(poses[:, :2] - truth[:, :2]).T)
     out = {
         "scans": len(scans),
         "beams": num_beams,
-        "seconds": wall,
-        "scans_per_s": len(scans) / wall,
         "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
         "max_err_m": float(err.max()),
         "keyframes": n_kf,
@@ -1920,18 +1593,11 @@ def run_odometry(device, num_beams: int = 1081, n_scans: int = 320,
         "passes": plicp_passes(cfg, len(scans) - 1),
     }
     if repeat:
-        (again, _, _), secs = _timed(lambda: stream(scans[:repeat]),
-                                     torch.device(device).type == "cuda")
+        again, _, _ = stream(scans[:repeat])
         if not np.array_equal(again, poses[:repeat]):
             raise RuntimeError(f"odometry: the first {repeat} scans again "
                                "from a fresh state give other poses")
-        out["repeat"] = {"scans": repeat, "seconds": secs, "equal": True}
-    if profile and torch.device(device).type == "cuda":
-        prof = busy_share(stream, cpu=False)
-        out.update(profile=prof,
-                   device_ms_per_scan=prof["device_s"] * 1e3 / len(scans),
-                   device_ops_per_scan=prof["device_ops"] / len(scans),
-                   busy_share=prof["device_s"] / wall)
+        out["repeat"] = {"scans": repeat, "equal": True}
     return out, poses
 
 
@@ -1954,7 +1620,6 @@ def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50,
     t = torch.tensor(traj[:n_scans], dtype=torch.float64)
     prev_in_cur = se2.relative(t[1:], t[:-1]).numpy()  # ICP's direction
     cur_in_prev = se2.relative(t[:-1], t[1:]).numpy()  # PL-ICP's
-    on_card = torch.device(device).type == "cuda"
     out = {}
     for tag, model, cfg, want in (
         ("plicp", scan_match_plicp, PlicpConfig(num_beams=num_beams),
@@ -1974,10 +1639,9 @@ def run_frame_to_frame(device, num_beams: int = 1081, n_scans: int = 50,
             return torch.stack(poses[1:]).cpu().numpy()
 
         _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
-        poses, wall = _timed(stream, on_card)
+        poses = stream()
         err = np.hypot(*(poses[:, :2] - want[:, :2]).T)
-        out[tag] = {"scans": len(scans), "seconds": wall,
-                    "scans_per_s": len(scans) / wall,
+        out[tag] = {"scans": len(scans),
                     "median_err_m": float(np.median(err)),
                     "max_err_m": float(err.max()),
                     "launches": {**ops_p.LAUNCHES, **ops_s.LAUNCHES},
@@ -2009,13 +1673,12 @@ def batch_fixture(n: int = 256, num_beams: int = 512, device="cuda"):
             torch.zeros((n, 3), device=device))
 
 
-def time_batches(card: str, runs: int = 5) -> dict:
+def check_batches(card: str) -> dict:
     """Phase 4e: plicp_batch and icp_batch at N=256, B=512 with their
     default methods (the kernels; the counters set to 0 just before the
-    first call and read just after: PL-ICP launches one trim and one
-    system kernel a pass, ICP neither) against the same calls through the
-    plain versions (``plain_path``), in turns (plain, kernel, kernel,
-    plain)."""
+    call and read just after: PL-ICP launches one trim and one system
+    kernel a pass, ICP neither) give the same results as the same calls
+    through the plain versions (``plain_path``)."""
     from tpuslam_torch.core.config import IcpConfig, PlicpConfig
     from tpuslam_torch.match.icp import icp_batch
     from tpuslam_torch.match.plicp import plicp_batch
@@ -2032,26 +1695,16 @@ def time_batches(card: str, runs: int = 5) -> dict:
     }
     out = {}
     for name, kern in calls.items():
-        def plain(kern=kern):
-            with plain_path():
-                return kern()
-
         _reset(ops_p.LAUNCHES, ops_s.LAUNCHES)
         k = kern()
-        torch.cuda.synchronize()
         launches = {**ops_p.LAUNCHES, **ops_s.LAUNCHES}
-        p = plain()
+        with plain_path():
+            p = kern()
         same = bool(_same(tuple(k), tuple(p)))
-        t = [cuda_ms(f, runs) for f in (plain, kern, kern, plain)]
-        ms, plain_ms = statistics.mean(t[1:3]), statistics.mean([t[0], t[3]])
-        out[name] = {"pairs": n, "beams": 512, "ms": ms, "plain_ms": plain_ms,
-                     "matches_per_s": n / ms * 1e3,
-                     "plain_matches_per_s": n / plain_ms * 1e3,
-                     "same_poses": same, "launches": launches}
-        print(f"  {name}: N={n} B=512 kernel {ms:.3f} ms "
-              f"({n / ms * 1e3:.0f} matches/s), plain {plain_ms:.3f} ms "
-              f"({n / plain_ms * 1e3:.0f} matches/s), same results {same}, "
-              f"launches {launches} [{card}]", flush=True)
+        out[name] = {"pairs": n, "beams": 512, "same_poses": same,
+                     "launches": launches}
+        print(f"  {name}: N={n} B=512 same results as the plain versions "
+              f"{same}, launches {launches} [{card}]", flush=True)
         if not same:
             raise RuntimeError(f"{name}: kernel and plain results differ")
         if not sum(launches.values()):
@@ -2061,7 +1714,7 @@ def time_batches(card: str, runs: int = 5) -> dict:
     return out
 
 
-def run_hector_batch(device, n: int = 1024, runs: int = 5,
+def run_hector_batch(device, n: int = 1024,
                      impls=("kernel", "mxu", "plain")) -> dict:
     """Phase 4f: ``match_pyramid_batched`` at bench.py's operating point,
     impl "kernel" (the main path, the kernel on every pyramid level at
@@ -2070,8 +1723,7 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5,
     the kernel's place on every level (``impls`` of these; the kernel
     always); each must pass bench.py's convergence check.  The kernel
     path's gaps from the same pyramid in float64 (the windowed sampler on
-    f64 grids, points and guesses) are ``kernel_vs_f64``.  On the card,
-    CUDA-event times in turns."""
+    f64 grids, points and guesses) are ``kernel_vs_f64``."""
     from tpuslam_torch.match.hector import match_pyramid_batched
     from tpuslam_torch.ops import hector as ops_h
 
@@ -2117,30 +1769,18 @@ def run_hector_batch(device, n: int = 1024, runs: int = 5,
     out["kernel_result"] = tuple(res["kernel"])  # pose, H, score
     out["f64_pose"], out["truths"] = f64.pose.tolist(), truths.tolist()
     out["resolution"] = res_m
-    if torch.device(device).type == "cuda":
-        order = [k for k in ("plain", "kernel", "mxu", "mxu", "kernel",
-                             "plain") if k in fns]
-        times = {k: [] for k in fns}
-        for k in order:
-            times[k].append(cuda_ms(fns[k], runs))
-        for k, t in times.items():
-            out[k]["ms"] = statistics.mean(t)
-            out[k]["matches_per_s"] = n / out[k]["ms"] * 1e3
     return out
 
 
 def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
-                      cfg=None, profile_scans: int = 0,
-                      repeat: int = 0) -> dict:
+                      cfg=None, repeat: int = 0) -> dict:
     """Phase 4g: the Hector engine over benchmarks/suite.py's
     ``bench_ate_hector`` stream (the boxes world, 6 cm + 0.05 rad a scan
     with no odometry, the first scan mapped without matching) at the
     reference's defaults with 1081 beams, map updates every 0.1 m /
     0.15 rad.  With ``repeat``, the first ``repeat`` scans run twice more
     from a fresh state: both must give the stream's poses, and the same
-    level-0 log-odds, bit for bit (else raise).  With ``profile_scans``,
-    the first scans run again under ``torch.profiler`` for the device
-    busy share."""
+    level-0 log-odds, bit for bit (else raise)."""
     from tpuslam_torch.io.simulate import world_with_boxes
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.models import hector_slam
@@ -2157,7 +1797,6 @@ def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
         truths.append(true.copy())
         scans.append(_sim_scan(segs, true, num_beams, device, 30.0))
         true = _np_compose(true, step_)
-    on_card = torch.device(device).type == "cuda"
 
     def stream(scans):
         st = hector_slam.init_state(cfg, device=device)
@@ -2169,64 +1808,22 @@ def run_hector_engine(device, num_beams: int = 1081, n_scans: int = 320,
         return (torch.stack(poses).cpu().numpy(), int(st.num_updates),
                 st.log_odds[0])
 
-    (poses, updates, _), wall = _timed(lambda: stream(scans), on_card)
+    poses, updates, _ = stream(scans)
     err = np.hypot(*(poses[:, :2] - np.stack(truths)[:, :2]).T)
     out = {"scans": n_scans, "beams": num_beams, "map": cfg.map_size,
-           "levels": cfg.map_multi_res_levels, "seconds": wall,
-           "scans_per_s": n_scans / wall,
+           "levels": cfg.map_multi_res_levels,
            "ate_rmse_m": float(np.sqrt(np.mean(err**2))),
            "max_err_m": float(err.max()), "map_updates": updates}
-    if repeat:  # twice, so that the timed stream above stays as it was
-        (a, b), secs = _timed(lambda: [stream(scans[:repeat])
-                                       for _ in range(2)], on_card)
+    if repeat:  # twice: the two fresh runs' maps against each other
+        a, b = (stream(scans[:repeat]) for _ in range(2))
         if not (np.array_equal(a[0], poses[:repeat])
                 and np.array_equal(b[0], poses[:repeat])
                 and torch.equal(a[2], b[2])):
             raise RuntimeError(f"hector engine: the first {repeat} scans "
                                "again from a fresh state give other poses "
                                "or another level-0 map")
-        out["repeat"] = {"scans": repeat, "runs": 2, "seconds": secs,
-                         "equal": True}
-    if profile_scans and on_card:
-        out["profile"] = busy_share(lambda: stream(scans[:profile_scans]))
+        out["repeat"] = {"scans": repeat, "runs": 2, "equal": True}
     return out
-
-
-def busy_share(fn, cpu: bool = True) -> dict:
-    """Wall time of ``fn`` (ending in a synchronize) under torch.profiler,
-    the device time and count of its kernels, and the largest items.
-    ``cpu=False`` records the CUDA activity alone: the same device time,
-    and ``key_averages`` takes seconds instead of minutes on a stream of
-    ~10^5 launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm up
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA]
-    if cpu:
-        acts.insert(0, ProfilerActivity.CPU)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev, ops, top = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        dev += us
-        ops += e.count
-        top.append((us, e.key, e.count))
-    top.sort(reverse=True)
-    return {"wall_s": wall, "device_s": dev / 1e6,
-            "busy_share": dev / 1e6 / wall if dev else None,
-            "device_ops": ops,
-            "top": [{"us": u, "name": k[:80], "count": c}
-                    for u, k, c in top[:8]]}
 
 
 def _sim_scan(segs, pose, num_beams, device, max_range=20.0):
@@ -2518,7 +2115,6 @@ def run_wide_phase(karto_cfg, device, card: str,
     from tpuslam_torch.ops import plicp as ops_p
 
     on_card = torch.device(device).type == "cuda"
-    t_phase = time.perf_counter()
     out, fails = {}, []
 
     def need(tag, launches, key):
@@ -2527,7 +2123,6 @@ def run_wide_phase(karto_cfg, device, card: str,
 
     # (a) Karto
     cfg = dataclasses.replace(karto_cfg, num_beams=karto_beams)
-    t0 = time.perf_counter()
     sk, mk = run_slice(cfg, device, karto_beams, n_scans=karto_scans)
     with plain_path():
         sp, mp = run_slice(cfg, device, karto_beams, n_scans=karto_scans)
@@ -2535,14 +2130,11 @@ def run_wide_phase(karto_cfg, device, card: str,
     img_p = mp.occupancy_grid()[1].cpu().numpy()
     same = _same_graph(mk, mp) and np.array_equal(img_k, img_p)
     out["karto"] = {**{k: sk[k] for k in (
-        "scans", "processed", "seconds", "scans_per_s", "ate_m",
-        "ate_bound_m", "loop_closures", "edges", "launches")},
-        "plain_seconds": sp["seconds"], "same_as_plain": same,
-        "wall_s": time.perf_counter() - t0}
-    print(f"4p karto ({karto_beams} beams, {sk['scans']} scans): "
-          f"{sk['scans_per_s']:.2f} scans/s, ATE {sk['ate_m']:.4f} m (bound "
-          f"{sk['ate_bound_m']:.3f}), launches {sk['launches']}; plain "
-          f"versions {sp['seconds']:.2f} s, same poses, edges and map "
+        "scans", "processed", "ate_m", "ate_bound_m", "loop_closures",
+        "edges", "launches")}, "same_as_plain": same}
+    print(f"4p karto ({karto_beams} beams, {sk['scans']} scans): ATE "
+          f"{sk['ate_m']:.4f} m (bound {sk['ate_bound_m']:.3f}), launches "
+          f"{sk['launches']}; plain versions: same poses, edges and map "
           f"{same} [{card}]", flush=True)
     if not sk["ate_m"] < sk["ate_bound_m"]:
         fails.append(f"karto ATE {sk['ate_m']} >= {sk['ate_bound_m']}")
@@ -2552,7 +2144,6 @@ def run_wide_phase(karto_cfg, device, card: str,
     need("karto", sk["launches"], "patch_sums")
 
     # (b) the odometry and frame to frame at odom_beams
-    t0 = time.perf_counter()
     od, od_poses = run_odometry(device, odom_beams, odom_scans)
     with plain_path():
         odp, odp_poses = run_odometry(device, odom_beams, odom_scans)
@@ -2563,19 +2154,15 @@ def run_wide_phase(karto_cfg, device, card: str,
     same_ff = {t: np.array_equal(ff[t]["poses"], ffp[t]["poses"])
                for t in ff}
     out["odometry"] = {**{k: od[k] for k in (
-        "scans", "beams", "seconds", "scans_per_s", "ate_rmse_m",
-        "launches")}, "plain_seconds": odp["seconds"],
+        "scans", "beams", "ate_rmse_m", "launches")},
         "same_as_plain": same_od}
     out["frame_to_frame"] = {t: {**{k: r[k] for k in (
-        "scans", "seconds", "scans_per_s", "median_err_m", "launches")},
-        "plain_seconds": ffp[t]["seconds"], "same_as_plain": same_ff[t]}
+        "scans", "median_err_m", "launches")}, "same_as_plain": same_ff[t]}
         for t, r in ff.items()}
-    out["odometry_wall_s"] = time.perf_counter() - t0
-    print(f"4p odometry ({odom_beams} beams, {od['scans']} scans): "
-          f"{od['scans_per_s']:.2f} scans/s, ATE RMSE {od['ate_rmse_m']:.4f} "
-          f"m, launches {od['launches']}, plain {odp['seconds']:.2f} s, same "
-          f"poses {same_od}; frame to frame ({icp_scans} scans) "
-          + ", ".join(f"{t} {r['scans_per_s']:.2f} scans/s launches "
+    print(f"4p odometry ({odom_beams} beams, {od['scans']} scans): ATE RMSE "
+          f"{od['ate_rmse_m']:.4f} m, launches {od['launches']}, plain path "
+          f"same poses {same_od}; frame to frame ({icp_scans} scans) "
+          + ", ".join(f"{t} launches "
                       f"{ {k: v for k, v in r['launches'].items() if v} } "
                       f"same {same_ff[t]}" for t, r in ff.items())
           + f" [{card}]", flush=True)
@@ -2591,7 +2178,6 @@ def run_wide_phase(karto_cfg, device, card: str,
         need(f"frame to frame {t}", ff[t]["launches"], "plicp_nearest_wide")
 
     # (c) the batches past the launch grid's pairs
-    t0 = time.perf_counter()
     args = batch_fixture(pairs, pair_beams, device)
     cut = ops_p.MAX_PAIRS if cut is None else cut
     idx = torch.tensor(np.sort(np.random.default_rng(5).choice(
@@ -2605,7 +2191,7 @@ def run_wide_phase(karto_cfg, device, card: str,
     out["batches"] = {}
     for name, fn in calls.items():
         _reset(ops_p.LAUNCHES)
-        full, secs = _timed(lambda fn=fn: tuple(fn(args)), on_card)
+        full = tuple(fn(args))
         launches = {k: v for k, v in ops_p.LAUNCHES.items() if v}
         held = {}
         with held_pairs(held, cut, idx):
@@ -2623,14 +2209,13 @@ def run_wide_phase(karto_cfg, device, card: str,
         vs_plain = _same(kern, plain)
         vs_full = all(torch.equal(f[idx], q) for f, q in zip(full, plain))
         out["batches"][name] = {
-            "pairs": pairs, "beams": pair_beams, "seconds": secs,
-            "matches_per_s": pairs / secs, "launches": launches,
+            "pairs": pairs, "beams": pair_beams, "launches": launches,
             "held_calls": held, "repeats": repeat,
             "chunks_equal": chunks, "sample": sample,
             "sample_equal_plain": vs_plain,
             "sample_plain_equal_whole_call": vs_full}
-        print(f"4p {name}: {pairs} pairs of {pair_beams} in {secs:.3f} s = "
-              f"{pairs / secs:.0f} matches/s, launches {launches}; "
+        print(f"4p {name}: {pairs} pairs of {pair_beams}, launches "
+              f"{launches}; "
               f"correspondence calls held (pairs [0, {cut}) and [{cut}, "
               f"{pairs}) apart, {sample} sampled pairs against plain): "
               f"{held}, bit for bit; the call again equal {repeat}; the "
@@ -2652,10 +2237,8 @@ def run_wide_phase(karto_cfg, device, card: str,
         need(name, launches, key)
         del full, kern, plain, sub
     del args
-    out["batches_wall_s"] = time.perf_counter() - t0
 
     # (d) batched Hector past 4,096 beams
-    t0 = time.perf_counter()
     hcfg, specs, grids, hpts, hvalid, truths, guesses = hector_fixture(
         device, hector_scans, "bench", num_beams=hector_beams)
     kw = dict(iterations_finest=hcfg.iterations_finest,
@@ -2668,20 +2251,19 @@ def run_wide_phase(karto_cfg, device, card: str,
     if on_card:
         ops_h.match_level_kernel = _held_hector(held)
     try:
-        res, secs = _timed(lambda: match_pyramid_batched(
-            specs, grids, hpts, hvalid, guesses, impl="kernel", **kw),
-            on_card)
+        res = match_pyramid_batched(specs, grids, hpts, hvalid, guesses,
+                                    impl="kernel", **kw)
     finally:
         ops_h.match_level_kernel = orig
     launches = {k: v for k, v in ops_h.LAUNCHES.items() if v}
     err = np.abs(res.pose.cpu().numpy() - truths)
     out["hector"] = {"scans": hector_scans, "beams": hector_beams,
-                     "map": hcfg.map_size, "seconds": secs,
+                     "map": hcfg.map_size,
                      "mean_xy_err_m": float(err[:, :2].mean()),
                      "max_xy_err_m": float(err[:, :2].max()),
                      "launches": launches, "held": held}
     print(f"4p hector batch (map {hcfg.map_size}, {hector_beams} beams, "
-          f"{hector_scans} scans): {secs:.3f} s, mean xy err "
+          f"{hector_scans} scans): mean xy err "
           f"{out['hector']['mean_xy_err_m']:.4f} m (max "
           f"{out['hector']['max_xy_err_m']:.4f}), launches {launches}, "
           f"kernel vs plain on the path's inputs {held} [{card}]",
@@ -2696,14 +2278,13 @@ def run_wide_phase(karto_cfg, device, card: str,
             fails.append(f"hector_gn on the path's inputs: kernel and plain "
                          f"differ {diffs} (bounds {HECTOR_BOUNDS})")
     need("hector batch", launches, "hector_gn_wide")
-    out["hector"]["wall_s"] = time.perf_counter() - t0
 
     launches = {}
     for r in (out["karto"], out["odometry"], *out["frame_to_frame"].values(),
               *out["batches"].values(), out["hector"]):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    out["launches"] = launches
     if fails:
         raise RuntimeError("phase 4p: " + "; ".join(fails))
     return out
@@ -2773,7 +2354,6 @@ def run_mesh_matches(m, entries, chain_len: int = 20) -> dict:
     from tpuslam_torch.parallel.mesh import make_mesh
 
     sid = len(m.records) - 1
-    on_card = m._pts.device.type == "cuda"
     cases = (
         ("loop", m.loop_spec, list(range(chain_len)),
          dict(penalize=False, refine=False)),
@@ -2793,26 +2373,25 @@ def run_mesh_matches(m, entries, chain_len: int = 20) -> dict:
             spec, make_mesh(len(entries), "lattice", devices=entries),
             **flags)
         _reset(ops_c.LAUNCHES, ops_f.LAUNCHES)
-        got, secs = _timed(lambda: fn(*args), on_card)
+        got = fn(*args)
         launches = {**ops_c.LAUNCHES, **ops_f.LAUNCHES}
         out[tag] = {
             "same": all(torch.equal(a, b) for a, b in zip(got, want)),
             "launches": launches, "chain": len(chain),
             "grid": spec.grid_size, "angles": len(spec.coarse_angles()),
-            "beams": int(m._pts.shape[1]), "seconds": secs,
+            "beams": int(m._pts.shape[1]),
             "response": float(got.response),
         }
     return out
 
 
 def run_mesh_hector(device, entries, n: int = MESH_SCANS,
-                    num_beams: int = 1081, cfg=None, runs: int = 3) -> dict:
+                    num_beams: int = 1081, cfg=None) -> dict:
     """Phase 4m.4: Hector's ``batch_step`` against ``sharded_batch_step``
     on a 1-D mesh of ``entries`` and a 2-D one (each bit for bit, the
     largest differences printed), ``n`` scans on a map seeded with the
     stream's first scan (mapped without matching, as phase 4g's first
-    step), and ``batch_match``'s mean and largest xy errors.  Each step's
-    time is the least of ``runs`` synced calls after one warm-up."""
+    step), and ``batch_match``'s mean and largest xy errors."""
     from tpuslam_torch.core.config import HectorConfig
     from tpuslam_torch.core.scan import Scan
     from tpuslam_torch.io.simulate import world_with_boxes
@@ -2833,20 +2412,11 @@ def run_mesh_hector(device, entries, n: int = MESH_SCANS,
         dxy, dxy, dth]
     scans = [_sim_scan(segs, p, cfg.num_beams, device, 30.0) for p in truths]
     batch = Scan(*(torch.stack(t) for t in zip(*scans)))
-    on_card = torch.device(device).type == "cuda"
     m1 = tmesh.make_mesh(len(entries), devices=entries)
     m2 = tmesh.make_mesh_2d(len(entries), devices=entries)
-    steps = {"unsharded": functools.partial(tmesh.batch_step, cfg),
-             "mesh_1d": tmesh.sharded_batch_step(cfg, m1),
-             "mesh_2d": tmesh.sharded_batch_step(cfg, m2)}
-    results, ms = {}, {}
-    for tag, fn in steps.items():
-        results[tag] = fn(st, batch)
-        if on_card:
-            torch.cuda.synchronize()
-        ms[tag] = min(_timed(lambda: fn(st, batch), on_card)[1]
-                      for _ in range(runs)) * 1e3
-    (ws, wp), (s1, p1), (s2, p2) = (results[k] for k in steps)
+    ws, wp = tmesh.batch_step(cfg, st, batch)
+    s1, p1 = tmesh.sharded_batch_step(cfg, m1)(st, batch)
+    s2, p2 = tmesh.sharded_batch_step(cfg, m2)(st, batch)
     poses, _ = tmesh.batch_match(cfg, st, batch)
     err = np.hypot(*(poses.cpu().numpy()[:, :2] - truths[:, :2]).T)
     return {
@@ -2862,7 +2432,6 @@ def run_mesh_hector(device, entries, n: int = MESH_SCANS,
                                                     ws.log_odds)),
         "batch_match_equals_step": bool(torch.equal(poses, wp)),
         "mean_xy_err_m": float(err.mean()), "max_xy_err_m": float(err.max()),
-        "ms": ms, "matches_per_s": {k: n / (v / 1e3) for k, v in ms.items()},
     }
 
 
@@ -2899,8 +2468,8 @@ def run_mesh_phase(cfg, device, num_beams: int, per_scan, parallel,
     for tag, r in mt.items():
         print(f"  sharded {tag} match (G={r['grid']}, {r['angles']} "
               f"angles, B={r['beams']}, chain {r['chain']}): equal to "
-              f"match_scan {r['same']}, {r['seconds'] * 1e3:.2f} ms, "
-              f"launches {r['launches']} [{card}]", flush=True)
+              f"match_scan {r['same']}, launches {r['launches']} [{card}]",
+              flush=True)
         if not r["same"]:
             fails.append(f"sharded {tag} match differs from match_scan")
     if on_card:
@@ -2921,10 +2490,10 @@ def run_mesh_phase(cfg, device, num_beams: int, per_scan, parallel,
     same_loop = (_same_graph(per_scan, m_loop) and loop["loop_closures"]
                  == per_scan.stats["loop_closures"])
     loop.update(same=same_loop, sharded_loop_matches=len(checks))
-    print(f"  loop_mesh courtyard: {loop['scans_per_s']:.2f} scans/s, "
-          f"closures {loop['loop_closures']}, {len(checks)} sharded coarse "
-          f"loop matches, poses and edges equal to 4c's {same_loop}, "
-          f"launches {loop['launches']} [{card}]", flush=True)
+    print(f"  loop_mesh courtyard: closures {loop['loop_closures']}, "
+          f"{len(checks)} sharded coarse loop matches, poses and edges "
+          f"equal to 4c's {same_loop}, launches {loop['launches']} "
+          f"[{card}]", flush=True)
     if not same_loop:
         fails.append("the loop_mesh mapper differs from the per-scan one")
     if not checks:
@@ -2938,8 +2507,8 @@ def run_mesh_phase(cfg, device, num_beams: int, per_scan, parallel,
     same_batch = _same_graph(parallel, m_batch)
     bm.update(same=same_batch, sharded_flushes=flushes["calls"])
     print(f"  batch_mesh courtyard, parallel, {BATCH_SIZE} a flush: "
-          f"{bm['scans_per_s']:.2f} scans/s, {flushes['calls']} sharded "
-          f"flushes, {bm['checked_dispatches']} dispatches sync-checked, "
+          f"{flushes['calls']} sharded flushes, "
+          f"{bm['checked_dispatches']} dispatches sync-checked, "
           f"poses and edges equal to 4h's parallel run {same_batch}, "
           f"launches {bm['launches']} [{card}]", flush=True)
     if not same_batch:
@@ -2958,9 +2527,7 @@ def run_mesh_phase(cfg, device, num_beams: int, per_scan, parallel,
           f"{hb['same_2d']} (max |pose diff| {hb['max_diff_2d_pose']}, "
           f"|log-odds diff| {hb['max_diff_2d_log_odds']}); batch_match mean "
           f"xy err {hb['mean_xy_err_m']:.4f} m (max "
-          f"{hb['max_xy_err_m']:.4f}); matches/s "
-          + ", ".join(f"{k} {v:.1f}" for k, v in hb["matches_per_s"].items())
-          + f" [{card}]", flush=True)
+          f"{hb['max_xy_err_m']:.4f}) [{card}]", flush=True)
     if not hb["same_1d"]:
         fails.append("the 1-D Hector step differs from batch_step")
     if not hb["same_2d"]:
@@ -2988,8 +2555,8 @@ def check_solve(m, card) -> dict:
     under ``torch.cuda.set_sync_debug_mode("error")``: the graph is
     uploaded before the checked region and the poses fetched after it.  A
     first, unchecked solve captures the graph's bucket if it is new; the
-    checked solve must repeat it bit for bit.  Returns its synced seconds
-    and LM graph replays."""
+    checked solve must repeat it bit for bit.  Returns its LM graph
+    replays."""
     from tpuslam_torch.graph import solver
     from tpuslam_torch.graph.backends import graph_from_edges, make_solver
 
@@ -2999,15 +2566,12 @@ def check_solve(m, card) -> dict:
     first, _ = backend.compute(g)
     torch.cuda.synchronize()
     replays = solver.REPLAYS["lm_step"]
-    t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         poses, stats = backend.compute(g)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
     out = {"nodes": n, "edges": len(m.edges),
-           "seconds": time.perf_counter() - t0,
            "lm_replays": solver.REPLAYS["lm_step"] - replays,
            "captures": solver.REPLAYS["captures"],
            "same_as_first": bool(torch.equal(poses, first)),
@@ -3015,7 +2579,7 @@ def check_solve(m, card) -> dict:
            "final_cost": float(stats.final_cost),
            "good_iters": int(stats.good_iters)}
     print(f"solve under sync debug mode \"error\": {n} nodes, {out['edges']} "
-          f"edges, {out['seconds']:.4f} s synced, {out['lm_replays']} LM "
+          f"edges, {out['lm_replays']} LM "
           f"graph replays ({out['captures']} buckets captured so far), cost "
           f"{out['initial_cost']:.4g} -> {out['final_cost']:.4g}, repeats "
           f"the first solve bit for bit: {out['same_as_first']} [{card}]",
@@ -3049,7 +2613,6 @@ def check_call_forms(m, card) -> dict:
             torch.cuda.synchronize()
         return got, solver.REPLAYS["reindex"] - before
 
-    t0 = time.perf_counter()
     replaced = solver.empty_graph(
         built.poses.shape[0], built.edge_i.shape[0], device=m.device
     )._replace(**{f: getattr(built, f).clone()
@@ -3069,16 +2632,15 @@ def check_call_forms(m, card) -> dict:
            "masked_reindex": masked_reindex,
            "masked_differs": not bool(torch.equal(off, want)),
            "restored_reindex": restored_reindex,
-           "restored_same": bool(torch.equal(back, want)),
-           "seconds": time.perf_counter() - t0}
+           "restored_same": bool(torch.equal(back, want))}
     print(f"call forms of the solve on the courtyard closure's graph ({n} "
           f"nodes, {out['edges']} edges): empty_graph()._replace(...) "
           f"reindexed {replaced_reindex}x, poses equal to the built "
           f"graph's {out['replaced_same']}; loop edge {out['loop_edge']} "
           f"masked in place: reindexed {masked_reindex}x, poses differ "
           f"{out['masked_differs']}; unmasked in place: reindexed "
-          f"{restored_reindex}x, poses equal {out['restored_same']}; "
-          f"{out['seconds']:.2f} s [{card}]", flush=True)
+          f"{restored_reindex}x, poses equal {out['restored_same']} "
+          f"[{card}]", flush=True)
     if not (replaced_reindex == masked_reindex == restored_reindex == 1
             and out["replaced_same"] and out["masked_differs"]
             and out["restored_same"]):
@@ -3114,7 +2676,7 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
     ``torch.cuda.set_sync_debug_mode("error")``, which must raise
     nothing, repeat the first bit for bit, give finite poses and cut the
     largest gradient entry on free nodes to ``GARLAND_GRAD_SHARE`` of its
-    first; the seconds of each and the peak memory.  Then at
+    first; the peak memory.  Then at
     ``band_nodes`` one band step against the card's dense step and the
     host's band step, and the ``spa_solver`` solves by the band step
     (the limit lowered to half) and by the dense step, reported.  The
@@ -3129,16 +2691,13 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
     g = graph_from_edges(init, edges, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (first, _), first_s = _timed(lambda: solve(g), True)
+    first, _ = solve(g)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         poses, stats = solve(g)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    checked_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
 
     def grad(p):
@@ -3147,7 +2706,7 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
 
     out = {"nodes": nodes, "edges": len(edges),
            "step": solver._step_kind(nodes), "panel": g.panel,
-           "first_s": first_s, "checked_s": checked_s, "peak_bytes": peak,
+           "peak_bytes": peak,
            "same_as_first": bool(torch.equal(poses, first)),
            "finite": bool(torch.isfinite(poses).all()),
            "initial_cost": float(stats.initial_cost),
@@ -3156,9 +2715,9 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
            "initial_grad": grad(g.poses), "final_grad": grad(poses)}
     print(f"garland solve past the dense limit: {nodes} nodes, "
           f"{out['edges']} edges, {out['step']} step in panels of "
-          f"{out['panel']} nodes, first {first_s:.4f} s (captures), under "
-          f"sync debug mode \"error\" {checked_s:.4f} s, peak "
-          f"{peak / 2**20:.1f} MiB, cost {out['initial_cost']:.6g} -> "
+          f"{out['panel']} nodes, the second under sync debug mode "
+          f"\"error\", peak {peak / 2**20:.1f} MiB, cost "
+          f"{out['initial_cost']:.6g} -> "
           f"{out['final_cost']:.6g} in {out['good_iters']} steps, largest "
           f"free gradient {out['initial_grad']:.4g} -> "
           f"{out['final_grad']:.4g} (bound {GARLAND_GRAD_SHARE:g} of the "
@@ -3171,16 +2730,14 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
     sc = solver._build_system(gc, gc.poses, 1)
     step = solver._band_step(gc, sc, lam.to(gc.poses.device), gc.panel)
     dense_step = solver._step(gc, sc, lam.to(gc.poses.device))
-    t0 = time.perf_counter()
     host_step = solver._band_step(gh, solver._build_system(gh, gh.poses, 1),
                                   lam, gh.panel)
-    host_s = time.perf_counter() - t0
     del sc
-    (dense, _), dense_s = _timed(lambda: solve(gc), True)
+    dense, _ = solve(gc)
     limit = solver.MAX_NODES
     solver.MAX_NODES = band_nodes // 2
     try:
-        (band, bstats), band_s = _timed(lambda: solve(gc), True)
+        band, bstats = solve(gc)
     finally:
         solver.MAX_NODES = limit
     for key in set(solver._CUDA_SOLVES) - kept:
@@ -3190,7 +2747,6 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
         "nodes": band_nodes, "step_max_m": float(dense_step.abs().max()),
         "step_vs_dense_m": float((step - dense_step).abs().max()),
         "step_vs_host_m": float((step.cpu() - host_step).abs().max()),
-        "host_step_s": host_s, "card_s": band_s, "dense_s": dense_s,
         "solve_vs_dense": pose_gap(band.cpu().numpy(), dense.cpu().numpy()),
         "final_cost": float(bstats.final_cost)}
     b = out["band"]
@@ -3198,10 +2754,9 @@ def check_garland_solves(card, nodes: int = GARLAND_NODES,
           f"(largest entry {b['step_max_m']:.4g}): against the card's dense "
           f"step {b['step_vs_dense_m']:.3g} (bound "
           f"{GARLAND_BAND_VS_DENSE_M:g}), against the host's band step "
-          f"{b['step_vs_host_m']:.3g} (bound {GARLAND_BAND_VS_HOST_M:g}; "
-          f"host {host_s:.2f} s); spa_solver by the band step (limit "
-          f"lowered to {band_nodes // 2}) {band_s:.4f} s and by the dense "
-          f"step {dense_s:.4f} s (both capture), apart by "
+          f"{b['step_vs_host_m']:.3g} (bound {GARLAND_BAND_VS_HOST_M:g}); "
+          f"spa_solver by the band step (limit lowered to "
+          f"{band_nodes // 2}) and by the dense step apart by "
           f"{b['solve_vs_dense']} (m, rad) [{card}]", flush=True)
     fails = []
     if out["step"] != "band":
@@ -3232,21 +2787,14 @@ def _same_graph(a, b) -> bool:
 
 
 def _report(tag, s, card):
-    print(f"{tag}: {s['scans']} scans in {s['seconds']:.2f} s = "
-          f"{s['scans_per_s']:.2f} scans/s, ATE {s['ate_m']:.4f} m "
+    print(f"{tag}: {s['scans']} scans, ATE {s['ate_m']:.4f} m "
           f"(bound {s['ate_bound_m']:.3f}), closures {s['loop_closures']}, "
           f"near links {s['near_chain_links']}, edges {s['edges']}, "
-          f"fetches {s['fetch_count']} ({s['fetch_seconds']:.2f} s), "
+          f"fetches {s['fetch_count']}, "
           f"launches {s['launches']}, grids {s['seq_grid']}/"
           f"{s['loop_grid']}, {s['world']}, scan buffer "
           f"{s['scan_buffer_size']} "
           f"[{card}]", flush=True)
-    if "profile" in s:
-        pr = s["profile"]
-        print(f"  profiled rerun: {s['device_ms_per_scan']:.3f} device ms a "
-              f"scan, device busy {s['busy_share']:.4f} of the run above "
-              f"({pr['busy_share']:.4f} of the profiled {pr['wall_s']:.2f} "
-              f"s), {pr['device_ops']} device ops [{card}]", flush=True)
     if (s["seq_grid"], s["loop_grid"]) != (2007, 1151):
         raise RuntimeError(f"{tag}: grids {s['seq_grid']}/{s['loop_grid']} "
                            "are not the outdoor 2007/1151")
@@ -3278,10 +2826,10 @@ def write_log_bag(path, log) -> None:
 def run_cli(cmd: str, args: list, device: str, card: str, scans: int,
             note: str = "") -> dict:
     """``tpuslam_torch.cli.main`` in this process, its standard output
-    captured: the JSON line it must print, the wall seconds (ending in a
-    synchronize on the card), scans/s, and each kernel's launches (the
+    captured: the JSON line it must print and each kernel's launches (the
     counters set to 0 just before the command and read just after).
-    ``note`` follows the command's name in the printed line."""
+    ``scans`` is the command's scans, the share's denominator; ``note``
+    follows the command's name in the printed line."""
     import io
 
     from tpuslam_torch import cli
@@ -3297,18 +2845,15 @@ def run_cli(cmd: str, args: list, device: str, card: str, scans: int,
     buf = io.StringIO()
     _reset(*counters)
     with contextlib.redirect_stdout(buf):
-        _, wall = _timed(lambda: cli.main(argv),
-                         torch.device(device).type == "cuda")
+        cli.main(argv)
     launches = {k: v for c in counters for k, v in c.items()}
     lines = buf.getvalue().strip().splitlines()
     if not lines:
         raise RuntimeError(f"cli {cmd}: no JSON line")
     fired = {k: v for k, v in launches.items() if v}
-    print(f"cli {cmd}{note} ({device}): {scans} scans in {wall:.2f} s = "
-          f"{scans / wall:.2f} scans/s, launches {fired or 'none'}; "
-          f"{lines[-1][:200]} [{card}]", flush=True)
-    return {"argv": argv, "result": json.loads(lines[-1]), "seconds": wall,
-            "scans": scans, "scans_per_s": scans / wall,
+    print(f"cli {cmd}{note} ({device}): {scans} scans, launches "
+          f"{fired or 'none'}; {lines[-1][:200]} [{card}]", flush=True)
+    return {"argv": argv, "result": json.loads(lines[-1]), "scans": scans,
             "launches": launches}
 
 
@@ -3343,21 +2888,16 @@ def gmapping_mismatches(log, poses, devices) -> dict:
             "share": differ / max(visited, 1)}
 
 
-def tslg_codecs(path: Path, workdir: Path, runs: int = 20) -> dict:
+def tslg_codecs(path: Path, workdir: Path) -> dict:
     """Phase 4k's ``.tslg`` check on the log that ``synth`` wrote (with
-    the record-array codec, the default): loads by both codecs, each timed
-    as the mean of ``runs`` loads, must hold equal arrays; the log written
-    again by each codec must give the synth file's bytes."""
+    the record-array codec, the default): the loads by both codecs must
+    hold equal arrays; the log written again by each codec must give the
+    synth file's bytes."""
     from tpuslam_torch.io import bag
 
     want = path.read_bytes()
-    out, logs = {"file_bytes": len(want)}, {}
-    for codec in bag.CODECS:
-        bag.load_tslg(path, codec=codec)
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            logs[codec] = bag.load_tslg(path, codec=codec)
-        out[f"{codec}_load_ms"] = (time.perf_counter() - t0) * 1e3 / runs
+    out = {"file_bytes": len(want)}
+    logs = {codec: bag.load_tslg(path, codec=codec) for codec in bag.CODECS}
     same = []
     for codec in bag.CODECS:
         again = workdir / f"again_{codec}.tslg"
@@ -3478,7 +3018,7 @@ def run_cli_phase(card: str, workdir: Path, device: str = "cuda",
                                  poses_per_rev=40, seed=0)
     spec = gmapping.make_spec(cli.occupancy_config(olog, otrue))
     omap = wall_check(spec, z["map"], world_with_boxes(), "4k occupancy-map",
-                      card, runs["occupancy-map"]["seconds"], scans)
+                      card, scans)
     gm = gmapping_mismatches(olog, otrue, devices)
     # synth, then scan-info of its .tslg
     tslg = workdir / "laps.tslg"
@@ -3630,11 +3170,6 @@ def oracle_world() -> np.ndarray:
                           + [_box_segs(c, half=0.6007) for c in boxes])
 
 
-def _synced(fn, device):
-    """(fn(), host seconds), synchronized on the card."""
-    return _timed(fn, torch.device(device).type == "cuda")
-
-
 def _cov_excess(ct, co, rtol) -> float:
     """How far a covariance misses test_matcher_parity_clean_scans'
     tolerance (<= 0 passes): the xy block within rtol and atol 1e-6, the
@@ -3707,7 +3242,7 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
                           range_threshold=cfg.use_scan_range,
                           minimum_range=0.1, odom_pose=pose)
 
-    rows, card_s, oracle_s = [], 0.0, 0.0
+    rows = []
     for kind, i, on, sd in cases:
         near = kind == "near"
         spec, om = matchers["sequential" if near else kind]
@@ -3718,15 +3253,12 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
             staged[j][0]) for j in bases])
         wvalid = torch.stack([staged[j][1] for j in bases])
         query = stage(near_r, *stream[i][2:]) if near else staged[i]
-        res, dt = _synced(lambda: match_scan(
+        res = match_scan(
             spec, torch.tensor(np.float32(center), device=device),
-            *query, wpts, wvalid, penalize=on, refine=on), device)
-        card_s += dt
+            *query, wpts, wvalid, penalize=on, refine=on)
         obases = [oscan(j, stream[j][0]) for j in bases]
-        t0 = time.perf_counter()
         want = om.match_scan(oscan(i, center, near), obases, penalize=on,
                              refine=on)
-        oracle_s += time.perf_counter() - t0
         row = {"kind": kind, "scan": i,
                **_karto_deviation(res, *want),
                "oracle_response": float(want[0])}
@@ -3735,10 +3267,8 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
         parity, grid = stamp_parity(spec, om, center, wpts, wvalid, obases)
         row.update(parity)
         if row["grid_cells_differing"]:
-            t0 = time.perf_counter()
             witness = _match_on_grid(om, grid, oscan(i, center, near),
                                      obases, on)
-            oracle_s += time.perf_counter() - t0
             row["on_card_grid"] = _karto_deviation(res, *witness)
         rows.append(row)
     # the response and covariance are held to the oracle where the grids
@@ -3752,8 +3282,7 @@ def oracle_karto(cfg, device, k: int = ORACLE_MATCHES,
             "beams": nb, "grids": {kind: m[0].grid_size
                                    for kind, m in matchers.items()},
             "flagged": sum(1 for r in rows if r["grid_cells_differing"]),
-            "rows": rows, "worst": worst, "card_s": card_s,
-            "oracle_s": oracle_s}
+            "rows": rows, "worst": worst}
 
 
 def _karto_deviation(res, ro, po, co) -> dict:
@@ -3854,9 +3383,8 @@ def oracle_spa(poses, edges, device) -> dict:
         g = graph_from_edges(poses, edges, device=device)
         return make_solver("spa_solver").compute(g)
 
-    (got, stats), card_s = _synced(card, device)
+    got, stats = card()
     got = got[:len(poses)].cpu().numpy().astype(np.float64)
-    t0 = time.perf_counter()
     spa = OracleSpa2d()
     for i, p in enumerate(poses):
         spa.add_node(p, i)
@@ -3864,7 +3392,6 @@ def oracle_spa(poses, edges, device) -> dict:
         spa.add_constraint(i, j, mean, prec)
     iters = spa.do_spa(40)
     want = np.stack([spa.get_poses()[i] for i in range(len(poses))])
-    oracle_s = time.perf_counter() - t0
     dth = np.abs(np.remainder(got[:, 2] - want[:, 2] + math.pi, 2 * math.pi)
                  - math.pi)
     return {"nodes": len(poses), "edges": len(edges),
@@ -3873,8 +3400,7 @@ def oracle_spa(poses, edges, device) -> dict:
             "initial_cost": float(stats.initial_cost),
             "final_cost": float(stats.final_cost),
             "moved_m": float(np.abs(want[:, :2] - np.asarray(poses)[:, :2])
-                             .max()),
-            "card_s": card_s, "oracle_s": oracle_s}
+                             .max())}
 
 
 def oracle_scan_pairs(device, num_beams: int = 1081,
@@ -3902,7 +3428,7 @@ def oracle_scan_pairs(device, num_beams: int = 1081,
     icfg = IcpConfig(num_beams=num_beams, correspondence_method="kernel")
     allv = torch.ones(num_beams, dtype=torch.bool, device=device)
     step = (len(scans) - 1) // pairs
-    rows, card_s, oracle_s = [], 0.0, 0.0
+    rows = []
     for n, i in enumerate(range(0, step * pairs, step)):
         s0, s1 = scans[i], scans[i + 1]
         r0, r1 = (s.ranges.cpu().numpy().astype(np.float64)
@@ -3913,22 +3439,16 @@ def oracle_scan_pairs(device, num_beams: int = 1081,
                   for r in (r0, r1))
         q0, q1 = (torch.tensor(c, dtype=torch.float32, device=device)
                   for c in (c0, c1))
-        ti, dt = _synced(lambda: icp(icfg, q0, allv, q1, allv), device)
-        card_s += dt
-        t0 = time.perf_counter()
+        ti = icp(icfg, q0, allv, q1, allv)
         oi = OraclePclIcp().align(c0, c1)
-        oracle_s += time.perf_counter() - t0
         row = {"pair": i,
                "icp_converged": [bool(ti.converged), bool(oi.converged)],
                "icp": float(np.abs(ti.pose.cpu().numpy() - oi.x).max())}
         if n < plicp_pairs:
-            tp, dt = _synced(lambda: plicp(pcfg, p1, v1, p0, v0), device)
-            card_s += dt
-            t0 = time.perf_counter()
+            tp = plicp(pcfg, p1, v1, p0, v0)
             op = OracleCsm(min_reading=rmin, max_reading=rmax).sm_icp(
                 OracleLdp.from_scan(r0, amin, ainc, rmin, rmax),
                 OracleLdp.from_scan(r1, amin, ainc, rmin, rmax), np.zeros(3))
-            oracle_s += time.perf_counter() - t0
             row.update(plicp_valid=[bool(tp.valid), bool(op.valid)],
                        plicp=float(np.abs(tp.pose.cpu().numpy() - op.x)
                                    .max()))
@@ -3936,8 +3456,7 @@ def oracle_scan_pairs(device, num_beams: int = 1081,
     return {"pairs": pairs, "plicp_pairs": plicp_pairs, "beams": num_beams,
             "rows": rows,
             "worst": {key: max(r[key] for r in rows if key in r)
-                      for key in ("plicp", "icp")},
-            "card_s": card_s, "oracle_s": oracle_s}
+                      for key in ("plicp", "icp")}}
 
 
 def oracle_hector(device, num_beams: int = 1081,
@@ -3989,8 +3508,7 @@ def oracle_hector(device, num_beams: int = 1081,
                 mapped.append(p)
         return st, mapped
 
-    (st, mapped), card_s = _synced(build, device)
-    t0 = time.perf_counter()
+    st, mapped = build()
     omap = OracleHectorMap(cfg.map_size, cfg.map_size,
                            cfg.update_factor_free, cfg.update_factor_occupied)
     for p in mapped:
@@ -3998,7 +3516,6 @@ def oracle_hector(device, num_beams: int = 1081,
         pm = spec.world_pose_to_map(torch.tensor(p, dtype=torch.float32))
         omap.update_by_scan((pts[valid].cpu().numpy() / res),
                             pm.numpy().astype(np.float64))
-    oracle_s = time.perf_counter() - t0
     lo = st.log_odds[0].cpu().numpy().astype(np.float64)
     want = omap.grid()
     touched = int(((lo != 0) | (want != 0)).sum())
@@ -4018,15 +3535,12 @@ def oracle_hector(device, num_beams: int = 1081,
         pts_map = pts / res
         pose0 = spec.world_pose_to_map(torch.tensor(
             true + [0.03, -0.02, 0.025], dtype=torch.float32, device=device))
-        (gp, gh, _), dt = _synced(lambda: match_level_kernel(
+        gp, gh, _ = match_level_kernel(
             grid, pts_map[None], valid[None], pose0[None],
-            window=cfg.map_size, num_iters=6), device)
-        card_s += dt
-        t0 = time.perf_counter()
+            window=cfg.map_size, num_iters=6)
         wp, wh = OracleHectorMatcher(grid_bf).match(
             pose0.cpu().numpy().astype(np.float64),
             pts_map[valid].cpu().numpy(), max_iterations=5)
-        oracle_s += time.perf_counter() - t0
         gp = gp[0].cpu().numpy().astype(np.float64)
         gh = gh[0].cpu().numpy().astype(np.float64)
         rows.append({"truth": true.tolist(),
@@ -4035,8 +3549,7 @@ def oracle_hector(device, num_beams: int = 1081,
                      "h_rel": float((np.abs(gh - wh)
                                      / np.maximum(np.abs(wh), 1e-30)).max())})
     out.update(rows=rows, worst={key: max(r[key] for r in rows)
-                                 for key in ("xy", "yaw", "h_rel")},
-               card_s=card_s, oracle_s=oracle_s)
+                                 for key in ("xy", "yaw", "h_rel")})
     return out
 
 
@@ -4067,10 +3580,8 @@ def oracle_gmapping(device, num_beams: int = 1081,
                    angle_increment=float(angles[1] - angles[0]),
                    range_min=0.0, range_max=np.inf, num_beams=num_beams,
                    device=device)
-    counts, card_s = _synced(lambda: gmapping.map_from_scans(
-        cfg, torch.tensor(poses, dtype=torch.float32, device=device), sc),
-        device)
-    t0 = time.perf_counter()
+    counts = gmapping.map_from_scans(
+        cfg, torch.tensor(poses, dtype=torch.float32, device=device), sc)
     spec = gmapping.make_spec(cfg)
     om = OracleGmappingMap(spec.size_x, spec.size_y, cfg.delta,
                            (cfg.xmin + cfg.xmax) / 2,
@@ -4079,7 +3590,6 @@ def oracle_gmapping(device, num_beams: int = 1081,
         om.compute_map(r, np.cos(p[2] + angles), np.sin(p[2] + angles),
                        lp=(p[0], p[1]), max_range=cfg.maxRange,
                        max_use_range=cfg.maxUrange)
-    oracle_s = time.perf_counter() - t0
     hits = counts.hits.cpu().numpy().astype(np.int64)
     visits = counts.visits.cpu().numpy().astype(np.int64)
     visited = int(((visits > 0) | (om.visits > 0)).sum())
@@ -4087,8 +3597,7 @@ def oracle_gmapping(device, num_beams: int = 1081,
     return {"beams": num_beams, "scans": scans, "differing_cells": differ,
             "visited_cells": visited, "share": differ / max(visited, 1),
             "oracle_hits": int(om.n.sum()),
-            "oracle_visits": int(om.visits.sum()),
-            "card_s": card_s, "oracle_s": oracle_s}
+            "oracle_visits": int(om.visits.sum())}
 
 
 def oracle_undistort(device, num_beams: int = 1081) -> dict:
@@ -4105,7 +3614,7 @@ def oracle_undistort(device, num_beams: int = 1081) -> dict:
 
     n, period = num_beams, 0.1
     t0, t1, tinc = 0.0, period, period / n
-    rows, card_s, oracle_s = {}, 0.0, 0.0
+    rows = {}
     for case, (wx, wy), point_z, kw in (
         ("yaw_only", (0.0, 0.0), 1.0, {}),
         ("three_axis_quirk", (0.3, -0.2), 1.0,
@@ -4138,23 +3647,19 @@ def oracle_undistort(device, num_beams: int = 1081) -> dict:
                              torch.tensor(odom_rel, dtype=torch.float32,
                                           device=device), t0, t1)
 
-        (got, gvalid), dt = _synced(card, device)
-        card_s += dt
-        t_o = time.perf_counter()
+        got, gvalid = card()
         orc = OracleUndistorter(point_z=point_z)
         orc.prune_imu(imu_t, imu_w, t0, t1)
         orc.prune_odom(odom_t, odom_p, t0, t1)
         want, wvalid = orc.correct(ranges, amin + np.arange(n) * inc, 0.1,
                                    30.0, t0, tinc)
-        oracle_s += time.perf_counter() - t_o
         got = got.cpu().numpy().astype(np.float64)
         m = gvalid.cpu().numpy()
         d = got.shape[1]
         rows[case] = {"max_abs_m": float(np.abs(got[m] - want[m][:, :d])
                                          .max()),
                       "masks_equal": bool(np.array_equal(m, wvalid))}
-    return {"beams": n, "cases": rows, "card_s": card_s,
-            "oracle_s": oracle_s}
+    return {"beams": n, "cases": rows}
 
 
 def run_oracle_phase(cfg, device, card: str, graph,
@@ -4162,8 +3667,7 @@ def run_oracle_phase(cfg, device, card: str, graph,
     """Phase 4o: (a)-(f) above at ``num_beams``; ``graph`` is the
     (poses, edges) of a Karto closure's solve (phase 4c's last).  The
     launch counters are set to 0 just before and read just after.  Each
-    sub-phase prints its largest deviations and its seconds (the card's
-    calls and the oracle's host time apart); any miss of a bound raises."""
+    sub-phase prints its largest deviations; any miss of a bound raises."""
     from tpuslam_torch.ops import correlative as ops_c
     from tpuslam_torch.ops import fvp as ops_f
     from tpuslam_torch.ops import hector as ops_h
@@ -4172,20 +3676,13 @@ def run_oracle_phase(cfg, device, card: str, graph,
 
     counters = (ops_c.LAUNCHES, ops_f.LAUNCHES, ops_p.LAUNCHES,
                 ops_h.LAUNCHES, ops_s.LAUNCHES)
-    t_phase = time.perf_counter()
     _reset(*counters)
     out, fails = {}, []
 
     def sub(tag, fn, *args, **kw):
-        t0 = time.perf_counter()
-        r = fn(*args, **kw)
-        r["seconds"] = time.perf_counter() - t0
-        out[tag] = r
-        shown = {key: v for key, v in r.items()
-                 if key not in ("rows", "card_s", "oracle_s", "seconds")}
-        print(f"4o {tag}: {shown}; card {r['card_s']:.2f} s, oracle "
-              f"{r['oracle_s']:.2f} s, {r['seconds']:.2f} s in all "
-              f"[{card}]", flush=True)
+        out[tag] = r = fn(*args, **kw)
+        shown = {key: v for key, v in r.items() if key != "rows"}
+        print(f"4o {tag}: {shown} [{card}]", flush=True)
         return r
 
     a = sub("karto", oracle_karto, cfg, device, k=k)
@@ -4242,9 +3739,8 @@ def run_oracle_phase(cfg, device, card: str, graph,
     if not f["cases"]["yaw_only"]["masks_equal"]:
         fails.append("undistort: the validity masks differ")
     launches = {key: v for cnt in counters for key, v in cnt.items()}
-    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
-    print(f"4o: K={k} matches, launches {launches}, "
-          f"{out['seconds']:.2f} s [{card}]", flush=True)
+    out["launches"] = launches
+    print(f"4o: K={k} matches, launches {launches} [{card}]", flush=True)
     if torch.device(device).type == "cuda":
         idle = [key for key, v in launches.items()
                 if v <= 0 and key not in WIDE_FORMS.values()]
@@ -4287,15 +3783,12 @@ def main() -> int:
           f"(compiled={codec['compiled']}) {codec['path']}", flush=True)
 
     # ---- 3. kernels == plain at production sizes
-    mark(f"3. kernels vs plain, {TIMED_RUNS} calls a timing")
+    mark("3. kernels vs plain")
     rows = check_kernels(card)
     mark("3. past the kernels' old ceilings")
-    wide_rows = check_wide(card)
-    rows += wide_rows
-    repeat_s = sum(r["repeat_s"] for r in rows)
+    rows += check_wide(card)
     print(f"  every row's second call on the same inputs equal to its "
-          f"first: {len(rows)} rows, {repeat_s:.3f} s in all [{card}]",
-          flush=True)
+          f"first: {len(rows)} rows [{card}]", flush=True)
     f64 = check_f64_refused(card)
 
     # ---- 4. the slice end to end
@@ -4308,7 +3801,7 @@ def main() -> int:
     graph_solver.REPLAYS["reindex"] = 0
     mark("4a. Karto, room")
     cfg = dataclasses.replace(outdoor_karto_config(), num_beams=1081)
-    s, m = run_slice(cfg, "cuda", 1081, profile=True)
+    s, m = run_slice(cfg, "cuda", 1081)
     _report("slice (outdoor, 1081 beams)", s, card)
     wide = set(WIDE_FORMS.values())  # past the old ceilings: phase 4p
     idle = [k for k, v in s["launches"].items() if v <= 0 and k not in wide]
@@ -4344,11 +3837,10 @@ def main() -> int:
     # more than 15 m, and its circuit is longer than the running window
     mark("4c. Karto, courtyard")
     graphs = []  # each closure's graph as its solve met it (phase 4o)
-    sl, ml = run_slice(cfg, "cuda", 1081, where="courtyard", profile=True,
+    sl, ml = run_slice(cfg, "cuda", 1081, where="courtyard",
                        solve_inputs=graphs)
     _report("slice (outdoor, courtyard)", sl, card)
-    print(f"  correct_poses synced seconds {sl['solve_seconds']} (the first "
-          f"captures its bucket's LM iteration) [{card}]", flush=True)
+    print(f"  {len(graphs)} pose-graph solves [{card}]", flush=True)
     if sl["loop_closures"] < 1:
         raise RuntimeError("no loop closure on the courtyard circuit")
     idle = [k for k, v in sl["launches"].items() if v <= 0 and k not in wide]
@@ -4381,10 +3873,9 @@ def main() -> int:
                           check_sync=mode == "sequential")
         _report(f"process_batch {mode} (outdoor, courtyard, 16 a flush)", b,
                 card)
-        print(f"  {mode}: {b['scans_per_s']:.2f} scans/s and "
-              f"{b['fetches_per_scan']:.3f} fetches a scan; per-scan "
-              f"process {sl['scans_per_s']:.2f} scans/s and "
-              f"{sl['fetches_per_scan']:.3f}; {b['expansion_retries']} "
+        print(f"  {mode}: {b['fetches_per_scan']:.3f} fetches a scan; "
+              f"per-scan process {sl['fetches_per_scan']:.3f}; "
+              f"{b['expansion_retries']} "
               f"expansion retries, {b['checked_dispatches']} dispatches "
               f"checked for syncs; near-chain matches "
               f"{b['near_chain_matches']} (expansion "
@@ -4416,9 +3907,8 @@ def main() -> int:
     with plain_path():
         brp, mbrp = run_batch(cfg, "cuda", 1081, where="room")
     same_room = _same_graph(mbr, mbrp)
-    print(f"  room through process_batch: {br['scans_per_s']:.2f} scans/s, "
-          f"plain versions {brp['scans_per_s']:.2f}; identical poses and "
-          f"edges {same_room} [{card}]", flush=True)
+    print(f"  room through process_batch and through the plain versions: "
+          f"identical poses and edges {same_room} [{card}]", flush=True)
     if not same_room:
         raise RuntimeError("process_batch: the plain path differs")
     batch["room"], batch["room_plain"] = br, brp
@@ -4428,22 +3918,18 @@ def main() -> int:
     # 4m. the mesh layer: the sharded matches, the loop and batch meshes
     # against 4c's and 4h's runs, and Hector's sharded batch step
     mark("4m. meshes")
-    t_mesh = time.perf_counter()
     mesh_r = run_mesh_phase(cfg, "cuda", 1081, ml, mb_par, card)
-    mesh_r["seconds"] = time.perf_counter() - t_mesh
-    mark(f"4m done in {mesh_r['seconds']:.1f} s")
+    mark("4m done")
 
     # 4j. the endurance stream: lossy scans against the oracle, cut to
     # ENDURANCE_SCANS
     mark("4j. endurance")
     endu = run_endurance("cuda", ENDURANCE_SCANS)
     print(f"endurance: {endu['scans']} scans ({endu['beams']} beams, 16 a "
-          f"flush, pipeline 4) in {endu['seconds']:.2f} s = "
-          f"{endu['scans_per_s']:.2f} scans/s, accepted {endu['accepted']}, "
+          f"flush, pipeline 4), accepted {endu['accepted']}, "
           f"closures {endu['closures']} (oracle {endu['closures_oracle']}), "
           f"episodes matched {endu['episodes_ok']}, ATE RMSE "
-          f"{endu['ate_rmse_m']:.4f} m, {endu['solves']} solves in "
-          f"{endu['solve_seconds_total']:.2f} s, "
+          f"{endu['ate_rmse_m']:.4f} m, {endu['solves']} solves, "
           f"{endu['fetches_per_scan']:.3f} fetches a scan, near-chain "
           f"matches {endu['near_chain_matches']} (expansion "
           f"{endu['response_expansion']}) [{card}]",
@@ -4461,19 +3947,14 @@ def main() -> int:
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
     mark("4d. PL-ICP odometry")
-    od, od_poses = run_odometry("cuda", profile=True, repeat=REPEAT_SCANS)
-    print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans in "
-          f"{od['seconds']:.2f} s = {od['scans_per_s']:.2f} scans/s, ATE RMSE "
+    od, od_poses = run_odometry("cuda", repeat=REPEAT_SCANS)
+    print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans, ATE RMSE "
           f"{od['ate_rmse_m']:.4f} m (max {od['max_err_m']:.4f}), keyframes "
           f"{od['keyframes']}, valid {od['valid_matches']}, launches "
           f"{od['launches']} ({od['launches_per_scan']:.2f} per scan) "
           f"[{card}]", flush=True)
-    print(f"  profiled rerun: {od['device_ms_per_scan']:.3f} device ms and "
-          f"{od['device_ops_per_scan']:.1f} device ops a scan, device busy "
-          f"{od['busy_share']:.4f} of the run above [{card}]", flush=True)
     print(f"  the first {REPEAT_SCANS} scans again from a fresh state: "
-          f"poses equal bit for bit, {od['repeat']['seconds']:.2f} s "
-          f"[{card}]", flush=True)
+          f"poses equal bit for bit [{card}]", flush=True)
     if not od["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"odometry ATE RMSE {od['ate_rmse_m']} >= 0.05 m")
     if od["launches"]["plicp_corr"] <= 0:
@@ -4484,8 +3965,8 @@ def main() -> int:
     with plain_path():
         odp, odp_poses = run_odometry("cuda")
     dpose = float(np.abs(odp_poses - od_poses).max())
-    print(f"same stream, plain version: {odp['scans_per_s']:.2f} scans/s, "
-          f"max |pose diff| {dpose} [{card}]", flush=True)
+    print(f"same stream, plain version: max |pose diff| {dpose} [{card}]",
+          flush=True)
     if dpose != 0.0:
         raise RuntimeError("the plain path's odometry poses differ")
 
@@ -4494,8 +3975,7 @@ def main() -> int:
     mark("4e. frame to frame, batches")
     ff = run_frame_to_frame("cuda")
     for tag, r in ff.items():
-        print(f"frame to frame {tag}: {r['scans']} scans, "
-              f"{r['scans_per_s']:.2f} scans/s, median err "
+        print(f"frame to frame {tag}: {r['scans']} scans, median err "
               f"{r['median_err_m']:.4f} m (max {r['max_err_m']:.4f}), "
               f"launches {r['launches']} [{card}]", flush=True)
     if ff["plicp"]["launches"]["plicp_corr"] <= 0:
@@ -4516,7 +3996,7 @@ def main() -> int:
         if not ff[tag]["median_err_m"] < bound:
             raise RuntimeError(f"frame-to-frame {tag}: median error "
                                f"{ff[tag]['median_err_m']} m >= {bound}")
-    batches = time_batches(card)
+    batches = check_batches(card)
 
     # 4n. every method name of the JAX package on the card
     mark("4n. method names")
@@ -4529,8 +4009,7 @@ def main() -> int:
     for impl in ("kernel", "mxu", "plain"):
         r = hb[impl]
         print(f"hector batch {impl}: S={hb['scans']} B={hb['beams']} map "
-              f"{hb['map']} {r['ms']:.3f} ms = {r['matches_per_s']:.0f} "
-              f"matches/s, mean xy err {r['mean_xy_err_m']:.4f} m (max "
+              f"{hb['map']}, mean xy err {r['mean_xy_err_m']:.4f} m (max "
               f"{r['max_xy_err_m']:.4f}) [{card}]", flush=True)
         if not r["mean_xy_err_m"] < 0.05:  # bench.py's convergence check
             raise RuntimeError(f"hector batch {impl} did not converge")
@@ -4551,23 +4030,18 @@ def main() -> int:
     # 4p. the paths past the kernels' old ceilings: every wide form
     mark("4p. past the kernels' old ceilings")
     wide_r = run_wide_phase(outdoor_karto_config(), "cuda", card)
-    mark(f"4p done in {wide_r['seconds']:.1f} s")
+    mark("4p done")
 
     # 4g. the Hector engine at the reference's defaults, 1081 beams
     mark("4g. Hector engine")
-    he = run_hector_engine("cuda", profile_scans=PROFILE_SCANS,
-                           repeat=REPEAT_SCANS)
-    prof = he.get("profile", {})
+    he = run_hector_engine("cuda", repeat=REPEAT_SCANS)
     print(f"hector engine (map {he['map']}, {he['levels']} levels, "
-          f"{he['beams']} beams): {he['scans']} scans in "
-          f"{he['seconds']:.2f} s = {he['scans_per_s']:.2f} scans/s, ATE RMSE "
+          f"{he['beams']} beams): {he['scans']} scans, ATE RMSE "
           f"{he['ate_rmse_m']:.4f} m (max {he['max_err_m']:.4f}), map updates "
-          f"{he['map_updates']}; profiled {PROFILE_SCANS} scans: device busy "
-          f"{prof.get('busy_share')} of {prof.get('wall_s')} s, "
-          f"{prof.get('device_ops')} device ops [{card}]", flush=True)
+          f"{he['map_updates']} [{card}]", flush=True)
     print(f"  the first {REPEAT_SCANS} scans twice more from a fresh "
-          f"state: poses and level-0 log-odds equal bit for bit, "
-          f"{he['repeat']['seconds']:.2f} s [{card}]", flush=True)
+          f"state: poses and level-0 log-odds equal bit for bit [{card}]",
+          flush=True)
     if not he["ate_rmse_m"] < 0.05:
         raise RuntimeError(f"hector engine ATE RMSE {he['ate_rmse_m']} >= "
                            "0.05 m")
@@ -4581,7 +4055,7 @@ def main() -> int:
     # 4o. the card's paths against the f64 oracles at production width
     mark("4o. the oracles on the card")
     orc = run_oracle_phase(cfg, "cuda", card, graphs[-1])
-    mark(f"4o done in {orc['seconds']:.1f} s")
+    mark("4o done")
     foreign = reference_modules()
     if foreign:
         raise RuntimeError(f"modules of JAX or the JAX package were "
@@ -4608,9 +4082,8 @@ def main() -> int:
     # and courtyard streams and the sequential batch run over the
     # courtyard, the odometry's, the frame-to-frame ICP's (both runs) and
     # the batched Hector call's (1024 scans a call), each plus phase 4k's
-    # CLI commands
-    # that drive the kernel; a scan's share divides by the scans of the
-    # same runs.  The CLI's own count and share are reported apart too
+    # CLI commands that drive the kernel; a scan's share divides by the
+    # scans of the same runs
     karto_runs = (s, sl, batch["sequential"])
     karto_scans = sum(r["scans"] for r in karto_runs)
     launches = {**{k: sum(r["launches"][k] for r in karto_runs)
@@ -4619,7 +4092,7 @@ def main() -> int:
                 "plicp_nearest": sum(ff[t]["launches"]["plicp_nearest"]
                                      for t in ("icp", "icp_auto")),
                 "hector_gn": hb["launches"]["hector_gn"]}
-    launches = {k: v for k, v in launches.items() if k in KERNEL_NAMES}
+    launches = {k: v for k, v in launches.items() if k in sources}
     path_scans = {**{k: karto_scans for k in s["launches"]},
                   "plicp_corr": od["scans"], "plicp_trim": od["scans"],
                   "plicp_system": od["scans"],
@@ -4632,43 +4105,21 @@ def main() -> int:
                 for k in launches}
     # phase 4m's sharded runs and phase 4o's checks join the count, not
     # the share a scan
-    mesh_launches = {k: mesh_r["launches"].get(k, 0) for k in launches}
-    oracle_launches = {k: orc["launches"].get(k, 0) for k in launches}
-    launches = {k: v + mesh_launches[k] + oracle_launches[k]
-                for k, v in launches.items()}
+    launches = {k: v + mesh_r["launches"].get(k, 0)
+                + orc["launches"].get(k, 0) for k, v in launches.items()}
     kernels = []
     for name, (src, tpu) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main, *others = (next(r for r in mine if r["shape"] == shape)
-                         for shape in MAIN_SHAPES[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_us"] / 1e3, "bound_by": main["bound_by"],
-            "library_ms": main.get("library_ms"),
-            "kernel_us": main["kernel_us"],
-            "device_ops_a_call": main["device_ops"], "shape": main["shape"],
-            # the path's other shapes (batched Hector's coarse levels)
-            "other_shapes": [{k: r[k] for k in (
-                "shape", "kernel_us", "ms", "plain_ms", "bound_us",
-                "bound_by")} for r in others],
             "launches_per_scan": per_scan[name],
-            "cli_launches": cli_launches[name],
-            "cli_launches_per_scan": (cli_launches[name] / cli_scans[name]
-                                      if cli_scans[name] else None),
-            "mesh_launches": mesh_launches[name],
-            "oracle_launches": oracle_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
             "repeats": all(r["repeats"] for r in mine),
-            # past the old ceilings: the wide form, its launches in phase
-            # 4p's paths and its phase-3 rows
+            # past the old ceilings: the wide form and its launches in
+            # phase 4p's paths
             "wide_form": WIDE_FORMS.get(name),
             "wide_launches": wide_r["launches"].get(WIDE_FORMS.get(name), 0),
-            "wide_rows": [{k: r.get(k) for k in (
-                "shape", "form", "launches_a_call", "kernel_us", "ms",
-                "plain_ms", "bound_us", "bound_by")}
-                for r in wide_rows if r["kernel"] == name],
         })
     for r in ff.values():
         r["poses"] = r["poses"].tolist()

@@ -36,8 +36,8 @@ memory and final cost; and, for the record, the JAX package's PCG step
 its distance from the same optimum (``pcg_vs_dense_*``).
 
 Then ``chip_smoke.run_endurance`` over ``--endurance`` scans of the lossy
-garland stream (0 skips it): scans/s, the closures' solves and their
-seconds.  Prints one line a measurement, with the card's name and power
+garland stream (0 skips it): the closures' solves, and scans/s over the
+whole call, the scans' making included.  Prints one line a measurement, with the card's name and power
 limit, and writes ``chiprun_out/solve_scaling.json``.  Exits 1 if 2048
 poses land farther than ``ORACLE_BOUND`` (test_oracle_parity.py's SPA
 bound) from the oracle's by either step, or the band step at
@@ -251,7 +251,11 @@ def main() -> int:
         from tpuslam_torch.ops import _build
 
         _build.load()
+        t0 = time.perf_counter()
         endu = chip_smoke.run_endurance("cuda", args.endurance)
+        torch.cuda.synchronize()
+        endu["seconds"] = time.perf_counter() - t0
+        endu["scans_per_s"] = args.endurance / endu["seconds"]
         out["endurance"] = endu
         shown = {k: v for k, v in endu.items()
                  if k not in ("closure_events", "launches")}

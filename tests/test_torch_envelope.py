@@ -413,33 +413,3 @@ def test_pair_chunks_put_back_give_the_unsplit_result(line, rd):
         for w, p in zip(whole, zip(*parts)):
             assert torch.equal(w, torch.cat(p))
     assert whole[3].any() and not whole[3].all()
-
-
-@pytest.mark.parametrize("stride", [1, 2])
-def test_cells_listed_counts_each_covered_cell_once(stride):
-    """chip_smoke.py's bound for the patch sums on a grid too large to
-    dilate (G=46,341) lists the covered cells: on a small grid, with
-    patches that leave it, the same count as the dilation's and as the
-    set of covered cells on the grid."""
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    rng = np.random.default_rng(9)
-    g, s, n_a, b = 40, 4, 3, 30
-    ay = rng.integers(-3, g, (n_a, b)).astype(np.int32)
-    ax = rng.integers(-3, g, (n_a, b)).astype(np.int32)
-    ok = rng.random((n_a, b)) >= 0.3
-    want = {(y + stride * i, x + stride * j)
-            for y, x in zip(ay[ok], ax[ok]) for i in range(s)
-            for j in range(s)
-            if 0 <= y + stride * i < g and 0 <= x + stride * j < g}
-    got = smoke.cells_listed(g, _t(ay), _t(ax), _t(ok), s, stride)
-    assert got == len(want)
-    inside = (ay >= 0) & (ax >= 0)  # the dilation takes corners on the grid
-    assert (smoke.cells_listed(g, _t(ay), _t(ax), _t(ok & inside), s, stride)
-            == smoke.cells_read(g, _t(ay), _t(ax), _t(ok & inside), s,
-                                stride))

@@ -11,9 +11,6 @@ The CUDA kernels themselves are checked against these plain versions on
 the card by ``chip_smoke.py``.
 """
 
-import importlib.util
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -224,31 +221,6 @@ def test_launch_counters_stay_zero_on_cpu():
     tops.patch_sums_stride2(grid, ay, ay, ok, 3)
     assert tops.LAUNCHES == {"patch_sums": 0, "patch_sums_stride2": 0}
     assert tfvp.LAUNCHES == {"fvp": 0, "fvp_wide": 0}
-
-
-@pytest.mark.parametrize("stride", [1, 2])
-def test_patch_bound_counts_each_covered_cell_once(stride):
-    """chip_smoke.py's bound for the patch sums reads the grid cells that
-    some kept point's patch covers, each once: its max-pool count against
-    the set of those cells."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    rng = np.random.default_rng(5)
-    g, s, n_a, b = 48, 5, 3, 40
-    span = stride * (s - 1) + 1
-    ay = rng.integers(0, g - span + 1, (n_a, b)).astype(np.int32)
-    ax = rng.integers(0, g - span + 1, (n_a, b)).astype(np.int32)
-    ok = rng.random((n_a, b)) >= 0.3
-    want = {(y + stride * i, x + stride * j)
-            for y, x in zip(ay[ok], ax[ok]) for i in range(s)
-            for j in range(s)}
-    got = smoke.cells_read(g, _t(ay), _t(ax), _t(ok), s, stride)
-    assert got == len(want)
-    bnd = smoke.patch_bound(torch.zeros((g, g), dtype=torch.uint8), _t(ay),
-                            _t(ax), _t(ok), s, stride)
-    assert bnd["bytes"] == len(want) + n_a * b * 9 + n_a * s * s * 4
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
