@@ -18,7 +18,11 @@ line):
    coarse level) with equal in-gate counts and bit for bit to its own
    order written in PyTorch (``match_level_lanes``).  A kernel of
    ``ONE_OP`` must be one device op a launch (``torch.profiler``, one
-   call).  Each row then calls the kernel once more on the same inputs,
+   call).  The correspondence rows also run the kernel's rows form at
+   its edges and, on a sample of the pairs, at the benchmark's 16,384
+   pairs of 1081 beams, each launching the form its ``launch_plan`` names
+   (``ops.plicp.FORMS``: the rows form at the benchmark's call).  Each
+   row then calls the kernel once more on the same inputs,
    which must equal its first call bit for bit (``repeats``: the patch
    sums' float atomics, ``fvp``'s ``atomicMin`` and the correspondences'
    tickets must not show their order).  PL-ICP's step kernels
@@ -90,9 +94,9 @@ line):
    cut (``ENDURANCE.json``) by its ``COUNT_BAND`` and ``EPISODE_SLACK``;
    4d. the lesson3 PL-ICP keyframe odometry (``plicp_odometry.step``) at
    1081 beams over 320 scans of a circle in the boxes world: ATE RMSE
-   below 0.05 m, the correspondence kernel and PL-ICP's step kernels
-   (``plicp_trim``, ``plicp_system``) each launched once a pass
-   (``step_launches``), its first ``REPEAT_SCANS`` (20) scans again from
+   below 0.05 m, the correspondence kernel (in its warp form) and PL-ICP's
+   step kernels (``plicp_trim``, ``plicp_system``) each launched once a
+   pass (``step_launches``), its first ``REPEAT_SCANS`` (20) scans again from
    a fresh state give the same poses bit for bit, and the same stream
    through the kernel's plain version gives the same poses;
    4e. frame-to-frame PL-ICP and ICP over the first 50 scans (ICP with
@@ -239,6 +243,20 @@ FVP_SIZES = [(20, 180, "normal"), (8, 512, "normal"), (128, 1081, "normal"),
 # fixtures of _corr_inputs
 CORR_SIZES = [(1, 512), (1, 1081), (16, 1081), (256, 512)]
 CORR_FIXTURES = ("normal", "lattice", "far")
+# the kernel's rows form (one block a pair, ``ops.plicp.launch_plan``) at
+# its edges, 140 pairs each: a warp's 64 rows less one and plus one, one
+# row, and past a block's 24 warps (two rounds of 1,536 rows); with the
+# fixtures above and those of blocks that hold only invalid points and of
+# ties across a block boundary
+CORR_ROWS_SIZES = [(140, 63), (140, 65), (140, 1), (140, 2049)]
+CORR_ROWS_FIXTURES = ("normal", "lattice", "far", "hollow", "straddle")
+# the benchmark's call, 16,384 pairs of 1081 beams (the rows form): the
+# kernel over every pair, held to the plain version on CORR_CELL_SAMPLE
+# pairs drawn at random (the plain version's [N, B, B'] distances of all
+# of them would take 77 GB)
+CORR_CELL = (16384, 1081)
+CORR_CELL_FIXTURES = ("normal", "lattice", "hollow")
+CORR_CELL_SAMPLE = 128
 # phase 3 past the kernels' old ceilings, each row also at the ceiling:
 # fvp (scans, beams): the last width whose scan fits shared memory, the
 # first that does not, 16,384 beams; the correspondences (pairs, source
@@ -542,11 +560,22 @@ def _corr_inputs(rng, n, b, fixture="normal", nr=None):
     (every squared distance exact in f32); ``far``: the normal fixture with
     every third reference point and every fifth source point moved 1e5 m,
     so that many valid squared distances exceed BIG (1e9) and lose to an
-    invalid point's BIG."""
+    invalid point's BIG; ``hollow``: the normal fixture with every fourth
+    pair's reference all invalid and the others' points 16-63 invalid
+    (whole blocks of the rows form's running minimum); ``straddle``: a 1/8
+    lattice reference whose point at each multiple of 8 repeats the one
+    before it, each source point on such a pair or half a cell off it, so
+    that equal distances straddle every block boundary."""
     nr = b if nr is None else nr
     if fixture == "lattice":
         cur = rng.integers(-128, 129, (n, b, 2)) / 64.0
         ref = rng.integers(-16, 17, (n, nr, 2)) / 8.0
+    elif fixture == "straddle":
+        ref = rng.integers(-16, 17, (n, nr, 2)) / 8.0
+        ref[:, 8::8] = ref[:, 7:-1:8]
+        k = rng.integers(0, max(1, (nr - 1) // 8), (n, b)) * 8 + 7
+        cur = np.take_along_axis(ref, np.minimum(k, nr - 1)[..., None], 1)
+        cur[:, ::2] += 1 / 16.0
     else:
         cur = rng.normal(0, 2.0, (n, b, 2))
         ref = rng.normal(0, 2.0, (n, nr, 2))
@@ -555,6 +584,9 @@ def _corr_inputs(rng, n, b, fixture="normal", nr=None):
         cur[:, ::5, 1] -= 1e5
     sv = rng.random((n, b)) > 0.1
     rv = rng.random((n, nr)) > 0.1
+    if fixture == "hollow":
+        rv[:, 16:64] = False
+        rv[::4] = False
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
     return (f32(cur), torch.tensor(sv, device="cuda"), f32(ref),
             torch.tensor(rv, device="cuda"))
@@ -563,34 +595,63 @@ def _corr_inputs(rng, n, b, fixture="normal", nr=None):
 def check_corr(card: str) -> list[dict]:
     """Phase 3, the correspondence kernel: both modes, with and without
     doubles, equal to the plain version bit for bit in q1, q2, d1 and ok
-    on every row."""
+    on every row (``CORR_SIZES``; the rows form's edges,
+    ``CORR_ROWS_SIZES``), and on a sample of the pairs at the benchmark's
+    call (``CORR_CELL``); each launching the form ``launch_plan`` names
+    (``ops.plicp.FORMS``), the rows form at the benchmark's call."""
+    from tpuslam_torch.ops import _build
     from tpuslam_torch.ops import plicp as ops_p
 
     rows = []
+    sms = _build.sm_count("cuda")
     rng = np.random.default_rng(29)
-    for n, b in CORR_SIZES:
-        for fixture in CORR_FIXTURES:
-            args = _corr_inputs(rng, n, b, fixture)
-            for line in (True, False):
-                for rd in (True, False):
-                    name = "plicp_corr" if line else "plicp_nearest"
-                    shape = (f"N={n} B={b} {'line' if line else 'nearest'}"
-                             f"{' doubles' if rd else ''} {fixture}")
+    sizes = ([(n, b, f) for n, b in CORR_SIZES for f in CORR_FIXTURES]
+             + [(n, b, f) for n, b in CORR_ROWS_SIZES
+                for f in CORR_ROWS_FIXTURES]
+             + [(*CORR_CELL, f) for f in CORR_CELL_FIXTURES])
+    for n, b, fixture in sizes:
+        args = _corr_inputs(rng, n, b, fixture)
+        plan = ops_p.launch_plan(n, b, b, sms)
+        if (n, b) == CORR_CELL and plan.form != "rows":
+            raise RuntimeError(f"N={n} B={b}: the plan names the "
+                               f"{plan.form} form, not the rows form")
+        # the pairs held to the plain version: every one, or a sample
+        idx = None
+        if (n, b) == CORR_CELL:
+            idx = torch.randperm(n, generator=torch.Generator().manual_seed(
+                n + len(rows)))[:CORR_CELL_SAMPLE].sort().values.cuda()
+        for line in (True, False):
+            for rd in (True, False):
+                name = "plicp_corr" if line else "plicp_nearest"
+                shape = (f"N={n} B={b} {'line' if line else 'nearest'}"
+                         f"{' doubles' if rd else ''} {fixture}")
 
-                    def kern(line=line, rd=rd, args=args, name=name):
-                        return ops_p._launch(*args, 1.0, rd, line, name)
+                def kern(line=line, rd=rd, args=args, name=name):
+                    return ops_p._launch(*args, 1.0, rd, line, name)
 
-                    want = ops_p.correspondences_plain(*args, 1.0, rd, line)
-                    got = kern()
-                    err = max(float((g.float() - w.float()).abs().max())
-                              for g, w in zip(got, want))
-                    if not _same(got, want):
-                        raise RuntimeError(f"{name} {shape}: kernel != "
-                                           f"plain (max |err| {err})")
-                    ok_rows = int(got[3].sum())
-                    rows.append({**_row(
-                        name, shape, err, kern, card, got,
-                        f"equal, ok rows {ok_rows}"), "ok_rows": ok_rows})
+                got, forms = launched((ops_p.FORMS,), kern)
+                if forms != {plan.form: len(plan.chunks)}:
+                    raise RuntimeError(f"{name} {shape}: launched the forms "
+                                       f"{forms}, its plan names "
+                                       f"{plan.form}")
+                held = got if idx is None else tuple(g[idx] for g in got)
+                want = ops_p.correspondences_plain(
+                    *(a if idx is None else a[idx] for a in args), 1.0, rd,
+                    line)
+                err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(held, want))
+                if not _same(held, want):
+                    raise RuntimeError(f"{name} {shape}: kernel != "
+                                       f"plain (max |err| {err})")
+                del want, held
+                ok_rows = int(got[3].sum())
+                sample = "" if idx is None else f" on {len(idx)} pairs"
+                rows.append({**_row(
+                    name, shape, err, kern, card, got,
+                    f"equal{sample}, {plan.form} form, ok rows {ok_rows}"),
+                    "ok_rows": ok_rows, "form": plan.form})
+        del args
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3947,7 +4008,13 @@ def main() -> int:
     # 4d. the PL-ICP keyframe odometry at 1081 beams, then the same stream
     # through the kernel's plain version: identical poses
     mark("4d. PL-ICP odometry")
+    from tpuslam_torch.ops import plicp as ops_p
+
+    _reset(ops_p.FORMS)
     od, od_poses = run_odometry("cuda", repeat=REPEAT_SCANS)
+    # the stream and its repeat, every launch in the warp form (latency
+    # binds at one pair)
+    od_forms = dict(ops_p.FORMS)
     print(f"odometry (PL-ICP, 1081 beams): {od['scans']} scans, ATE RMSE "
           f"{od['ate_rmse_m']:.4f} m (max {od['max_err_m']:.4f}), keyframes "
           f"{od['keyframes']}, valid {od['valid_matches']}, launches "
@@ -3962,6 +4029,12 @@ def main() -> int:
                            "odometry")
     # one trim, one system and one correspondence launch a pass (one pair)
     step_launches("odometry", od["launches"], od["passes"])
+    if od_forms != {"rows": 0, "warp": ops_p.LAUNCHES["plicp_corr"],
+                    "tiled": 0}:
+        raise RuntimeError(f"odometry: the correspondence forms {od_forms}, "
+                           f"want the warp form at each of "
+                           f"{ops_p.LAUNCHES['plicp_corr']} launches")
+    print(f"  correspondence forms {od_forms} [{card}]", flush=True)
     with plain_path():
         odp, odp_poses = run_odometry("cuda")
     dpose = float(np.abs(odp_poses - od_poses).max())

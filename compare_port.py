@@ -6,20 +6,22 @@
 The other checkout must be a tree whose batched Hector kernel route
 launches ``hector_gn`` on every pyramid level, as this one does: nothing
 here reads an older tree.  Each tree runs once, in its own process (the
-other, then this): every kernel at the shape of the path that runs it,
-the Karto room and courtyard streams of phase 4 (the latter through its
-loop closures' solves), the PL-ICP odometry of phase 4d, the batched
-Hector call of phase 4f (1024 scans through impl "kernel"), and ICP on
-its default ``correspondence_method``: phase 4e's frame-to-frame
+other, then this): every kernel at the shape of the path that runs it
+(the correspondences also at the benchmark's 16,384 pairs of 1081
+beams, ``chip_smoke.CORR_CELL``), the Karto room and courtyard streams
+of phase 4 (the latter through its loop closures' solves), the PL-ICP
+odometry of phase 4d, the batched Hector call of phase 4f (1024 scans
+through impl "kernel"), and ICP on its default
+``correspondence_method``: phase 4e's frame-to-frame
 stream, the 256 x 512 ``icp_batch`` and the CLI's ``scan-match-icp``
 over 160 synthetic scans of 1081 beams.  Inputs and streams are this
 checkout's ``chip_smoke.py``, so both trees do the same work.
 
 Fails unless the outputs agree across the trees: bit for bit (a sha256)
-for the patch sums, FindValidPoints, ``plicp_corr``, ``plicp_nearest``,
-the Karto room and courtyard poses and the three ICP results; within
-``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate counts) for
-``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
+for the patch sums, FindValidPoints, ``plicp_corr``, ``plicp_nearest``
+(at both shapes), the Karto room and courtyard poses and the three ICP
+results; within ``chip_smoke.HECTOR_BOUNDS`` (with equal in-gate
+counts) for ``hector_gn``, and within ``chip_smoke.HECTOR_PATH_BOUNDS`` for the
 batched Hector result, whose beam sums may take another order in each
 tree; each tree's batched result within ``chip_smoke.HECTOR_F64_BOUNDS``
 of the same pyramid in float64; the odometry poses within (keyframes +
@@ -95,10 +97,13 @@ def child(tree: Path) -> dict:
     pts, valid, vp = smoke._fvp_inputs(np.random.default_rng(23), 110, 1081)
     calls["fvp"] = functools.partial(ops_f.find_valid_points, pts, valid, vp)
     corr = smoke._corr_inputs(np.random.default_rng(29), 1, 1081)
+    cell = smoke._corr_inputs(np.random.default_rng(31), *smoke.CORR_CELL)
     for name, line, rd in (("plicp_corr", True, True),
                            ("plicp_nearest", False, False)):
         calls[name] = functools.partial(ops_p._launch, *corr, 1.0, rd,
                                         line, name)
+        calls[f"{name}_cell"] = functools.partial(ops_p._launch, *cell, 1.0,
+                                                  rd, line, name)
     hcfg, specs, grids, hp, hv, _, guesses = smoke.hector_fixture("cuda",
                                                                   1024)
     r = min(hcfg.laser_max_dist, hcfg.use_max_scan_range)

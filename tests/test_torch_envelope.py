@@ -358,18 +358,24 @@ def test_fvp_launch_plan_takes_every_width(b, form):
     (131071, 8, 20000), (1, 1, 1),
 ])
 def test_plicp_launch_plan_takes_every_shape(n, b, nr):
-    """The shared form up to 17,801 reference points (the old ceiling),
+    """The shared forms up to 17,801 reference points (the old ceiling),
     tiled past it with at most 128 source rows a block (one row group a
-    warp); the launch_shape rule otherwise; chunks of at most 65,535 pairs
-    (the old ceiling) that cover [0, N) in order."""
+    warp); the launch_shape rule otherwise, whose one block a pair takes
+    the rows form (two rows a lane); chunks of at most 65,535 pairs (the
+    old ceiling) that cover [0, N) in order."""
     plan = tops.launch_plan(n, b, nr, SMS)
     assert plan.tiled == (nr > 17801)
     assert tops.MAX_SHARED_REF == 17801
     rows = -(-b // plan.blocks)
-    assert plan.blocks * rows >= b and plan.rows_per_warp in (1, 2, 4)
+    assert plan.blocks * rows >= b
     if plan.tiled:
+        assert plan.rows_per_warp in (1, 2, 4)
         assert rows <= 32 * plan.rows_per_warp <= 128
+    elif plan.form == "rows":
+        assert tops.launch_shape(n, b, SMS)[0] == plan.blocks == 1
+        assert plan.rows_per_warp == 32 * tops.ROWS_PER_LANE
     else:
+        assert plan.form == "warp" and plan.rows_per_warp in (1, 2, 4)
         assert (plan.blocks, plan.rows_per_warp) == tops.launch_shape(n, b,
                                                                       SMS)
     starts = [a for a, _ in plan.chunks]
@@ -399,14 +405,16 @@ def test_hector_launch_plan_takes_every_beam_count(s, b, form):
 @pytest.mark.parametrize("line,rd", [(True, True), (True, False),
                                      (False, False)])
 def test_pair_chunks_put_back_give_the_unsplit_result(line, rd):
-    """65,544 pairs: the plain version and the kernel's order run through
+    """65,544 pairs: the plain version and the kernel's orders run through
     the plan's two chunks and concatenated equal the unsplit call bit for
     bit (pairs are independent; the doubles pass is a pair's own)."""
     cur, sv, ref, rv = _lattice_pairs(13, 65544, 4, 5)
     plan = tops.launch_plan(65544, 4, 5, SMS)
     assert plan.chunks == ((0, 65535), (65535, 65544))
     args = (_t(cur), _t(sv), _t(ref), _t(rv))
-    for fn in (tops.correspondences_plain, tops.correspondences_lanes):
+    assert plan.form == "rows"
+    for fn in (tops.correspondences_plain, tops.correspondences_lanes,
+               tops.correspondences_blocks):
         whole = fn(*args, 1.0, rd, line)
         parts = [fn(*(a[n0:n1] for a in args), 1.0, rd, line)
                  for n0, n1 in plan.chunks]

@@ -244,13 +244,15 @@ def test_correspondence_wrappers_reject_unsupported_devices():
 
 
 def test_correspondence_launch_counters_stay_zero_on_cpu():
-    for k in tops.LAUNCHES:
-        tops.LAUNCHES[k] = 0
+    for d in (tops.LAUNCHES, tops.FORMS):
+        for k in d:
+            d[k] = 0
     fx = _corr_fixture(seed=4)
     _port_corr(*fx, 1.0, True)
     _port_corr(*fx, 1.0, False, line=False)
     assert tops.LAUNCHES == {"plicp_corr": 0, "plicp_nearest": 0,
                              "plicp_corr_wide": 0, "plicp_nearest_wide": 0}
+    assert tops.FORMS == {"rows": 0, "warp": 0, "tiled": 0}
 
 
 def _lanes_corr(cur, sv, ref, rv, max_d2, rd, line=True):
@@ -265,30 +267,112 @@ def _plain_corr(cur, sv, ref, rv, max_d2, rd, line=True):
     return [x.numpy() for x in out]
 
 
+# the rows form's (rows a lane, distances a block): the kernel's own, one
+# row a lane, blocks of 8 and 32, and blocks of 2 points, one shared load
+ROWS_FORMS = [(tops.ROWS_PER_LANE, tops.ROWS_BLOCK), (1, 8), (4, 32), (2, 2)]
+
+
+def _orders(order):
+    """The kernel order(s) a case runs: the warp form's lanes, or the rows
+    form at each of ``ROWS_FORMS``."""
+    if order == "lanes":
+        return [_lanes_corr]
+    return [lambda *a, r=r, j=j: [x.numpy() for x in
+                                  tops.correspondences_blocks(
+                                      *(_t(v) for v in a[:4]), *a[4:],
+                                      rows_per_lane=r, block=j)]
+            for r, j in ROWS_FORMS]
+
+
+def _straddle_fixture(seed=8, b=100, nref=80):
+    """A 1/8 lattice reference whose point at each multiple of 8 repeats
+    the point before it, so that every block boundary of 2, 8, 16 and 32
+    points splits two equal distances; each source point sits on one of
+    the repeated pairs (d2 0 at both), at their midpoint after a move of
+    a lattice step, or anywhere.  Some earlier points of a pair are
+    invalid, so that the later one, past the boundary, wins."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(-24, 25, (1, nref, 2)) / 8.0
+    ref[0, 8::8] = ref[0, 7:-1:8]
+    k = rng.integers(1, nref // 8, b) * 8
+    cur = ref[0, k].copy()
+    cur[b // 3:2 * b // 3] += 1 / 64.0
+    cur[2 * b // 3:] = rng.integers(-192, 193, (b - 2 * b // 3, 2)) / 64.0
+    rv = rng.random((1, nref)) > 0.1
+    rv[0, 15] = rv[0, 31] = False  # past a boundary of 8, 16 and 32
+    rv[0, 16] = rv[0, 32] = True
+    sv = rng.random((1, b)) > 0.05
+    return (cur[None].astype(np.float32), sv, ref.astype(np.float32), rv)
+
+
+def _hollow_fixture(seed=9, b=90, nref=100):
+    """Two pairs on the 1/64 lattice: the first's reference points
+    16..63 invalid (whole blocks of 2, 8, 16 and 32 points, among them
+    the points nearest to many source rows), the second's all invalid
+    (every row reads BIG at index 0)."""
+    cur, sv, ref, rv = _corr_fixture(seed=seed, b=b, nref=nref, exact=True,
+                                     n=2)
+    rv[0, 16:64] = False
+    rv[1] = False
+    return cur, sv, ref, rv
+
+
 @pytest.mark.parametrize("line,rd", [(True, True), (True, False),
                                      (False, False)])
-@pytest.mark.parametrize("fixture", ["lattice", "ties"])
-def test_correspondences_lanes_bit_exact_vs_plain_and_pallas(fixture, line,
-                                                             rd):
-    """The CUDA kernel's order (per-lane strict-less-than minima over the
-    valid points, the lexicographic butterfly, the invalid points back as
-    BIG) gives the plain version's q1, q2, d1 and ok bit for bit on every
-    row, and the Pallas kernel's on the ok rows, on the 1/64 lattice where
-    many rows tie."""
-    fx = (_corr_fixture(exact=True, n=2, b=70, nref=75)
-          if fixture == "lattice" else _tie_fixture())
-    max_d2 = 1.0 if fixture == "lattice" else 0.5
-    got = _lanes_corr(*fx, max_d2, rd, line)
-    for g, w in zip(got, _plain_corr(*fx, max_d2, rd, line)):
-        np.testing.assert_array_equal(g, w)
+@pytest.mark.parametrize("fixture,order", [
+    pytest.param("lattice", "lanes", id="lattice"),
+    pytest.param("ties", "lanes", id="ties"),
+    ("lattice", "blocks"), ("ties", "blocks"), ("straddle", "lanes"),
+    ("straddle", "blocks"), ("hollow", "lanes"), ("hollow", "blocks"),
+])
+def test_correspondences_lanes_bit_exact_vs_plain_and_pallas(fixture, order,
+                                                             line, rd):
+    """The CUDA kernel's orders give the plain version's q1, q2, d1 and ok
+    bit for bit on every row, and the Pallas kernel's on the ok rows, on
+    the 1/64 lattice where many rows tie: the warp form's (per-lane
+    strict-less-than minima over the valid points, the lexicographic
+    butterfly, the invalid points back as BIG) and the rows form's (a
+    block's fminf, the earliest block by a strict less-than, the block's
+    lowest index again), the latter also where equal distances straddle a
+    block boundary and where blocks hold only invalid points."""
+    fx, max_d2 = {
+        "lattice": lambda: (_corr_fixture(exact=True, n=2, b=70, nref=75),
+                            1.0),
+        "ties": lambda: (_tie_fixture(), 0.5),
+        "straddle": lambda: (_straddle_fixture(), 0.5),
+        "hollow": lambda: (_hollow_fixture(), 1.0),
+    }[fixture]()
+    want = _plain_corr(*fx, max_d2, rd, line)
+    for kernel_order in _orders(order):
+        got = kernel_order(*fx, max_d2, rd, line)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
     _assert_corr_equal(got, _jax_corr(*fx, max_d2, rd, line))
+    if fixture == "straddle":
+        # the ties are there: rows whose least d2 is reached both at the
+        # last point of a block of 8 and the first of the next
+        cur, sv, ref, rv = fx
+        d2 = ((cur[0, :, None] - ref[0, None]) ** 2).sum(-1)
+        d2 = np.where(rv[0][None] & sv[0][:, None], d2, np.inf)
+        least = d2.min(-1, keepdims=True)
+        at = d2 == least
+        assert (at[:, 7:-1:8] & at[:, 8::8]).any(-1).sum() >= 20
+        assert (at[:, 16] & ~rv[0, 15]).sum() >= 1
+    if fixture == "hollow":
+        assert not got[3][1].any()
+        np.testing.assert_array_equal(got[2][1], np.float32(1e9))
 
 
-@pytest.mark.parametrize("line", [True, False])
-def test_correspondences_lanes_far_points_lose_to_big(line):
+@pytest.mark.parametrize("line,order", [
+    pytest.param(True, "lanes", id="True"),
+    pytest.param(False, "lanes", id="False"),
+    (True, "blocks"), (False, "blocks"),
+])
+def test_correspondences_lanes_far_points_lose_to_big(line, order):
     """Valid squared distances above BIG lose to an invalid point's BIG,
     whose lowest index then wins; with no invalid point the far minimum
-    stands.  Bit for bit against the plain version, doubles on."""
+    stands.  Bit for bit against the plain version, doubles on, in the
+    warp form's order and the rows form's."""
     cur, sv, ref, rv = _corr_fixture(seed=6, b=80, nref=70, n=2)
     ref[:, ::3, 0] += 1e5
     cur[:, ::5, 1] -= 1e5
@@ -296,12 +380,13 @@ def test_correspondences_lanes_far_points_lose_to_big(line):
     d2 = ((cur[:, :, None] - ref[:, None]) ** 2).sum(-1)
     assert (d2.min(-1)[:, ::5] > 1e9).all()  # the moved rows are far
     for rd in (line, False):
-        got = _lanes_corr(cur, sv, ref, rv, 1.0, rd, line)
         want = _plain_corr(cur, sv, ref, rv, 1.0, rd, line)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
-        assert (got[2][0, ::5][sv[0, ::5]] == np.float32(1e9)).all()
-        assert (got[2][1, ::5][sv[1, ::5]] > 1e9).all()
+        for kernel_order in _orders(order):
+            got = kernel_order(cur, sv, ref, rv, 1.0, rd, line)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+            assert (got[2][0, ::5][sv[0, ::5]] == np.float32(1e9)).all()
+            assert (got[2][1, ::5][sv[1, ::5]] > 1e9).all()
 
 
 @pytest.mark.parametrize("n,b,sms,want", [
@@ -310,6 +395,8 @@ def test_correspondences_lanes_far_points_lose_to_big(line):
     (16, 1081, 132, (16, 4)),
     (64, 512, 132, (4, 4)),
     (256, 512, 132, (1, 4)),  # the batch alone covers the card
+    (16384, 1081, 132, (1, 4)),  # the benchmark's cells
+    (65536, 64, 132, (1, 2)),  # chip_smoke.py's pairs past one launch
 ])
 def test_launch_shape_rule(n, b, sms, want):
     """Blocks a pair and source rows a warp; the blocks cover every
@@ -317,6 +404,32 @@ def test_launch_shape_rule(n, b, sms, want):
     blocks, r = tops.launch_shape(n, b, sms)
     assert (blocks, r) == want
     assert blocks * -(-b // blocks) >= b
+
+
+@pytest.mark.parametrize("n,b,nr,form,blocks,rows_per_warp,chunks", [
+    (16384, 1081, 1081, "rows", 1, 64, 1),  # the benchmark's cells
+    (1, 1081, 1081, "warp", 68, 1, 1),  # the odometry: latency binds
+    (16, 1081, 1081, "warp", 16, 4, 1),
+    (132, 1081, 1081, "warp", 2, 4, 1),  # two blocks a pair still
+    (133, 1081, 1081, "rows", 1, 64, 1),  # one: the rows form
+    (256, 512, 512, "rows", 1, 64, 1),
+    (65536, 64, 64, "rows", 1, 64, 2),  # two launches, both rows
+    (1, 8, 8, "rows", 1, 64, 1),  # at most 16 rows: one block a pair
+    (1, 1081, 17802, "tiled", 68, 1, 1),  # past shared memory: tiled
+    (16384, 1081, 17802, "tiled", 9, 4, 1),
+])
+def test_launch_plan_form_rule(n, b, nr, form, blocks, rows_per_warp,
+                               chunks):
+    """The form follows launch_shape: one block a pair (the pairs alone
+    fill the card) takes the rows form at two rows a lane, more blocks the
+    warp form at launch_shape's blocks and rows; a reference past shared
+    memory the tiled form whatever the pairs."""
+    plan = tops.launch_plan(n, b, nr, 132)
+    assert (plan.form, plan.blocks, plan.rows_per_warp,
+            len(plan.chunks)) == (form, blocks, rows_per_warp, chunks)
+    assert plan.tiled == (form == "tiled")
+    if form != "tiled":
+        assert (tops.launch_shape(n, b, 132)[0] == 1) == (form == "rows")
 
 
 # ------------------------------------------------------------ trim quantile

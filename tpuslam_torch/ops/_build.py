@@ -56,7 +56,7 @@ SIGNATURES = {
     # pts, valid, vp, s, b, scratch, out, stream
     "tpuslam_fvp": (_P, _P, _P, _I, _I, _P, _P, _P),
     # cur, sv, ref, rv, n, b, nr, max_d2, line, doubles, blocks,
-    # rows_per_warp, tiled, q1, q2, d1, ok, j1s, tickets, best, stream
+    # rows_per_warp, form, q1, q2, d1, ok, j1s, tickets, best, stream
     "tpuslam_plicp_corr": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I,
                            _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # grid, h, w, pts, valid, pose0, s, b, window, num_iters, yaw_clamp,

@@ -19,13 +19,20 @@ distances as the JAX package's XLA chain does.  Both round every f32 op
 (no contraction), so they agree bit for bit in q1, q2, d1 and ok.  Where
 j1 +- 1 leaves the scan the row is never ok, and both take the clamped
 index (the JAX chain wraps around there and the Pallas kernel reads 0).
-The kernel (one launch a call up to 65,535 pairs, several blocks a
-pair) finds the minimum in another order, which :func:`correspondences_lanes` writes out
-in PyTorch for the tests: each lane's strict-less-than minimum of the
-valid points, a lexicographic butterfly, then the invalid points as BIG.
-Any reference size and any number of pairs go to the kernel
-(:func:`launch_plan`): past 17,801 reference points the kernel's tiled
-form stages the reference in tiles (``LAUNCHES["plicp_corr_wide"]`` /
+The kernel (one launch a call up to 65,535 pairs) finds the minimum in
+another order, in one of three forms that :func:`launch_plan` picks by
+shape (``FORMS`` counts each launch's).  The warp form, several blocks a
+pair where the pairs alone would leave the card idle (the odometry's
+one pair): each lane's strict-less-than minimum of the valid points, a
+lexicographic butterfly, then the invalid points as BIG; PyTorch writes
+it out for the tests as :func:`correspondences_lanes`.  The rows form,
+one block a pair where the pairs fill the card (the benchmark's 16,384):
+one source row a lane against the whole reference, the running minimum
+kept a block of ``ROWS_BLOCK`` distances at a time, the winning block
+counted again for its lowest index; :func:`correspondences_blocks`.
+Any reference size and any number of pairs go to the kernel: past
+17,801 reference points the tiled form (the warp form's order) stages
+the reference in tiles (``LAUNCHES["plicp_corr_wide"]`` /
 ``["plicp_nearest_wide"]``), and past 65,535 pairs the call is further
 launches on the same stream, one for each chunk of pairs (each counted).
 No choice changes a result.
@@ -46,6 +53,10 @@ BIG = 1e9
 # mode and form: the pair's reference in shared memory, or in tiles
 LAUNCHES = {"plicp_corr": 0, "plicp_nearest": 0, "plicp_corr_wide": 0,
             "plicp_nearest_wide": 0}
+# the same launches by the kernel's form (:func:`launch_plan`)
+FORMS = {"rows": 0, "warp": 0, "tiled": 0}
+# the kernel's C form argument, by form
+_FORM_ARG = {"warp": 0, "tiled": 1, "rows": 2}
 
 # a block stages the pair's ref in shared memory: x, y and valid, 9 bytes
 # a point, and with doubles best[], 4 more; at most 227 KB less 1 KB
@@ -56,6 +67,10 @@ MAX_SHARED_REF = _MAX_SMEM // 13
 MAX_PAIRS = 65535
 # source rows a block of the tiled form: 32 warps of at most 4 rows each
 _TILED_ROWS = 128
+# the rows form: source rows a lane, and consecutive reference points a
+# block of the running minimum (csrc/plicp_corr.cu's kRowsBlock)
+ROWS_PER_LANE = 2
+ROWS_BLOCK = 8
 # per (device index, stream): the kernel's ticket counters, one a pair,
 # zeroed once and left at 0 by every launch (see csrc/plicp_corr.cu)
 _TICKETS: dict = {}
@@ -139,11 +154,7 @@ def correspondences_lanes(cur, src_valid, ref, ref_valid, max_d2: float,
     n_ref = ref.shape[-2]
     nan = float("nan")
     inf = float("inf")
-    rx = torch.where(ref_valid, ref[..., 0], nan)
-    ry = torch.where(ref_valid, ref[..., 1], nan)
-    dx = cur[..., :, None, 0] - rx[..., None, :]
-    dy = cur[..., :, None, 1] - ry[..., None, :]
-    d2 = dx * dx + dy * dy  # [N, B, B'], NaN at the invalid points
+    d2 = _valid_sq_dists(cur, ref, ref_valid)  # NaN at the invalid points
     steps = -(-n_ref // 32)
     d2 = torch.nn.functional.pad(d2, (0, steps * 32 - n_ref), value=nan)
     lanes = d2.view(n, b, steps, 32)
@@ -161,7 +172,30 @@ def correspondences_lanes(cur, src_valid, ref, ref_valid, max_d2: float,
         take = (od < bd) | ((od == bd) & (oj < bj))
         bd, bj = torch.where(take, od, bd), torch.where(take, oj, bj)
         off //= 2
-    d1, j1 = bd[..., 0], bj[..., 0]
+    return _finish(cur, src_valid, ref, ref_valid, bd[..., 0], bj[..., 0],
+                   max_d2, remove_doubles, line)
+
+
+def _valid_sq_dists(cur, ref, ref_valid) -> torch.Tensor:
+    """[N, B, B'] squared distances as the kernel's walk takes them: each
+    invalid reference point NaN, so its d2 is NaN."""
+    nan = float("nan")
+    rx = torch.where(ref_valid, ref[..., 0], nan)
+    ry = torch.where(ref_valid, ref[..., 1], nan)
+    dx = cur[..., :, None, 0] - rx[..., None, :]
+    dy = cur[..., :, None, 1] - ry[..., None, :]
+    return dx * dx + dy * dy
+
+
+def _finish(cur, src_valid, ref, ref_valid, d1, j1, max_d2: float,
+            remove_doubles: bool, line: bool):
+    """Both kernel orders' finish of every row from its least valid d2
+    ``d1`` [N, B] and lowest index ``j1`` (+inf and int64's largest where
+    no valid d2 is below +inf): the lowest invalid index wins where the
+    valid minimum is above BIG, or equal to it at a higher index; an
+    invalid source row reads (BIG, 0); then q1, q2 and ok."""
+    n, b = cur.shape[:2]
+    n_ref = ref.shape[-2]
     jinv = torch.where(ref_valid, n_ref,
                        torch.arange(n_ref, device=cur.device)).amin(-1)
     jinv = jinv[:, None].expand(n, b)
@@ -186,6 +220,53 @@ def correspondences_lanes(cur, src_valid, ref, ref_valid, max_d2: float,
     if remove_doubles:
         ok = drop_doubles(j1, d1, ok, n_ref)
     return gather_rows(ref, j1), gather_rows(ref, j2), d1, ok
+
+
+def correspondences_blocks(cur, src_valid, ref, ref_valid, max_d2: float,
+                           remove_doubles: bool, line: bool = True,
+                           rows_per_lane: int = ROWS_PER_LANE,
+                           block: int = ROWS_BLOCK):
+    """The kernel's rows form, step for step, in plain PyTorch (used by
+    the tests): (q1, q2, d1, ok) as :func:`correspondences_plain`.
+
+    Lane l of warp w holds the source rows w*32R + 32k + l (k < R =
+    ``rows_per_lane``; a row past B repeats the last, and is dropped);
+    each walks the whole reference.  Invalid reference points are NaN.
+    The running minimum goes a block of ``block`` consecutive j at a
+    time: the block's minimum is its least d2 with NaN dropped (``fminf``;
+    NaN where the block holds only invalid points, and the last block
+    holds what is left), and it takes the row's best by a strict
+    less-than from +inf, so the earliest block that reaches the least d2
+    keeps it.  The lowest j of that block whose d2 equals the best is j1.
+    Then the kernel's finish, as :func:`correspondences_lanes`'s."""
+    n, b = cur.shape[:2]
+    n_ref = ref.shape[-2]
+    inf = float("inf")
+    rows = 32 * rows_per_lane  # a warp's rows
+    pad = -(-b // rows) * rows
+    lane_rows = torch.arange(pad, device=cur.device).clamp(max=b - 1)
+    d2 = _valid_sq_dists(cur[:, lane_rows], ref, ref_valid)
+    steps = -(-n_ref // block)
+    d2 = torch.nn.functional.pad(d2, (0, steps * block - n_ref),
+                                 value=float("nan"))
+    blocks = d2.view(n, pad, steps, block)
+    m = blocks.nan_to_num(nan=inf, posinf=inf).amin(-1)  # fminf: NaN dropped
+    m = torch.where(blocks.isnan().all(-1), float("nan"), m)
+    best = torch.full((n, pad), inf, device=cur.device)
+    first = torch.full((n, pad), -1, dtype=torch.int64, device=cur.device)
+    for s in range(steps):  # strict: the earliest block keeps the best
+        take = m[..., s] < best
+        best = torch.where(take, m[..., s], best)
+        first = torch.where(take, s, first)
+    # the winning block's d2 again: its lowest j equal to the best
+    again = torch.gather(blocks, 2, first.clamp(min=0)[..., None, None]
+                         .expand(n, pad, 1, block))[..., 0, :]
+    u = torch.arange(block, device=cur.device)
+    u1 = torch.where(again == best[..., None], u, block).amin(-1)
+    j1 = torch.where(first >= 0, first * block + u1,
+                     torch.iinfo(torch.int64).max)
+    return _finish(cur, src_valid, ref, ref_valid, best[:, :b], j1[:, :b],
+                   max_d2, remove_doubles, line)
 
 
 def _check(cur, src_valid, ref, ref_valid):
@@ -231,25 +312,36 @@ def launch_shape(n: int, b: int, sms: int) -> tuple[int, int]:
 
 
 class LaunchPlan(NamedTuple):
-    """How the kernel runs a call: the form, blocks a pair, source rows
-    a warp, and the [n0, n1) chunks of pairs, one launch each."""
+    """How the kernel runs a call: the form ("rows", "warp" or "tiled"),
+    blocks a pair, source rows a warp, and the [n0, n1) chunks of pairs,
+    one launch each."""
 
-    tiled: bool
+    form: str
     blocks: int
     rows_per_warp: int
     chunks: tuple
 
+    @property
+    def tiled(self) -> bool:
+        return self.form == "tiled"
+
 
 def launch_plan(n: int, b: int, nr: int, sms: int) -> LaunchPlan:
     """The kernel's launches for N pairs of B source and B' (``nr``)
-    reference points on ``sms`` streaming multiprocessors: the shared
-    form while a pair's reference fits a block's shared memory (B' <=
-    17,801), else the tiled form, whose blocks hold at most 128 source
-    rows so that each warp keeps one group of rows across the tiles; the
-    :func:`launch_shape` rule within that; one launch for each chunk of
-    at most 65,535 pairs.  No choice changes a result."""
+    reference points on ``sms`` streaming multiprocessors.  While a
+    pair's reference fits a block's shared memory (B' <= 17,801): the
+    rows form where :func:`launch_shape` gives one block a pair (the
+    pairs alone fill the card; ``ROWS_PER_LANE`` rows a lane, 32 times
+    that a warp), else the warp form at :func:`launch_shape`'s blocks and
+    rows.  Past it the tiled form, whose blocks hold at most 128 source
+    rows so that each warp keeps one group of rows across the tiles.  One
+    launch for each chunk of at most 65,535 pairs.  No choice changes a
+    result."""
     tiled = nr > MAX_SHARED_REF
     blocks, r = launch_shape(n, b, sms)
+    form = "tiled" if tiled else "rows" if blocks == 1 else "warp"
+    if form == "rows":
+        r = 32 * ROWS_PER_LANE
     if tiled and -(-b // blocks) > _TILED_ROWS:
         blocks = -(-b // _TILED_ROWS)
         rows = -(-b // blocks)
@@ -258,7 +350,7 @@ def launch_plan(n: int, b: int, nr: int, sms: int) -> LaunchPlan:
             r *= 2
     chunks = tuple((n0, min(n, n0 + MAX_PAIRS))
                    for n0 in range(0, n, MAX_PAIRS))
-    return LaunchPlan(tiled, blocks, r, chunks)
+    return LaunchPlan(form, blocks, r, chunks)
 
 
 def _tickets(device: torch.device, stream, n: int) -> torch.Tensor:
@@ -298,6 +390,7 @@ def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
     if doubles and plan.tiled:
         best = torch.empty((n, nr), dtype=torch.int32, device=cur.device)
     key = f"{name}_wide" if plan.tiled else name
+    form = _FORM_ARG[plan.form]
     arrays = (cur, sv, ref, rv, q1, q2, d1, ok, j1, tickets, best)
     for n0, n1 in plan.chunks:
         # each chunk's own slice of every array: its first pair's address
@@ -307,11 +400,12 @@ def _launch(cur, src_valid, ref, ref_valid, max_d2, doubles, line, name):
         rc = lib.tpuslam_plicp_corr(
             p_cur, p_sv, p_ref, p_rv, n1 - n0, b, nr, float(max_d2),
             int(line), int(doubles), plan.blocks, plan.rows_per_warp,
-            int(plan.tiled), p_q1, p_q2, p_d1, p_ok, p_j1, p_t, p_best,
+            form, p_q1, p_q2, p_d1, p_ok, p_j1, p_t, p_best,
             stream.cuda_stream,
         )
         _build.check(rc, "tpuslam_plicp_corr")
         LAUNCHES[key] += 1
+        FORMS[plan.form] += 1
     return q1, q2, d1, ok
 
 
